@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path once on one CUDA card.
+"""Drive the PyTorch port's serving and training paths once on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  every phase below
+    python3 chip_smoke.py --profile-train  build, then a torch.profiler
+                                           reading of a few MSVD train steps
 
 Phases, each of which must pass:
   1. device   the card's name and power limit (nvidia-smi); no card -> exit 1
@@ -17,14 +19,32 @@ Phases, each of which must pass:
               module path on the card
   5. b128     greedy_generate_fused at B=128 (fused_layers_step +
               fused_norm_generator_argmax) against the module path
-  6. timings  kernel vs plain times, ms per token of both decode paths at
-              B=1, 32 and 128, captions/s of the server phase
+  6. loss-kernels  the three fused-loss kernels against their plain versions
+              at N=1984, E=768, V=30522 in bfloat16 (and float32 at N=300):
+              SCE and CE-only, a ragged last row tile, labels in the last
+              partial vocab tile, rows of zero weight; the four loss parts
+              and every gradient through the autograd function against the
+              chunked route
+  7. train    a synthetic MSVD-shaped dataset (features, annotations, the
+              30522-entry vocab) and configs/msvd.json with only paths and
+              the epoch count changed, through vct_tpu_torch.cli.train's
+              main: 20 train steps at batch 64, a validation pass, an eval
+              decode and a checkpoint; then a second run resumes it for one
+              more epoch. Every loss finite, the training loss falls, 3 loss
+              kernel launches per train step and 2 per validation step, and
+              step 0's loss and gradients equal on the kernel route and the
+              chunked route
+  8. timings  kernel, plain and library-call times with each kernel's bound,
+              ms per token of both decode paths at B=1, 32 and 128,
+              captions/s of the server phase, the loss routes at N=1984 and
+              N=7936, ms per train step with the fused loss on and off
 
-Launch counts are set to 0 just before phases 4 and 5 and read just after
+Launch counts are set to 0 just before phases 4, 5 and 7 and read just after
 each: the server must have launched the whole-step kernel, the B=128 decode
-the other two. The line before the last is a JSON object with one entry per
-kernel; the last line is {"ok": true, "device": {...}}, printed only when
-every phase passed. Any failure exits 1 before it.
+the other two decode kernels, training the three loss kernels. The line
+before the last is a JSON object with one entry per kernel; the last line is
+{"ok": true, "device": {...}}, printed only when every phase passed. Any
+failure exits 1 before it.
 """
 
 from __future__ import annotations
@@ -32,6 +52,7 @@ from __future__ import annotations
 import dataclasses
 import io
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -58,11 +79,24 @@ NEAR_TIE_SAME = 1e-2       # kernel vs plain version: same rounding points
 # the kernels' fp32-statistics schedule by a few such units.
 NEAR_TIE_MODULE = 0.125
 SOURCE = "vct_tpu_torch/csrc/decode_step.cu"
+LOSS_SOURCE = "vct_tpu_torch/csrc/sce_loss.cu"
 REPLACES = {
     "fused_whole_step": "vct_tpu/ops/pallas_decode.py:581",
     "fused_layers_step": "vct_tpu/ops/pallas_decode.py:516",
     "fused_norm_generator_argmax": "vct_tpu/ops/pallas_decode.py:811",
 }
+LOSS_REPLACES = {
+    "softmax_stats": "vct_tpu/ops/pallas_loss.py:124",
+    "clipped_prob_stats": "vct_tpu/ops/pallas_loss.py:207",
+    "sce_backward_tiles": "vct_tpu/ops/pallas_loss.py:305",
+}
+# Published peaks of one H100 SXM (NVIDIA's data sheet): the least time a
+# kernel could take is the larger of bytes / HBM rate and operations / peak.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# the MSVD train step's loss shape: batch 64 x 31 positions, width 768
+LOSS_N, LOSS_E, LOSS_V = 1984, 768, 30522
+TRAIN_STEPS, VAL_STEPS, BATCH = 20, 2, 64
 
 
 def fail(msg: str) -> None:
@@ -87,6 +121,17 @@ def synthetic_vocab(path: Path, size: int = 30522) -> None:
     special = {0: "[PAD]", 100: "[UNK]", 101: "[CLS]", 102: "[SEP]", 103: "[MASK]"}
     words = [special.get(i, f"[unused{i}]" if i < 100 else f"w{i}") for i in range(size)]
     path.write_text("\n".join(words) + "\n")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound_ms(n_bytes: float, n_ops: float, dtype) -> tuple:
+    """(least ms the card could take, "bytes" or "operations")."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_ops / PEAK_OPS_PER_S[dtype] * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
 def cuda_time(fn, iters: int = 20) -> float:
@@ -230,26 +275,58 @@ def check_kernels(fw, heads, tm):
     return errs
 
 
+def step_bound(fw, a, b, l_view, gen: bool):
+    """Bound of one decode step: every weight, the attended cache rows, the
+    cross K/V and the activations once; 2 operations per weight and row."""
+    st = fw["stacked"]
+    mats = [st[k] for k in ("wqkv", "wo", "wcq", "wco", "w1", "w2")]
+    tensors = list(st.values()) + [a["x"], a["kc"][:, :l_view], a["vc"][:, :l_view],
+                                   a["ck"], a["cv"], a["mem_bias"]]
+    if gen:
+        mats.append(fw["wg"])
+        tensors += [fw["wg"], fw["bg"], fw["norm_s"], fw["norm_b"]]
+    ops = 2.0 * b * sum(m.numel() for m in mats)
+    return bound_ms(nbytes(*tensors) + nbytes(a["x"]), ops, a["x"].dtype)
+
+
 def time_kernels(fw, heads, tm):
+    """name -> {ms, plain_ms, bound_ms, bound_by, library_ms} of the decode
+    kernels at the shapes the serving path gives them."""
+    import torch.nn.functional as F
+
     from vct_tpu_torch.ops import decode_kernels as dk
 
     out = {}
     a = step_inputs(fw, 32, 12, tm, gen=4000)
     args = (a["x"], a["kc"], a["vc"], a["ck"], a["cv"], a["mem_bias"])
-    out["fused_whole_step"] = (
-        cuda_time(lambda: dk.fused_whole_step(*args, fw, 12, heads=heads, l_view=16)),
-        cuda_time(lambda: dk.fused_whole_step_reference(*args, fw, 12, heads=heads,
-                                                        l_view=16)))
+    bnd = step_bound(fw, a, 32, 16, True)
+    out["fused_whole_step"] = {
+        "ms": cuda_time(lambda: dk.fused_whole_step(*args, fw, 12, heads=heads, l_view=16)),
+        "plain_ms": cuda_time(lambda: dk.fused_whole_step_reference(
+            *args, fw, 12, heads=heads, l_view=16)),
+        "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
     a = step_inputs(fw, 128, 12, tm, gen=4001)
     args = (a["x"], a["kc"], a["vc"], a["ck"], a["cv"], a["mem_bias"], fw["stacked"])
-    out["fused_layers_step"] = (
-        cuda_time(lambda: dk.fused_layers_step(*args, 12, heads=heads, l_view=16)),
-        cuda_time(lambda: dk.fused_layers_step_reference(*args, 12, heads=heads,
-                                                         l_view=16)))
-    gargs = (a["x"], fw["norm_s"], fw["norm_b"], fw["wg"], fw["bg"])
-    out["fused_norm_generator_argmax"] = (
-        cuda_time(lambda: dk.fused_norm_generator_argmax(*gargs)),
-        cuda_time(lambda: dk.fused_norm_generator_argmax_reference(*gargs)))
+    bnd = step_bound(fw, a, 128, 16, False)
+    out["fused_layers_step"] = {
+        "ms": cuda_time(lambda: dk.fused_layers_step(*args, 12, heads=heads, l_view=16)),
+        "plain_ms": cuda_time(lambda: dk.fused_layers_step_reference(
+            *args, 12, heads=heads, l_view=16)),
+        "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
+    x = a["x"]
+    gargs = (x, fw["norm_s"], fw["norm_b"], fw["wg"], fw["bg"])
+    bg_dt = fw["bg"].to(x.dtype)
+
+    def library_argmax():  # layer_norm -> product on the bf16 weights -> argmax
+        yn = F.layer_norm(x.float(), (x.shape[1],), fw["norm_s"], fw["norm_b"], 1e-5)
+        return torch.argmax(torch.addmm(bg_dt, yn.to(x.dtype), fw["wg"]), dim=-1)
+
+    bnd = bound_ms(nbytes(*gargs) + 4 * x.shape[0], 2.0 * x.shape[0] * fw["wg"].numel(),
+                   x.dtype)
+    out["fused_norm_generator_argmax"] = {
+        "ms": cuda_time(lambda: dk.fused_norm_generator_argmax(*gargs)),
+        "plain_ms": cuda_time(lambda: dk.fused_norm_generator_argmax_reference(*gargs)),
+        "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": cuda_time(library_argmax)}
     return out
 
 
@@ -426,6 +503,479 @@ def time_decode(model, fw, card):
     return report
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the fused-loss kernels against their plain versions
+# ---------------------------------------------------------------------------
+# Tolerances. Kernel and plain version round the logits tile to the compute
+# dtype at the same point but sum the product in another order, so a logit on
+# a rounding boundary may land one unit apart: at |z| < 8 a bfloat16 unit is
+# 2**-5, which moves that column's p (and dz) by up to 3% and the label logit
+# zt by 0.03. Per-row float32 statistics (lse, sa) average over 30522 columns
+# and agree to 2e-3 absolute in bfloat16, 2e-5 in float32; cnt counts p > 1e-7
+# and may differ by the few columns that sit on the threshold. dx, dbg, dwg
+# are sums of dz: max error at most 2% of the largest value.
+STAT_ATOL = {torch.bfloat16: 2e-3, torch.float32: 2e-5}
+ZT_ATOL = {torch.bfloat16: 0.04, torch.float32: 2e-5}
+GRAD_REL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+
+
+def loss_inputs(dev, dt, n, seed, e=LOSS_E, v=LOSS_V):
+    """Seeded loss inputs at the generator's shape: some labels in the last,
+    partial vocab tile, some pad labels, rows 8..16 with zero weights."""
+    from vct_tpu_torch.ops import loss_kernels as lk
+
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((n, e), generator=g).to(dev)
+    wg = (torch.randn((v, e), generator=g) / math.sqrt(e)).to(dev)
+    bg = (torch.randn((v,), generator=g) * 0.1).to(dev)
+    labels = torch.randint(0, v, (n,), generator=g)
+    labels[:6] = torch.arange(v - 6, v)  # past the last full tile of 512
+    labels[20:40] = 0
+    labels = labels.to(dev)
+    keep = (labels != 0).float()
+    rect = (torch.rand((n,), generator=g) > 0.2).float().to(dev)
+    keep[8:16] = 0.0
+    rect[8:16] = 0.0
+    w, b = lk.pad_generator(wg, bg, dt)
+    return {"x": x, "wg": wg, "bg": bg, "labels": labels, "keep": keep, "rect": rect,
+            "x_dt": x.to(dt).contiguous(), "w": w, "b": b,
+            "lab32": labels.to(torch.int32).contiguous()}
+
+
+def max_err(name, got, want, atol):
+    if not bool(torch.isfinite(got.float()).all()):
+        fail(f"{name}: non-finite values")
+    err = float((got.float() - want.float()).abs().max())
+    if err > atol:
+        fail(f"{name}: max abs difference {err} > {atol}")
+    return err
+
+
+def abs_and_rel(name, got, want, rel):
+    """Holds the difference under ``rel`` of the largest wanted value ->
+    (max abs difference, the same as a share of that value)."""
+    scale = float(want.float().abs().max())
+    err = max_err(name, got, want, rel * scale + 1e-12)
+    return err, err / max(scale, 1e-30)
+
+
+def rel_err(name, got, want, rel):
+    return abs_and_rel(name, got, want, rel)[1]
+
+
+def check_loss_kernels(dev):
+    from vct_tpu_torch.ops import fused_loss as fl
+    from vct_tpu_torch.ops import loss_kernels as lk
+    from vct_tpu_torch.ops._build import load_library
+
+    for dt, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        if load_library().vct_sce_block_rows(code) != lk.ROW_TILE[dt]:
+            fail("loss_kernels.ROW_TILE disagrees with the built kernels")
+    errs = {k: 0.0 for k in LOSS_REPLACES}
+    # of sce_backward_tiles: dx and dbg as a share of their largest value, and
+    # the share of dz elements more than one unit of the compute dtype apart
+    bwd = {"max_rel_err": 0.0, "dz_beyond_one_unit": 0.0}
+    # N=1984 is the train step's shape; 1000 and 300 end in a ragged row tile;
+    # the widths above 768 make dx in column slabs (768 + 128)
+    for dt, n, e, v in ((torch.bfloat16, LOSS_N, LOSS_E, LOSS_V),
+                        (torch.bfloat16, 1000, LOSS_E, LOSS_V),
+                        (torch.float32, 300, LOSS_E, LOSS_V),
+                        (torch.bfloat16, 300, 896, 3000), (torch.float32, 300, 896, 3000)):
+        a = loss_inputs(dev, dt, n, seed=n, e=e, v=v)
+        x, w, b, lab = a["x_dt"], a["w"], a["b"], a["lab32"]
+        name = f"N={n} E={e} V={v} {str(dt).split('.')[1]}"
+        m, s, zt = lk.softmax_stats(x, w, b, lab)
+        m_r, s_r, zt_r = lk.softmax_stats_reference(x, w, b, lab)
+        lse = m_r + torch.log(s_r)
+        sa, cnt = lk.clipped_prob_stats(x, w, b, lse)
+        sa_r, cnt_r = lk.clipped_prob_stats_reference(x, w, b, lse)
+        u, cc, lt = fl._bwd_coefficients(
+            torch.tensor(0.5 / n, device=dev), torch.tensor(0.5 / n, device=dev),
+            a["keep"], a["rect"], lse, zt_r, sa_r, True)
+        bargs = (x, w, b, lse, u.contiguous(), cc.contiguous(), lt.contiguous(), lab)
+        dx, dz, parts = lk.sce_backward_tiles(*bargs)
+        dx_r, dz_r, parts_r = lk.sce_backward_tiles_reference(*bargs)
+        torch.cuda.synchronize()
+        errs["softmax_stats"] = max(
+            errs["softmax_stats"],
+            max_err(f"softmax_stats {name} lse", m + torch.log(s), lse, STAT_ATOL[dt]),
+            max_err(f"softmax_stats {name} zt", zt, zt_r, ZT_ATOL[dt]))
+        if float((zt - zt_r).abs().mean()) > STAT_ATOL[dt]:
+            fail(f"softmax_stats {name}: mean zt difference above {STAT_ATOL[dt]}")
+        errs["clipped_prob_stats"] = max(
+            errs["clipped_prob_stats"],
+            max_err(f"clipped_prob_stats {name} sa", sa, sa_r, STAT_ATOL[dt]))
+        max_err(f"clipped_prob_stats {name} cnt", cnt, cnt_r, 8.0)
+        err = (dz.float() - dz_r.float()).abs()
+        ref = dz_r.float().abs()
+        unit = 2.0 ** -7 if dt == torch.bfloat16 else 2e-5
+        off = float((err > unit * ref + 1e-12).float().mean())
+        if off > 1e-3 or not bool((err <= 0.05 * ref + 1e-12).all()):
+            fail(f"sce_backward_tiles {name}: dz off by more than one unit in {off:.2e} of "
+                 f"the elements, worst {float((err / (ref + 1e-12)).max()):.3g} relative")
+        if float(dz[8:16].float().abs().max()) != 0.0:
+            fail(f"sce_backward_tiles {name}: zero-weight rows gave a gradient")
+        dx_err = abs_and_rel(f"sce_backward_tiles {name} dx", dx, dx_r, GRAD_REL[dt])
+        dbg_err = abs_and_rel(f"sce_backward_tiles {name} dbg", parts.sum(0), parts_r.sum(0),
+                              GRAD_REL[dt])
+        errs["sce_backward_tiles"] = max(errs["sce_backward_tiles"], dx_err[0], dbg_err[0],
+                                         float(err.max()))
+        bwd["max_rel_err"] = max(bwd["max_rel_err"], dx_err[1], dbg_err[1])
+        bwd["dz_beyond_one_unit"] = max(bwd["dz_beyond_one_unit"], off)
+        say(f"  ok kernels {name}: dz beyond one unit in {off:.2e} of the elements")
+        # the autograd function: kernel route against the chunked route
+        for with_rce in (True, False):
+            outs = []
+            for use_kernels in (True, False):
+                leaves = [a[k].clone().requires_grad_() for k in ("x", "wg", "bg")]
+                before = [fn.launches for fn in lk.WRAPPERS]
+                parts4 = fl.linear_sce_parts(*leaves, a["labels"], a["keep"], a["rect"], dt,
+                                             2048, with_rce, use_kernels)
+                loss = 0.5 * parts4[0] / parts4[1] + 0.5 * parts4[2] / parts4[3].clamp(min=1)
+                loss.backward()
+                torch.cuda.synchronize()
+                got = [fn.launches - c for fn, c in zip(lk.WRAPPERS, before)]
+                want = [1, int(with_rce), 1] if use_kernels else [0, 0, 0]
+                if got != want:
+                    fail(f"linear_sce_parts {name}: launches {got}, expected {want}")
+                outs.append(([t.detach() for t in parts4], [t.grad for t in leaves]))
+            for i, label in enumerate(("ce_sum", "ce_n", "rce_sum", "rce_n")):
+                rel_err(f"linear_sce_parts {name} {label}", outs[0][0][i], outs[1][0][i],
+                        2e-3 if dt == torch.bfloat16 else 1e-5)
+            for i, label in enumerate(("dx", "dwg", "dbg")):
+                rel_err(f"linear_sce_parts {name} rce={with_rce} {label}", outs[0][1][i],
+                        outs[1][1][i], GRAD_REL[dt])
+        say(f"  ok linear_sce_parts {name}: SCE and CE-only, both routes")
+    say(f"  max abs differences {errs}; sce_backward_tiles {bwd}")
+    return errs, bwd
+
+
+def time_loss_kernels(dev, card):
+    """name -> {ms, plain_ms, bound_ms, bound_by, library_ms} at the train
+    step's shape, and the routes of linear_sce_parts at N=1984 and N=7936."""
+    import torch.nn.functional as F
+
+    from vct_tpu_torch.models.losses import sce_loss_parts
+    from vct_tpu_torch.ops import fused_loss as fl
+    from vct_tpu_torch.ops import loss_kernels as lk
+
+    dt = torch.bfloat16
+    a = loss_inputs(dev, dt, LOSS_N, seed=7)
+    x, w, b, lab = a["x_dt"], a["w"], a["b"], a["lab32"]
+    n, e = x.shape
+    v_pad = w.shape[0]
+    m, s, zt = lk.softmax_stats(x, w, b, lab)
+    lse = (m + torch.log(s)).contiguous()
+    sa, _ = lk.clipped_prob_stats(x, w, b, lse)
+    g = torch.tensor(0.5 / n, device=dev)
+    u, cc, lt = (t.contiguous() for t in fl._bwd_coefficients(
+        g, g, a["keep"], a["rect"], lse, zt, sa, True))
+    bargs = (x, w, b, lse, u, cc, lt, lab)
+    long_lab = a["labels"]
+    one_pass = 2.0 * n * e * v_pad
+    fwd_bytes = nbytes(x, w, b, lab) + 3 * 4 * n
+    bwd_bytes = nbytes(x, w, b, lab) + 4 * 4 * n + 4 * n * e + 2 * n * v_pad \
+        + 4 * v_pad * ((n + lk.ROW_TILE[dt] - 1) // lk.ROW_TILE[dt])
+
+    def lib_stats():  # the materialised logits, then lse - zt
+        return F.cross_entropy(F.linear(x, w, b).float(), long_lab, reduction="none")
+
+    def lib_clip():
+        p = torch.softmax(F.linear(x, w, b).float(), dim=-1)
+        above = p > 1e-7
+        return torch.where(above, p, 0.0).sum(-1), above.sum(-1)
+
+    leaves = [a[k].clone().requires_grad_() for k in ("x", "wg", "bg")]
+
+    def materialised(backward: bool):
+        logits = F.linear(leaves[0].to(dt), leaves[1].to(dt), leaves[2].to(dt))
+        parts = sce_loss_parts(logits, long_lab, ignore_index=0, rect_mask=a["rect"] > 0)
+        loss = 0.5 * parts[0] / parts[1] + 0.5 * parts[2] / parts[3]
+        if backward:
+            for t in leaves:
+                t.grad = None
+            loss.backward()
+        return loss
+
+    mat_fwd = cuda_time(lambda: materialised(False), iters=10)
+    mat_both = cuda_time(lambda: materialised(True), iters=10)
+    out = {}
+    rows_idx = torch.arange(n, device=dev)
+
+    def lib_backward():  # the same outputs from library calls, without dwg
+        p = torch.exp(F.linear(x, w, b).float() - lse[:, None])
+        dz = p * (u[:, None] + cc[:, None] * (p > 1e-7))
+        dz[rows_idx, long_lab] -= lt
+        dz_dt = dz.to(dt)
+        return fl._matmul_f32(dz_dt, w), dz_dt, dz.sum(0)
+
+    for name, kernel, plain, lib, bnd in (
+            ("softmax_stats", lambda: lk.softmax_stats(x, w, b, lab),
+             lambda: lk.softmax_stats_reference(x, w, b, lab), lib_stats,
+             bound_ms(fwd_bytes, one_pass, dt)),
+            ("clipped_prob_stats", lambda: lk.clipped_prob_stats(x, w, b, lse),
+             lambda: lk.clipped_prob_stats_reference(x, w, b, lse), lib_clip,
+             bound_ms(fwd_bytes, one_pass, dt)),
+            ("sce_backward_tiles", lambda: lk.sce_backward_tiles(*bargs),
+             lambda: lk.sce_backward_tiles_reference(*bargs), lib_backward,
+             bound_ms(bwd_bytes, 2 * one_pass, dt))):
+        out[name] = {"ms": cuda_time(kernel, iters=10), "plain_ms": cuda_time(plain, iters=3),
+                     "bound_ms": bnd[0], "bound_by": bnd[1],
+                     "library_ms": cuda_time(lib, iters=10)}
+    for name, t in out.items():
+        say(f"  {name}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}), library {t['library_ms']:.4f} ms "
+            f"[{card}]")
+    say(f"  materialised route (F.linear -> sce_loss_parts) N={n}: forward {mat_fwd:.4f} ms, "
+        f"forward+backward {mat_both:.4f} ms [{card}]")
+    report = {"loss_materialised_fwd_ms": mat_fwd, "loss_materialised_fwd_bwd_ms": mat_both}
+    # the function under linear_sce_parts with the route given, so that N=7936,
+    # outside the dispatch window, can be read on the kernel route too
+    for rows in (LOSS_N, 4 * LOSS_N):
+        a = loss_inputs(dev, dt, rows, seed=rows + 1)
+        for label, kernels in (("kernel", True), ("chunked", False)):
+            lv = [a[k].clone().requires_grad_() for k in ("x", "wg", "bg")]
+
+            def run():
+                for t in lv:
+                    t.grad = None
+                parts = fl._LinearSCE.apply(*lv, a["labels"], a["keep"], a["rect"], dt, 2048,
+                                            True, kernels)
+                (parts[0] / parts[1] + parts[2] / parts[3]).backward()
+
+            ms = cuda_time(run, iters=5)
+            report[f"loss_{label}_route_n{rows}_ms"] = ms
+            say(f"  linear_sce_parts forward+backward N={rows} {label} route: "
+                f"{ms:.3f} ms [{card}]")
+    return out, report
+
+
+# ---------------------------------------------------------------------------
+# phase 7: training through the CLI
+# ---------------------------------------------------------------------------
+
+
+def write_dataset(root: Path) -> None:
+    """A seeded MSVD-shaped workspace under ``root``. Captions draw on 40
+    words so a few steps already lower the loss; 160 train videos x 8
+    captions give TRAIN_STEPS batches of 64, 16 validation videos x 8 give
+    VAL_STEPS."""
+    rng = np.random.default_rng(SEED)
+    words = [f"w{i}" for i in rng.choice(np.arange(1000, 30522), 40, replace=False)]
+    for split, n_vid in (("train", TRAIN_STEPS * BATCH // 8), ("val", VAL_STEPS * BATCH // 8)):
+        feat_dir = root / "feats" / split
+        feat_dir.mkdir(parents=True)
+        lines = []
+        for i in range(n_vid):
+            np.save(feat_dir / f"{split}{i}.npy",
+                    rng.standard_normal((int(rng.integers(6, 15)), 512)).astype(np.float32))
+            for _ in range(8):
+                cap = " ".join(rng.choice(words, int(rng.integers(4, 25))))
+                lines.append(f"{split}{i} {cap}")
+        (root / f"{split}.txt").write_text("\n".join(lines))
+
+
+def train_config(repo: Path, root: Path, vocab: Path, epochs: int, **tpu) -> Path:
+    """configs/msvd.json with the workspace's paths and ``epochs`` -> file."""
+    cfg = json.loads((repo / "configs" / "msvd.json").read_text())
+    for name, split in (("train", "train"), ("validation", "val"), ("eval", "val")):
+        cfg["data"][name]["feat_dir"] = [str(root / "feats" / split)]
+        cfg["data"][name]["annotation_path"] = str(root / f"{split}.txt")
+    cfg["train"].update(epoch=epochs, save_dir=str(root / "ckpt"), log_dir=str(root / "log"),
+                        tag="smoke")
+    cfg["tpu"].update(vocab_path=str(vocab), progress_bar=False, **tpu)
+    path = root / ("_".join(["msvd", str(epochs)] + [f"{k}{v}" for k, v in tpu.items()])
+                   + ".json")
+    path.write_text(json.dumps(cfg))
+    return path
+
+
+def run_training(repo: Path, root: Path, vocab: Path):
+    import vct_tpu_torch.train.loop as loop
+    from vct_tpu_torch.cli import train as train_cli
+    from vct_tpu_torch.ops import decode_kernels as dk
+    from vct_tpu_torch.ops import loss_kernels as lk
+
+    losses, val_parts = [], []
+    make_train, make_eval = loop.make_train_step, loop.make_eval_step
+
+    def recording_train(task):
+        step = make_train(task)
+
+        def wrapped(state, batch):
+            state, metrics = step(state, batch)
+            losses.append(metrics["loss"])
+            return state, metrics
+
+        return wrapped
+
+    def recording_eval(task):
+        step = make_eval(task)
+
+        def wrapped(model, batch):
+            parts = step(model, batch)
+            val_parts.append(parts)
+            return parts
+
+        return wrapped
+
+    plain_on_cuda = []
+    originals = {}
+    for name in ("softmax_stats_reference", "clipped_prob_stats_reference",
+                 "sce_backward_tiles_reference"):
+        fn = originals[name] = getattr(lk, name)
+
+        def spy(x, *a, _fn=fn, _name=name, **k):
+            if x.is_cuda:
+                plain_on_cuda.append(_name)
+            return _fn(x, *a, **k)
+
+        setattr(lk, name, spy)
+    loop.make_train_step, loop.make_eval_step = recording_train, recording_eval
+    try:
+        for fn in lk.WRAPPERS + dk.WRAPPERS:
+            fn.launches = 0
+        scores = train_cli.main(["-c", str(train_config(repo, root, vocab, 1)),
+                                 "--no_tensorboard"])
+        torch.cuda.synchronize()
+        launches = {fn.__name__: fn.launches for fn in lk.WRAPPERS}
+        decode_launches = dk.fused_whole_step.launches
+        first = [float(v) for v in losses]
+        vals = [{k: float(v) for k, v in parts.items()} for parts in val_parts]
+        losses.clear()
+        train_cli.main(["-c", str(train_config(repo, root, vocab, 2)), "--no_tensorboard",
+                        "--resume", "auto"])
+        torch.cuda.synchronize()
+        second = [float(v) for v in losses]
+    finally:
+        loop.make_train_step, loop.make_eval_step = make_train, make_eval
+        for name, fn in originals.items():
+            setattr(lk, name, fn)
+    want = {"softmax_stats": TRAIN_STEPS + VAL_STEPS, "clipped_prob_stats": TRAIN_STEPS + VAL_STEPS,
+            "sce_backward_tiles": TRAIN_STEPS}
+    if len(first) != TRAIN_STEPS or len(vals) != VAL_STEPS or len(second) != TRAIN_STEPS:
+        fail(f"train: {len(first)} + {len(second)} train steps, {len(vals)} validation steps")
+    if launches != want:
+        fail(f"train: loss kernel launches {launches}, expected {want} "
+             f"(3 per train step, 2 per validation step)")
+    if plain_on_cuda:
+        fail(f"train: plain versions ran on CUDA tensors: {sorted(set(plain_on_cuda))}")
+    if decode_launches == 0:
+        fail("train: the eval decode never launched fused_whole_step")
+    if not all(math.isfinite(v) for v in first + second) or \
+            not all(math.isfinite(v) for parts in vals for v in parts.values()):
+        fail("train: a loss is not finite")
+    head, tail = sum(first[:5]) / 5, sum(first[-5:]) / 5
+    resumed = sum(second) / len(second)
+    if not tail < head or not resumed < head:
+        fail(f"train: the loss did not fall: first five {head}, last five {tail}, resumed "
+             f"epoch {resumed}")
+    if not (root / "ckpt" / "smoke_latest.pt").is_file() or \
+            set(scores) < {"Bleu_4", "METEOR", "ROUGE_L", "CIDEr"}:
+        fail(f"train: no checkpoint or no scores ({scores})")
+    say(f"  {TRAIN_STEPS} train steps: loss {head:.4f} (first five) -> {tail:.4f} (last "
+        f"five); resumed epoch {resumed:.4f}; launches {launches}; eval decode "
+        f"fused_whole_step launches {decode_launches}")
+    return launches
+
+
+def make_trainer(repo, root, vocab, dev, **tpu):
+    from vct_tpu_torch.cli.common import load_config
+    from vct_tpu_torch.train.loop import Trainer
+
+    cfg = load_config(str(train_config(repo, root, vocab, 1, **tpu)))
+    return Trainer(cfg, device=dev, log=lambda *_: None)
+
+
+def first_batch(trainer):
+    from vct_tpu_torch.train.step import batch_to_arrays
+
+    trainer.loaders["train"].set_epoch(0)
+    return batch_to_arrays(next(iter(trainer.loaders["train"])), trainer.device)
+
+
+def check_step0_routes(repo, root, vocab, dev):
+    """Step 0 of training with the same weights, batch and dropout masks on
+    the kernel route and on the chunked route: loss within 1e-3 relative,
+    every gradient within 3% of its largest value (bfloat16 logits one unit
+    apart move single dz elements by up to 3%)."""
+    grads, losses = [], []
+    for kernels in (True, False):
+        tr = make_trainer(repo, root, vocab, dev, fused_loss_pallas=kernels)
+        batch = first_batch(tr)
+        tr.model.train()
+        loss = tr.model.caption_loss(batch["feats"], batch["masks"], batch["token_ids"],
+                                     batch["token_mask"], row_valid=batch["row_valid"])
+        loss.backward()
+        torch.cuda.synchronize()
+        losses.append(float(loss.detach()))
+        grads.append({k: p.grad for k, p in tr.model.named_parameters()})
+    if abs(losses[0] - losses[1]) > 1e-3 * abs(losses[1]):
+        fail(f"step 0: loss {losses[0]} on the kernel route, {losses[1]} on the chunked route")
+    worst = 0.0
+    for k, ref in grads[1].items():
+        worst = max(worst, rel_err(f"step 0 gradient {k}", grads[0][k], ref, 3e-2))
+    say(f"  step 0: loss {losses[0]:.6f} (kernel route) vs {losses[1]:.6f} (chunked route), "
+        f"worst gradient difference {worst:.3g} of its largest value, "
+        f"{len(grads[1])} parameters")
+
+
+def time_train_steps(repo, root, vocab, dev, card):
+    """ms per train step (batch 64, dropout on) on a fixed batch: fused loss
+    on the kernel route, on the chunked route, and off (materialised logits)."""
+    report = {}
+    for label, tpu in (("fused_kernels", {}), ("fused_chunked", {"fused_loss_pallas": False}),
+                       ("materialised", {"use_fused_loss": False})):
+        tr = make_trainer(repo, root, vocab, dev, **tpu)
+        batch = first_batch(tr)
+        for _ in range(3):
+            tr.train_step(tr.state, batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            tr.train_step(tr.state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 100
+        report[f"train_step_ms_{label}"] = ms
+        say(f"  train step, loss {label}: {ms:.2f} ms [{card}]")
+    return report
+
+
+def profile_train(repo, root, vocab, dev, card):
+    """Where a train step's time goes on the kernel route: ms per step without
+    the profiler, then torch.profiler over 10 steps for the device's busy
+    time by kernel. The idle share sets the busy time against the unprofiled
+    step, since the profiler slows the host several times over."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tr = make_trainer(repo, root, vocab, dev)
+    batch = first_batch(tr)
+    for _ in range(3):
+        tr.train_step(tr.state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        tr.train_step(tr.state, batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 100
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            tr.train_step(tr.state, batch)
+        torch.cuda.synchronize()
+    profiled_ms = (time.perf_counter() - t0) * 100
+    rows = [(e.key, e.device_time_total / 1e4, e.count / 10) for e in prof.key_averages()
+            if e.device_time_total > 0 and str(e.device_type).endswith("CUDA")
+            and not getattr(e, "is_user_annotation", False)
+            and not e.key.startswith(("Optimizer.", "ProfilerStep"))]
+    busy = sum(r[1] for r in rows)
+    say(f"profile of 10 train steps [{card}]: {step_ms:.2f} ms/step unprofiled "
+        f"({profiled_ms:.1f} under the profiler), device busy {busy:.2f} ms/step, idle share "
+        f"{1 - busy / step_ms:.2f}, {sum(r[2] for r in rows):.0f} kernels/step")
+    for key, ms, count in sorted(rows, key=lambda r: -r[1])[:14]:
+        say(f"  {ms:8.3f} ms/step  {count:6.1f}/step  {key[:100]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs a CUDA card")
@@ -439,6 +989,7 @@ def main() -> int:
     card = card_line()
     say(card)
     kind = torch.cuda.get_device_name(0)
+    dev = torch.device("cuda", 0)
     say(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}, "
         f"{torch.cuda.device_count()} device(s)")
 
@@ -458,13 +1009,17 @@ def main() -> int:
         work = Path(tmp)
         vocab = work / "vocab.txt"
         synthetic_vocab(vocab)
+        write_dataset(work)
+        if "--profile-train" in sys.argv[1:]:
+            profile_train(repo, work, vocab, dev, card)
+            return 0
         cfg = load_config(str(repo / "configs" / "msvd.json"))
         cfg = cfg.replace(tpu=dataclasses.replace(cfg.tpu, vocab_path=str(vocab)))
         model, _ = make_trainer_pieces(cfg, torch.device("cpu"), seed=SEED)
         ckpt = work / "msvd_seeded.pth"
         torch.save(model.state_dict(), ckpt)
         n_params = sum(t.numel() for t in model.state_dict().values())
-        model = model.to(torch.device("cuda", 0)).to_compute_dtype()
+        model = model.to(dev).to_compute_dtype()
         fw = extract_fast_weights(model)
         fw["vocab"] = model.config.vocab_size
         heads, tm = fw["heads"], cfg.tpu.max_frames + 1
@@ -479,18 +1034,33 @@ def main() -> int:
         say("phase b128: greedy_generate_fused at B=128 (two-kernel path)")
         launches = run_b128(model, fw)
         launches["fused_whole_step"] = whole_launches
+        say("phase loss-kernels: fused-loss kernels against their plain versions")
+        loss_errs, bwd_errs = check_loss_kernels(dev)
+        errs.update(loss_errs)
+        say(f"phase train: vct_tpu_torch.cli.train on {TRAIN_STEPS} batches of {BATCH}, "
+            f"then a resumed epoch")
+        launches.update(run_training(repo, work, vocab))
+        check_step0_routes(repo, work, vocab, dev)
         say(f"phase timings [{card}]")
         kernel_times = time_kernels(fw, heads, tm)
-        for name, (ms, plain) in kernel_times.items():
-            say(f"  {name}: kernel {ms:.4f} ms, plain {plain:.4f} ms [{card}]")
+        for name, t in kernel_times.items():
+            lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
+            say(f"  {name}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+                f"{t['bound_ms']:.4f} ms ({t['bound_by']}), library {lib} [{card}]")
         report = {"server_captions_per_s": cps, **time_decode(model, fw, card)}
+        loss_times, loss_report = time_loss_kernels(dev, card)
+        kernel_times.update(loss_times)
+        report.update(loss_report)
+        report.update(time_train_steps(repo, work, vocab, dev, card))
 
     say(json.dumps(report))
+    sources = {**{k: SOURCE for k in REPLACES}, **{k: LOSS_SOURCE for k in LOSS_REPLACES}}
+    extra = {"sce_backward_tiles": bwd_errs}
     say(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-         "launches": launches[name], "max_abs_err": errs[name],
-         "ms": kernel_times[name][0], "plain_ms": kernel_times[name][1]}
-        for name in REPLACES]}))
+        {"name": name, "route": "cuda", "source": sources[name], "replaces": replaces,
+         "launches": launches[name], "max_abs_err": errs[name], **kernel_times[name],
+         **extra.get(name, {})}
+        for name, replaces in {**REPLACES, **LOSS_REPLACES}.items()]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
     return 0

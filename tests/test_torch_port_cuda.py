@@ -1,4 +1,5 @@
-"""The CUDA decode kernels against their plain PyTorch versions, on the card.
+"""The CUDA decode and loss kernels against their plain PyTorch versions, on
+the card.
 
 These tests need a CUDA card and skip elsewhere. The machine with the card
 has no JAX, so this file imports only torch and the port, and runs without
@@ -154,3 +155,139 @@ def test_wrapper_rejects_bad_layouts(cuda):
     with pytest.raises(ValueError, match="is on cpu"):
         dk.fused_norm_generator_argmax(x, fw["norm_s"].cpu(), fw["norm_b"],
                                        fw["wg"], fw["bg"])
+
+
+# ---------------------------------------------------------------------------
+# the fused-loss kernels (csrc/sce_loss.cu)
+# ---------------------------------------------------------------------------
+# Tolerances: the float32 statistics and sums differ from the plain version by
+# float-summation order (the product's k order, the warp reductions):
+# rtol 2e-5 at float32, and for bfloat16 inputs the same since both round
+# the logits tile to bfloat16 at the same point — but a logit on a rounding
+# boundary may land one bfloat16 unit apart, which moves a row's statistic by
+# up to 2**-8 of one probability; hence atol 2e-3 there. dz in bfloat16:
+# one unit in the last place (2**-7 relative covers it) for all but the few
+# elements whose logit landed one bfloat16 unit apart (a unit of 2**-5 at
+# |z| < 8 moves p, and so dz, by up to 3%): under 0.1% of the elements may
+# exceed one unit and none may exceed 5%.
+
+LN, LE, LV = 300, 128, 1111
+
+
+def _loss_inputs(dev, dt, n=LN, seed=0, zero_rows=True, e=LE):
+    from vct_tpu_torch.ops import loss_kernels as lk
+
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((n, e), generator=g).to(dev, dt)
+    wg = (torch.randn((LV, e), generator=g) / e ** 0.5).to(dev)
+    bg = (torch.randn((LV,), generator=g) * 0.1).to(dev)
+    w, b = lk.pad_generator(wg, bg, dt)
+    labels = torch.randint(0, LV, (n,), generator=g).to(dev, torch.int32)
+    labels[:4] = LV - 1   # the last, partial vocab tile
+    labels[4:8] = 0
+    rows = {k: torch.rand((n,), generator=g).to(dev) for k in ("u", "cc", "lt")}
+    if zero_rows:
+        for t in rows.values():
+            t[8:16] = 0.0
+    return lk, x, w, b, labels, rows
+
+
+STAT_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5), torch.bfloat16: dict(rtol=2e-3, atol=2e-3)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,e", [(LN, LE), (256, LE), (33, LE), (33, 1664)])
+def test_loss_forward_kernels(cuda, dt, n, e):
+    lk, x, w, b, labels, _ = _loss_inputs(cuda, dt, n=n, seed=n, e=e)
+    before = [fn.launches for fn in lk.WRAPPERS]
+    m, s, zt = lk.softmax_stats(x, w, b, labels)
+    m_r, s_r, zt_r = lk.softmax_stats_reference(x, w, b, labels)
+    lse = m_r + torch.log(s_r)
+    sa, cnt = lk.clipped_prob_stats(x, w, b, lse)
+    sa_r, cnt_r = lk.clipped_prob_stats_reference(x, w, b, lse)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in lk.WRAPPERS] == [before[0] + 1, before[1] + 1, before[2]]
+    torch.testing.assert_close(m + torch.log(s), lse, **STAT_TOL[dt])
+    torch.testing.assert_close(zt, zt_r, **STAT_TOL[dt])
+    torch.testing.assert_close(sa, sa_r, **STAT_TOL[dt])
+    # a probability within rounding of 1e-7 may fall on either side
+    assert float((cnt - cnt_r).abs().max()) <= 2.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,e", [(LN, LE), (33, LE), (LN, 896), (33, 1664)])
+def test_loss_backward_kernel(cuda, dt, n, e):
+    """Widths above 768 take dx in column slabs: 896 = 768 + 128, 1664 = 768 +
+    768 + 128 (the widest the kernels carry)."""
+    lk, x, w, b, labels, rows = _loss_inputs(cuda, dt, n=n, seed=50 + n, e=e)
+    m, s, _ = lk.softmax_stats_reference(x, w, b, labels)
+    lse = m + torch.log(s)
+    args = (x, w, b, lse, rows["u"], rows["cc"], rows["lt"], labels)
+    dx, dz, parts = lk.sce_backward_tiles(*args)
+    dx_r, dz_r, parts_r = lk.sce_backward_tiles_reference(*args)
+    torch.cuda.synchronize()
+    assert dz.dtype == dt and dx.dtype == torch.float32 and parts.shape == parts_r.shape
+    err = (dz.float() - dz_r.float()).abs()
+    ref = dz_r.float().abs()
+    if dt == torch.bfloat16:
+        assert float((err > 2.0 ** -7 * ref + 1e-9).float().mean()) < 1e-3
+        assert bool((err <= 0.05 * ref + 1e-9).all()), float(err.max())
+    else:
+        assert bool((err <= 2e-5 * ref + 1e-9).all()), float(err.max())
+    assert float(dz[8:16].float().abs().max()) == 0.0  # zero-weight rows give exactly 0
+    torch.testing.assert_close(parts.sum(0), parts_r.sum(0), **STAT_TOL[dt])
+    torch.testing.assert_close(dx, dx_r, **STAT_TOL[dt])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_rce", [True, False])
+def test_linear_sce_parts_kernel_route_matches_chunked_route(cuda, dt, with_rce):
+    from vct_tpu_torch.ops import fused_loss as fl
+    from vct_tpu_torch.ops import loss_kernels as lk
+
+    g = torch.Generator().manual_seed(3)
+    x0 = torch.randn((LN, LE), generator=g).to(cuda)
+    wg0 = (torch.randn((LV, LE), generator=g) / LE ** 0.5).to(cuda)
+    bg0 = (torch.randn((LV,), generator=g) * 0.1).to(cuda)
+    labels = torch.randint(0, LV, (LN,), generator=g).to(cuda)
+    keep = (labels % 7 != 0).float()
+    rect = (labels % 5 != 0).float()
+    outs = []
+    for use_kernels in (True, False):
+        leaves = [t.clone().requires_grad_() for t in (x0, wg0, bg0)]
+        before = [fn.launches for fn in lk.WRAPPERS]
+        parts = fl.linear_sce_parts(*leaves, labels, keep, rect, dt, 512, with_rce,
+                                    use_kernels)
+        loss = 0.5 * parts[0] / parts[1] + 0.5 * parts[2] / parts[3].clamp(min=1.0)
+        loss.backward()
+        torch.cuda.synchronize()
+        got = [fn.launches - b for fn, b in zip(lk.WRAPPERS, before)]
+        assert got == ([1, int(with_rce), 1] if use_kernels else [0, 0, 0])
+        outs.append(([p.detach() for p in parts], [t.grad for t in leaves]))
+    tol = dict(rtol=1e-4, atol=1e-6) if dt == torch.float32 else dict(rtol=2e-2, atol=2e-4)
+    for a, b in zip(outs[0][0], outs[1][0]):
+        torch.testing.assert_close(a, b, **tol)
+    for a, b in zip(outs[0][1], outs[1][1]):
+        torch.testing.assert_close(a, b, **tol)
+
+
+@pytest.mark.cuda
+def test_loss_wrappers_reject_bad_layouts(cuda):
+    lk, x, w, b, labels, _ = _loss_inputs(cuda, torch.bfloat16)
+    from vct_tpu_torch.ops._build import load_library
+
+    assert load_library().vct_sce_block_rows(1) == lk.ROW_TILE[torch.bfloat16]
+    assert load_library().vct_sce_block_rows(0) == lk.ROW_TILE[torch.float32]
+    with pytest.raises(TypeError):
+        lk.softmax_stats(x, w, b, labels.long())
+    with pytest.raises(ValueError, match="multiple of"):
+        lk.softmax_stats(x, w[:-1].contiguous(), b[:-1].contiguous(), labels)
+    with pytest.raises(ValueError, match="is on cpu"):
+        lk.clipped_prob_stats(x, w, b.cpu(), torch.zeros(LN, device=cuda))
+    wide = torch.zeros((LN, lk.MAX_E + 128), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="at most"):
+        lk.softmax_stats(wide, torch.zeros((512, wide.shape[1]), dtype=torch.bfloat16,
+                                           device=cuda), b[:512].contiguous(), labels)

@@ -8,8 +8,8 @@ import dataclasses
 
 import torch
 
-from vct_tpu.config import Config, load_config  # noqa: F401  (re-export for CLIs)
-from vct_tpu.text.tokenizer import make_tokenizer
+from vct_tpu_torch.config import Config, load_config  # noqa: F401  (re-export for CLIs)
+from vct_tpu_torch.text.tokenizer import make_tokenizer
 from vct_tpu_torch.convert import load_state_dict_into, load_torch_state_dict
 from vct_tpu_torch.models.mmt4caption import DTYPES, MMT4Caption
 

@@ -16,6 +16,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from vct_tpu_torch.models.layers import Dropout
+
 
 def sinusoid_table(max_len: int, dim: int) -> np.ndarray:
     """float32 [max_len, dim] sin/cos table (reference formula)."""
@@ -70,17 +72,21 @@ class ModalEmbedding(nn.Module):
 
 class PositionalEmbedding(nn.Module):
     """Decoder positional table as a buffer (importers may overwrite it with
-    learned rows, so it is part of the ``state_dict``)."""
+    learned rows, so it is part of the ``state_dict``), then dropout in
+    training mode."""
 
-    def __init__(self, dim: int, max_len: int = 5000, *, device=None):
+    def __init__(self, dim: int, max_len: int = 5000, dropout_rate: float = 0.0, *,
+                 rng=None, device=None):
         super().__init__()
         self.register_buffer(
             "pos_embedding",
             torch.as_tensor(sinusoid_table(max_len, dim), device=device))
+        self.dropout = Dropout(dropout_rate, rng)
 
     def forward(self, token_embedding: torch.Tensor) -> torch.Tensor:
         s = token_embedding.shape[1]
-        return token_embedding + self.pos_embedding[:s].to(token_embedding.dtype)
+        return self.dropout(
+            token_embedding + self.pos_embedding[:s].to(token_embedding.dtype))
 
     def at_position(self, token_embedding: torch.Tensor, idx: int) -> torch.Tensor:
         """PE for one decode step at position ``idx`` ([B, 1, E])."""

@@ -18,7 +18,7 @@ from vct_tpu_torch.models.embeddings import (
     ModalEmbedding,
     temporal_encoding,
 )
-from vct_tpu_torch.models.layers import TransformerEncoder, layer_norm, linear
+from vct_tpu_torch.models.layers import Dropout, TransformerEncoder, layer_norm, linear
 from vct_tpu_torch.ops.attention import padding_bias
 
 
@@ -28,6 +28,7 @@ class MultiModalEncoder(nn.Module):
                  global_type: str = "avg", modal_different: bool = True,
                  temporal_type: str = "encoding", do_norm: bool = False,
                  quirk_unmasked_agg: bool = False, num_encoder_layers: int = 1,
+                 dropout_rate: float = 0.0, rng=None,
                  dtype=torch.float32, device=None):
         super().__init__()
         if temporal_type != "encoding":
@@ -44,9 +45,10 @@ class MultiModalEncoder(nn.Module):
         if do_norm:
             # the reference's pre-encoder LayerNorm (key ``norm``)
             self.norm = nn.LayerNorm(d_model, eps=1e-5, device=device)
+            self.pre_dropout = Dropout(dropout_rate, rng)
         self.transformer_encoder = TransformerEncoder(
             num_encoder_layers, d_model, nhead, dim_feedforward, activation,
-            dtype=dtype, device=device)
+            dropout_rate, rng=rng, dtype=dtype, device=device)
 
     def _front_end(self, srcs: List[torch.Tensor],
                    padding_masks: Optional[List[torch.Tensor]]):
@@ -72,7 +74,7 @@ class MultiModalEncoder(nn.Module):
         if self.num_modal > 1:
             fused = fused + self.modal_emb(lengths, dt)[None]
         if self.do_norm:
-            fused = layer_norm(fused, self.norm, dt)
+            fused = self.pre_dropout(layer_norm(fused, self.norm, dt))
         return fused, fused_mask
 
     def forward(self, srcs: List[torch.Tensor],

@@ -10,6 +10,12 @@ here become no-ops.
 
 ``decode_step`` writes the fresh K/V row into the cache tensors in place (the
 reference returns new caches; in place saves a copy of every cache per token).
+
+Training mode (``module.train()``) turns on dropout at the reference's places:
+the attention weights, each sub-layer's output before its residual add, and
+the FFN's hidden activation. The masks come from an explicit
+``torch.Generator`` shared through a ``DropoutRng``; ``decode_step`` never
+drops.
 """
 
 from __future__ import annotations
@@ -39,6 +45,35 @@ def layer_norm(x: torch.Tensor, ln: nn.LayerNorm, dtype: torch.dtype) -> torch.T
     return y.to(dtype)
 
 
+class DropoutRng:
+    """The generator every ``Dropout`` of one model draws from. ``None`` means
+    torch's default generator of the tensor's device."""
+
+    def __init__(self, generator: Optional[torch.Generator] = None):
+        self.generator = generator
+
+
+class Dropout(nn.Module):
+    """Inverted dropout with an explicit generator: identity in ``eval()`` or
+    at rate 0; otherwise keep with probability 1 - rate and scale the kept
+    values by 1 / (1 - rate)."""
+
+    def __init__(self, rate: float, rng: Optional[DropoutRng] = None):
+        super().__init__()
+        self.rate = float(rate)
+        self.rng = rng or DropoutRng()
+
+    @property
+    def active(self) -> bool:
+        return self.training and self.rate > 0.0
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.active:
+            return x
+        keep = torch.rand(x.shape, device=x.device, generator=self.rng.generator) >= self.rate
+        return torch.where(keep, x / (1.0 - self.rate), 0.0)
+
+
 def activation_fn(name: str):
     if name == "gelu":
         return F.gelu  # exact erf form, as torch's default and the reference
@@ -51,11 +86,13 @@ class MultiHeadAttention(nn.Module):
     """Packed-QKV multi-head attention in torch ``nn.MultiheadAttention``
     layout: ``in_proj_weight`` [3E, E] with q/k/v stacked on the output dim."""
 
-    def __init__(self, embed_dim: int, num_heads: int, *,
+    def __init__(self, embed_dim: int, num_heads: int, dropout_rate: float = 0.0, *,
+                 rng: Optional[DropoutRng] = None,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         e = embed_dim
         self.embed_dim, self.num_heads, self.dtype = e, num_heads, dtype
+        self.attn_dropout = Dropout(dropout_rate, rng)
         self.in_proj_weight = nn.Parameter(torch.empty(3 * e, e, device=device))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * e, device=device))
         self.out_proj = nn.Linear(e, e, device=device)
@@ -80,8 +117,10 @@ class MultiHeadAttention(nn.Module):
         return (self._heads(qkv[..., :e]), self._heads(qkv[..., e:2 * e]),
                 self._heads(qkv[..., 2 * e:]))
 
-    def attend(self, q, k, v, bias, *, return_weights: bool = False):
-        out, weights = dot_product_attention(q, k, v, bias,
+    def attend(self, q, k, v, bias, *, dropout: bool = False,
+               return_weights: bool = False):
+        drop = self.attn_dropout if dropout and self.attn_dropout.active else None
+        out, weights = dot_product_attention(q, k, v, bias, dropout=drop,
                                              return_weights=return_weights)
         b, t = out.shape[:2]
         out = linear(out.reshape(b, t, self.embed_dim), self.out_proj.weight,
@@ -94,46 +133,52 @@ class MultiHeadAttention(nn.Module):
         else:
             q = self.project_q(query)
             k, v = self.project_kv(key_value)
-        return self.attend(q, k, v, bias, return_weights=return_weights)
+        return self.attend(q, k, v, bias, dropout=True, return_weights=return_weights)
 
 
 class TransformerEncoderLayer(nn.Module):
     """Post-norm encoder layer: ``x = norm1(x + attn(x)); x = norm2(x + ff(x))``."""
 
     def __init__(self, embed_dim: int, num_heads: int, dim_feedforward: int = 2048,
-                 activation: str = "gelu", *, dtype=torch.float32, device=None):
+                 activation: str = "gelu", dropout_rate: float = 0.0, *,
+                 rng: Optional[DropoutRng] = None, dtype=torch.float32, device=None):
         super().__init__()
         self.dtype = dtype
-        self.self_attn = MultiHeadAttention(embed_dim, num_heads, dtype=dtype,
-                                            device=device)
+        self.self_attn = MultiHeadAttention(embed_dim, num_heads, dropout_rate, rng=rng,
+                                            dtype=dtype, device=device)
         self.linear1 = nn.Linear(embed_dim, dim_feedforward, device=device)
         self.linear2 = nn.Linear(dim_feedforward, embed_dim, device=device)
         self.norm1 = nn.LayerNorm(embed_dim, eps=LN_EPS, device=device)
         self.norm2 = nn.LayerNorm(embed_dim, eps=LN_EPS, device=device)
+        self.dropout = Dropout(dropout_rate, rng)
+        self.dropout1 = Dropout(dropout_rate, rng)
+        self.dropout2 = Dropout(dropout_rate, rng)
         self.act = activation_fn(activation)
 
     def _ffn(self, x):
         dt = self.dtype
-        h = self.act(linear(x, self.linear1.weight, self.linear1.bias, dt))
+        h = self.dropout(self.act(linear(x, self.linear1.weight, self.linear1.bias, dt)))
         return linear(h, self.linear2.weight, self.linear2.bias, dt)
 
     def forward(self, x: torch.Tensor, bias: Optional[torch.Tensor] = None):
         attn_out, _ = self.self_attn(x, bias=bias)
-        x = layer_norm(x + attn_out, self.norm1, self.dtype)
-        return layer_norm(x + self._ffn(x), self.norm2, self.dtype)
+        x = layer_norm(x + self.dropout1(attn_out), self.norm1, self.dtype)
+        return layer_norm(x + self.dropout2(self._ffn(x)), self.norm2, self.dtype)
 
 
 class TransformerEncoder(nn.Module):
     """Layer stack + final LayerNorm."""
 
     def __init__(self, num_layers: int, embed_dim: int, num_heads: int,
-                 dim_feedforward: int = 2048, activation: str = "gelu", *,
+                 dim_feedforward: int = 2048, activation: str = "gelu",
+                 dropout_rate: float = 0.0, *, rng: Optional[DropoutRng] = None,
                  dtype=torch.float32, device=None):
         super().__init__()
         self.dtype = dtype
         self.layers = nn.ModuleList(
             TransformerEncoderLayer(embed_dim, num_heads, dim_feedforward,
-                                    activation, dtype=dtype, device=device)
+                                    activation, dropout_rate, rng=rng, dtype=dtype,
+                                    device=device)
             for _ in range(num_layers))
         self.norm = nn.LayerNorm(embed_dim, eps=LN_EPS, device=device)
 
@@ -148,13 +193,18 @@ class TransformerDecoderLayer(nn.Module):
     FFN -> norm3, with a KV-cached single-token ``decode_step``."""
 
     def __init__(self, embed_dim: int, num_heads: int, dim_feedforward: int = 2048,
-                 activation: str = "gelu", *, dtype=torch.float32, device=None):
+                 activation: str = "gelu", dropout_rate: float = 0.0, *,
+                 rng: Optional[DropoutRng] = None, dtype=torch.float32, device=None):
         super().__init__()
         self.embed_dim, self.num_heads, self.dtype = embed_dim, num_heads, dtype
-        self.self_attn = MultiHeadAttention(embed_dim, num_heads, dtype=dtype,
-                                            device=device)
-        self.multihead_attn = MultiHeadAttention(embed_dim, num_heads, dtype=dtype,
-                                                 device=device)
+        self.self_attn = MultiHeadAttention(embed_dim, num_heads, dropout_rate, rng=rng,
+                                            dtype=dtype, device=device)
+        self.multihead_attn = MultiHeadAttention(embed_dim, num_heads, dropout_rate,
+                                                 rng=rng, dtype=dtype, device=device)
+        self.dropout = Dropout(dropout_rate, rng)
+        self.dropout1 = Dropout(dropout_rate, rng)
+        self.dropout2 = Dropout(dropout_rate, rng)
+        self.dropout3 = Dropout(dropout_rate, rng)
         self.linear1 = nn.Linear(embed_dim, dim_feedforward, device=device)
         self.linear2 = nn.Linear(dim_feedforward, embed_dim, device=device)
         self.norm1 = nn.LayerNorm(embed_dim, eps=LN_EPS, device=device)
@@ -162,20 +212,22 @@ class TransformerDecoderLayer(nn.Module):
         self.norm3 = nn.LayerNorm(embed_dim, eps=LN_EPS, device=device)
         self.act = activation_fn(activation)
 
-    def _ffn(self, x):
+    def _ffn(self, x, dropout: bool = False):
         dt = self.dtype
         h = self.act(linear(x, self.linear1.weight, self.linear1.bias, dt))
+        if dropout:
+            h = self.dropout(h)
         return linear(h, self.linear2.weight, self.linear2.bias, dt)
 
     def forward(self, tgt, memory, tgt_bias=None, memory_bias=None, *,
                 return_attn: bool = False):
         dt = self.dtype
         sa, _ = self.self_attn(tgt, bias=tgt_bias)
-        x = layer_norm(tgt + sa, self.norm1, dt)
+        x = layer_norm(tgt + self.dropout1(sa), self.norm1, dt)
         ca, attn = self.multihead_attn(x, memory, bias=memory_bias,
                                        return_weights=return_attn)
-        x = layer_norm(x + ca, self.norm2, dt)
-        x = layer_norm(x + self._ffn(x), self.norm3, dt)
+        x = layer_norm(x + self.dropout2(ca), self.norm2, dt)
+        x = layer_norm(x + self.dropout3(self._ffn(x, dropout=True)), self.norm3, dt)
         if attn is not None:
             attn = attn.mean(dim=1)  # torch averages attention over heads
         return x, attn
@@ -222,13 +274,15 @@ class TransformerDecoder(nn.Module):
     """Decoder stack + final LayerNorm."""
 
     def __init__(self, num_layers: int, embed_dim: int, num_heads: int,
-                 dim_feedforward: int = 2048, activation: str = "gelu", *,
+                 dim_feedforward: int = 2048, activation: str = "gelu",
+                 dropout_rate: float = 0.0, *, rng: Optional[DropoutRng] = None,
                  dtype=torch.float32, device=None):
         super().__init__()
         self.dtype = dtype
         self.layers = nn.ModuleList(
             TransformerDecoderLayer(embed_dim, num_heads, dim_feedforward,
-                                    activation, dtype=dtype, device=device)
+                                    activation, dropout_rate, rng=rng, dtype=dtype,
+                                    device=device)
             for _ in range(num_layers))
         self.norm = nn.LayerNorm(embed_dim, eps=LN_EPS, device=device)
 

@@ -1,7 +1,10 @@
 """MMT4Caption, caption task (port of ``vct_tpu/models/mmt4caption.py``):
-the MME video encoder plus the caption decoder, with the decoding primitives
-``encode`` / ``init_cache`` / ``decode_step``. The matching head and the
-match/cross task forwards come later."""
+the MME video encoder plus the caption decoder, with the task forwards
+``caption_loss`` / ``caption_loss_parts`` / ``caption_logits`` and the
+decoding primitives ``encode`` / ``init_cache`` / ``decode_step``.
+``model.train()`` turns dropout on (rate ``config.dropout``) and
+``set_dropout_generator`` says where its masks come from. The matching head
+and the match/cross task forwards come with the matching slice."""
 
 from __future__ import annotations
 
@@ -11,9 +14,10 @@ from typing import List, Optional
 import torch
 from torch import nn
 
-from vct_tpu.config import ModelConfig, TPUConfig
+from vct_tpu_torch.config import ModelConfig, TPUConfig
 from vct_tpu_torch.models.decoder import CapDecoder
 from vct_tpu_torch.models.encoder import MultiModalEncoder
+from vct_tpu_torch.models.layers import DropoutRng
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -27,19 +31,28 @@ class MMT4Caption(nn.Module):
         if ve.type != "mme":
             raise NotImplementedError(
                 f"video encoder {ve.type!r} is not ported yet (only 'mme')")
+        self.dropout_rng = DropoutRng()
         self.video_encoder = MultiModalEncoder(
             config.modal_shape, config.embed_dim, ve.nhead, ve.feedforward,
             config.activation, global_type=ve.mme.aggregation,
             modal_different=ve.mme.modal_different,
             temporal_type=ve.mme.temporal, do_norm=ve.mme.do_norm,
             quirk_unmasked_agg=tpu.quirk_unmasked_aggregation,
-            num_encoder_layers=int(ve.layer), dtype=dtype, device=device)
+            num_encoder_layers=int(ve.layer), dropout_rate=config.dropout,
+            rng=self.dropout_rng, dtype=dtype, device=device)
         self.cap_decoder = CapDecoder(
             cd.layer, config.embed_dim, cd.nhead, cd.feedforward,
             config.vocab_size, pad_id=config.pad_id,
             activation=config.activation,
             quirk_no_memory_mask=tpu.quirk_no_memory_mask_in_decoder,
-            dtype=dtype, device=device)
+            dropout_rate=config.dropout, rng=self.dropout_rng,
+            sce_loss_alpha=cd.sce_loss_alpha, use_fused_loss=tpu.use_fused_loss,
+            fused_loss_kernels=tpu.fused_loss_pallas, dtype=dtype, device=device)
+
+    def set_dropout_generator(self, generator: Optional[torch.Generator]) -> None:
+        """Every dropout mask of this model is drawn from ``generator`` (on
+        the model's device); ``None`` means torch's default generator."""
+        self.dropout_rng.generator = generator
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "MMT4Caption":
@@ -78,6 +91,44 @@ class MMT4Caption(nn.Module):
             for name, b in mod.named_buffers(recurse=False):
                 setattr(mod, name, b.to(self.dtype))
         return self
+
+    # ---- task forwards -------------------------------------------------------
+
+    def caption_loss(self, video_feats: List[torch.Tensor],
+                     video_masks: Optional[List[torch.Tensor]], token_ids: torch.Tensor,
+                     token_pad_mask: torch.Tensor, *,
+                     row_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Caption task -> scalar loss; ``row_valid`` [B] bool excludes
+        collate filler rows."""
+        memory, mem_mask, _ = self.video_encoder(video_feats, video_masks)
+        _, loss, _ = self.cap_decoder(memory, token_ids, token_pad_mask, mem_mask,
+                                      row_valid=row_valid, loss_only=True)
+        return loss
+
+    def caption_loss_parts(self, video_feats, video_masks, token_ids, token_pad_mask, *,
+                           row_valid=None):
+        """-> (ce_sum, ce_n, rce_sum, rce_n), for a validation loss that does
+        not depend on how the split was batched."""
+        memory, mem_mask, _ = self.video_encoder(video_feats, video_masks)
+        _, parts, _ = self.cap_decoder(memory, token_ids, token_pad_mask, mem_mask,
+                                       row_valid=row_valid, return_parts=True,
+                                       loss_only=True)
+        return parts
+
+    def caption_logits(self, video_feats, video_masks, token_ids, token_pad_mask, *,
+                       return_attn: bool = False):
+        """-> (logits [B, S-1, V], loss, attn or None)."""
+        memory, mem_mask, _ = self.video_encoder(video_feats, video_masks)
+        return self.cap_decoder(memory, token_ids, token_pad_mask, mem_mask,
+                                return_attn=return_attn)
+
+    def match_loss(self, *args, **kwargs):
+        raise NotImplementedError("the match task comes with the matching slice of the port")
+
+    def cross_loss(self, *args, **kwargs):
+        raise NotImplementedError("the cross task comes with the matching slice of the port")
+
+    # ---- decoding primitives ---------------------------------------------------
 
     def encode(self, video_feats: List[torch.Tensor],
                video_masks: Optional[List[torch.Tensor]] = None):

@@ -2,9 +2,11 @@
 
 The library is compiled at first use into ``vct_tpu_torch/_build/<hash>/``
 (git-ignored), keyed by a hash of the sources and the compiler flags, so an
-edited kernel is rebuilt and an unchanged one is loaded as it is. The sources
-have a plain C interface and include no PyTorch header, which keeps a build to
-seconds. Nothing here runs at import time.
+edited kernel is rebuilt and an unchanged one is loaded as it is. Each source
+is compiled by its own ``nvcc`` process, all started together, and the objects
+are linked into one library. The sources have a plain C interface and include
+no PyTorch header, which keeps a build to seconds. Nothing here runs at import
+time.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -59,18 +61,37 @@ def load_library() -> ctypes.CDLL:
     if not lib_path.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
         tmp = out_dir / f"libvct_kernels.{os.getpid()}.so"
+        nvcc = _nvcc()
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())],
-            capture_output=True, text=True)
+        objects = [out_dir / f"{src.stem}.{os.getpid()}.o" for src in _sources()]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(_sources(), objects)]
+        logs = [proc.communicate()[0] for proc in procs]
+        failed = any(proc.returncode for proc in procs)
+        if not failed:
+            link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objects)],
+                                  capture_output=True, text=True)
+            logs.append(link.stdout + link.stderr)
+            failed = link.returncode != 0
+        for obj in objects:
+            obj.unlink(missing_ok=True)
         load_library.build_seconds = time.perf_counter() - t0
-        load_library.build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{load_library.build_log}")
+        load_library.build_log = "".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed:\n{load_library.build_log}")
         os.replace(tmp, lib_path)
     lib = ctypes.CDLL(str(lib_path))
     lib.vct_decode_step.argtypes = [_I, _P] + [_I] * 11 + [_P]
     lib.vct_decode_step.restype = _I
     lib.vct_gen_argmax.argtypes = [_I] + [_P] * 7 + [_I] * 3 + [_P]
     lib.vct_gen_argmax.restype = _I
+    lib.vct_sce_block_rows.argtypes = [_I]
+    lib.vct_sce_block_rows.restype = _I
+    lib.vct_sce_softmax_stats.argtypes = [_I] + [_P] * 7 + [_I] * 3 + [_P]
+    lib.vct_sce_softmax_stats.restype = _I
+    lib.vct_sce_clipped_stats.argtypes = [_I] + [_P] * 6 + [_I] * 3 + [_P]
+    lib.vct_sce_clipped_stats.restype = _I
+    lib.vct_sce_backward.argtypes = [_I] + [_P] * 11 + [_I] * 3 + [_P]
+    lib.vct_sce_backward.restype = _I
     return lib

@@ -4,13 +4,16 @@ Semantics of ``torch.nn.functional.multi_head_attention_forward`` as the
 reference uses it: ``softmax(q @ k^T / sqrt(d_head) + bias) @ v``. Logits and
 softmax are float32 whatever the compute dtype; masks are a large finite
 negative (``NEG_INF``) so a fully masked row gives a uniform distribution
-instead of NaN. Inference only: the dropout and the fused-kernel branch of the
-reference belong to training, which is not ported yet.
+instead of NaN. Dropout acts on the attention weights (keep mask drawn over
+[B, H, Tq, Tk], kept weights scaled by 1 / (1 - rate)) and the weights
+returned are the pre-dropout ones, as in torch. The reference's fused-kernel
+branch engages only from Tq * Tk >= 128 * 128 and is not ported yet: this math
+path serves every shape.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -48,11 +51,13 @@ def dot_product_attention(
     v: torch.Tensor,
     bias: Optional[torch.Tensor] = None,
     *,
+    dropout: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     return_weights: bool = False,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Attention over [B, T, H, D] tensors -> (out [B, Tq, H, D] in q's dtype,
-    weights [B, H, Tq, Tk] float32 or None). The weights are rounded to the
-    compute dtype before the value product, as in the reference."""
+    weights [B, H, Tq, Tk] float32 or None). ``dropout`` (training only) maps
+    the weights to their dropped, rescaled version. The weights are rounded to
+    the compute dtype before the value product, as in the reference."""
     dtype = q.dtype
     d_head = q.shape[-1]
     scale = 1.0 / torch.sqrt(torch.tensor(float(d_head), dtype=torch.float32))
@@ -60,7 +65,8 @@ def dot_product_attention(
     if bias is not None:
         logits = logits + bias.float()
     weights = torch.softmax(logits, dim=-1)
+    dropped = weights if dropout is None else dropout(weights)
     out = torch.einsum(
-        "bhqk,bkhd->bqhd", weights.to(dtype).float(), v.float()
+        "bhqk,bkhd->bqhd", dropped.to(dtype).float(), v.float()
     ).to(dtype)
     return out, (weights if return_weights else None)

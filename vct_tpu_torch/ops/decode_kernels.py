@@ -30,6 +30,11 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from vct_tpu_torch.ops._checks import expect as _expect
+from vct_tpu_torch.ops._checks import on_cuda as _on_cuda
+from vct_tpu_torch.ops._checks import raise_on as _raise_on
+from vct_tpu_torch.ops._checks import stream as _stream
+
 NEG_INF = -1e30
 LN_EPS = 1e-5
 STACK_KEYS = ("wqkv", "bqkv", "wo", "bo", "wcq", "bcq", "wco", "bco",
@@ -129,27 +134,6 @@ def fused_whole_step_reference(x, k_cache, v_cache, ck, cv, mem_bias, weights,
 # ---------------------------------------------------------------------------
 
 
-def _on_cuda(x: torch.Tensor, name: str) -> bool:
-    if x.device.type == "cpu":
-        return False
-    if x.device.type != "cuda":
-        raise RuntimeError(f"{name}: no kernel for device {x.device}")
-    return True
-
-
-def _expect(t: torch.Tensor, name: str, shape, dtype, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name} must start on a 16-byte boundary")
-
-
 def _check_stack(x, k_cache, v_cache, ck, cv, mem_bias, w, heads, l_view):
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"x has dtype {x.dtype}; kernels take float32 or bfloat16")
@@ -184,17 +168,8 @@ def _check_stack(x, k_cache, v_cache, ck, cv, mem_bias, w, heads, l_view):
     return b, e, nl, big_l, tm, f, l
 
 
-def _stream(dev) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
-
-
-def _raise_on(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what}: CUDA error {err}")
 
 
 def _launch_step(x, k_cache, v_cache, ck, cv, mem_bias, stacked, idx, heads, l_view,

@@ -165,7 +165,7 @@ class CaptionService:
                 r.event.set()
 
     def _launch(self, batch: List[_Request]):
-        from vct_tpu.data.collate import fit_time_axis
+        from vct_tpu_torch.data.collate import fit_time_axis
 
         max_t = self.cfg.tpu.max_frames
         pad = self.max_batch - len(batch)
