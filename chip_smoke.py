@@ -1,9 +1,13 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths once on one CUDA card.
+"""Drive the PyTorch port's serving, training and evaluation paths once on one
+CUDA card.
 
     python3 chip_smoke.py                  every phase below
     python3 chip_smoke.py --profile-train  build, then a torch.profiler
                                            reading of a few MSVD train steps
+    python3 chip_smoke.py --profile-decode build, then a torch.profiler
+                                           reading of one caption at B=1 in
+                                           each greedy mode
 
 Phases, each of which must pass:
   1. device   the card's name and power limit (nvidia-smi); no card -> exit 1
@@ -34,14 +38,41 @@ Phases, each of which must pass:
               kernel launches per train step and 2 per validation step, and
               step 0's loss and gradients equal on the kernel route and the
               chunked route
-  8. timings  kernel, plain and library-call times with each kernel's bound,
+  8. beam-kernels  the four kernels of the eval slice against their plain
+              versions in bfloat16 at the MSVD widths: the top-k kernel at
+              256 beam rows with k=4 (and crafted ties across column blocks,
+              the same bits from run to run, and the widest k it carries),
+              fused_layer_step at B=32,
+              fused_multi_step at u=2 and 4 over several windows with the
+              window poison, fused_sequence_decode at B=1 and 32 with end
+              tokens that stop rows and the whole batch early
+  9. eval     vct_tpu_torch.cli.eval's main on the synthetic dataset (160
+              videos, eval batch 64) and the seeded .pth: greedy, --beam 4
+              (256 beam rows) and --beam 1; predictions and metrics files
+              written, every score finite, --beam 1 equal to greedy; the
+              beam path against the module path on the card in float32
+              (tokens); in bfloat16 the kernel beam loop against the same
+              loop on the kernels' plain versions at 256 beam rows and at a
+              beam of 16, and against the module path, where beams may part
+              only at candidate near-ties; a beam above the top-k kernel's
+              width raises
+ 10. multi    greedy_generate_fused(multi_step=2 and 4) and
+              (sequence_kernel=True) token-equal to the per-token kernel
+              loop at B=1 and B=32, and a 29-token decode at B=32 with the
+              stack run layer by layer through fused_layer_step
+ 11. timings  kernel, plain and library-call times with each kernel's bound,
               ms per token of both decode paths at B=1, 32 and 128,
               captions/s of the server phase, the loss routes at N=1984 and
-              N=7936, ms per train step with the fused loss on and off
+              N=7936, ms per train step with the fused loss on and off, ms
+              per caption at B=1 of the per-token loop, u=2, u=4 and the
+              sequence kernel, beam-4 against greedy captions/s at eval
+              batch 64 with beam's parts apart
 
-Launch counts are set to 0 just before phases 4, 5 and 7 and read just after
-each: the server must have launched the whole-step kernel, the B=128 decode
-the other two decode kernels, training the three loss kernels. The line
+Launch counts are set to 0 just before phases 4, 5, 7, 9 and 10 and read just
+after each: the server must have launched the whole-step kernel, the B=128
+decode the other two decode kernels, training the three loss kernels, the
+beam eval the stack and top-k kernels once per beam token, the multi phase
+the other three. The line
 before the last is a JSON object with one entry per kernel; the last line is
 {"ok": true, "device": {...}}, printed only when every phase passed. Any
 failure exits 1 before it.
@@ -85,6 +116,21 @@ REPLACES = {
     "fused_layers_step": "vct_tpu/ops/pallas_decode.py:516",
     "fused_norm_generator_argmax": "vct_tpu/ops/pallas_decode.py:811",
 }
+# the kernels of the eval slice: name -> (TPU kernel, CUDA source)
+BEAM_REPLACES = {
+    "fused_norm_generator_topk": ("vct_tpu/ops/pallas_decode.py:721",
+                                  "vct_tpu_torch/csrc/gen_topk.cu"),
+    "fused_layer_step": ("vct_tpu/ops/pallas_decode.py:211", SOURCE),
+    "fused_multi_step": ("vct_tpu/ops/pallas_decode.py:1289",
+                         "vct_tpu_torch/csrc/decode_multi.cu"),
+    "fused_sequence_decode": ("vct_tpu/ops/pallas_decode.py:997",
+                              "vct_tpu_torch/csrc/decode_multi.cu"),
+}
+# Top-k values and logsumexp: kernel and plain version form float32 logits
+# from the same float32 LayerNorm output and bfloat16 weights and differ by
+# the order of a 768-term float32 sum.
+TOPK_ATOL = 1e-3
+BEAM_ROWS, BEAM_K = 256, 4   # eval batch 64 x beam 4
 LOSS_REPLACES = {
     "softmax_stats": "vct_tpu/ops/pallas_loss.py:124",
     "clipped_prob_stats": "vct_tpu/ops/pallas_loss.py:207",
@@ -97,6 +143,7 @@ PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # the MSVD train step's loss shape: batch 64 x 31 positions, width 768
 LOSS_N, LOSS_E, LOSS_V = 1984, 768, 30522
 TRAIN_STEPS, VAL_STEPS, BATCH = 20, 2, 64
+EVAL_VIDEOS = TRAIN_STEPS * BATCH // 8  # the eval phase decodes the train split's videos
 
 
 def fail(msg: str) -> None:
@@ -144,6 +191,33 @@ def cuda_time(fn, iters: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+class no_plain_on_cuda:
+    """While active, records every call of a plain version (``*_reference``
+    in ``module``) on a CUDA tensor; leaving the block fails the run if there
+    was one."""
+
+    def __init__(self, what, module):
+        self.what, self.module, self.seen, self.originals = what, module, [], {}
+
+    def __enter__(self):
+        for name in [n for n in dir(self.module) if n.endswith("_reference")]:
+            fn = self.originals[name] = getattr(self.module, name)
+
+            def spy(*a, _fn=fn, _name=name, **k):
+                if any(isinstance(t, torch.Tensor) and t.is_cuda for t in a):
+                    self.seen.append(_name)
+                return _fn(*a, **k)
+
+            setattr(self.module, name, spy)
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        for name, fn in self.originals.items():
+            setattr(self.module, name, fn)
+        if exc_type is None and self.seen:
+            fail(f"{self.what}: plain versions ran on CUDA tensors: {sorted(set(self.seen))}")
 
 
 # ---------------------------------------------------------------------------
@@ -376,19 +450,6 @@ def run_server(cfg, ckpt, model):
         return tokens, attn
 
     srv.service.decode_fn = recording_decode
-    plain_on_cuda = []
-    originals = {}
-    for name in ("fused_whole_step_reference", "fused_layers_step_reference",
-                 "fused_norm_generator_argmax_reference"):
-        fn = getattr(dk, name)
-        originals[name] = fn
-
-        def spy(x, *a, _fn=fn, _name=name, **k):
-            if x.is_cuda:
-                plain_on_cuda.append(_name)
-            return _fn(x, *a, **k)
-
-        setattr(dk, name, spy)
     thread = threading.Thread(target=srv.serve_forever, daemon=True)
     thread.start()
     port = srv.server_address[1]
@@ -403,30 +464,29 @@ def run_server(cfg, ckpt, model):
         results[i] = (resp.status, json.loads(resp.read()))
         conn.close()
 
-    try:
-        conn = HTTPConnection("127.0.0.1", port, timeout=60)
-        conn.request("GET", "/healthz")
-        health = json.loads(conn.getresponse().read())
-        conn.close()
-        if health.get("status") != "ok":
-            fail(f"/healthz: {health}")
-        for fn in dk.WRAPPERS:
-            fn.launches = 0
-        t0 = time.perf_counter()
-        threads = [threading.Thread(target=post, args=(i,)) for i in range(N_REQUESTS)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=600)
-        elapsed = time.perf_counter() - t0
-        launches = dk.fused_whole_step.launches
-    finally:
-        srv.shutdown()
-        srv.server_close()
-        srv.service.close()
-        thread.join(timeout=30)
-        for name, fn in originals.items():
-            setattr(dk, name, fn)
+    with no_plain_on_cuda("server", dk):
+        try:
+            conn = HTTPConnection("127.0.0.1", port, timeout=60)
+            conn.request("GET", "/healthz")
+            health = json.loads(conn.getresponse().read())
+            conn.close()
+            if health.get("status") != "ok":
+                fail(f"/healthz: {health}")
+            for fn in dk.WRAPPERS:
+                fn.launches = 0
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=post, args=(i,)) for i in range(N_REQUESTS)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            elapsed = time.perf_counter() - t0
+            launches = dk.fused_whole_step.launches
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            srv.service.close()
+            thread.join(timeout=30)
     if any(t.is_alive() for t in threads):
         fail("server: clients still waiting")
     bad = [r for r in results if r is None or r[0] != 200
@@ -435,8 +495,6 @@ def run_server(cfg, ckpt, model):
         fail(f"server: {len(bad)} requests failed, e.g. {bad[0]}")
     if launches == 0:
         fail("server: fused_whole_step was never launched")
-    if plain_on_cuda:
-        fail(f"server: plain versions ran on CUDA tensors: {sorted(set(plain_on_cuda))}")
     say(f"  {N_REQUESTS} requests answered 200 in {len(records)} batches, "
         f"fused_whole_step launches {launches}")
     for feats, masks, tokens in records:
@@ -500,6 +558,824 @@ def time_decode(model, fw, card):
             report[f"ms_per_token_{label}_b{b}"] = ms
             path = "kernel path" if label == "kernel" else "plain path (module)"
             say(f"  B={b} {path}: {ms:.3f} ms/token [{card}]")
+    return report
+
+
+# ---------------------------------------------------------------------------
+# phases 8-10: the eval slice's kernels, the eval CLI, several tokens a launch
+# ---------------------------------------------------------------------------
+
+
+def reset_launches():
+    from vct_tpu_torch.ops import decode_kernels as dk
+
+    for fn in dk.WRAPPERS:
+        fn.launches = 0
+
+
+def read_launches():
+    from vct_tpu_torch.ops import decode_kernels as dk
+
+    return {fn.__name__: fn.launches for fn in dk.WRAPPERS}
+
+
+def decoder_like(fw, heads, tm, b, seed):
+    """Activations [b, E] as the generator sees them: seeded step inputs
+    through the plain stack."""
+    from vct_tpu_torch.ops import decode_kernels as dk
+
+    a = step_inputs(fw, b, 9, tm, gen=seed)
+    x, _, _ = dk.fused_layers_step_reference(a["x"], a["kc"], a["vc"], a["ck"], a["cv"],
+                                             a["mem_bias"], fw["stacked"], 9, heads=heads,
+                                             l_view=16)
+    return x
+
+
+def check_topk(fw, heads, tm):
+    """fused_norm_generator_topk at the beam rows of one eval batch."""
+    from vct_tpu_torch.ops import decode_kernels as dk
+
+    x = decoder_like(fw, heads, tm, BEAM_ROWS, 5000)
+    args = (x, fw["norm_s"], fw["norm_b"], fw["wg"], fw["bg"])
+    got = dk.fused_norm_generator_topk(*args, k=BEAM_K)
+    again = dk.fused_norm_generator_topk(*args, k=BEAM_K)
+    want = dk.fused_norm_generator_topk_reference(*args, k=BEAM_K)
+    torch.cuda.synchronize()
+    name = f"fused_norm_generator_topk B={BEAM_ROWS} k={BEAM_K}"
+    err = max(max_err(name + " values", got[0], want[0], TOPK_ATOL),
+              max_err(name + " lse", got[2], want[2], TOPK_ATOL))
+    if not all(torch.equal(a, c) for a, c in zip(got, again)):
+        fail(f"{name}: two runs on the same inputs gave different bits")
+    logits = plain_logits(dk, x, fw)
+    differ = got[1] != want[1]
+    gap = (torch.gather(logits, 1, want[1].long())
+           - torch.gather(logits, 1, got[1].long())).abs()
+    if bool(differ.any()):
+        worst = float(gap[differ].max())
+        if worst >= NEAR_TIE_SAME:
+            fail(f"{name}: ids differ where the plain logits are {worst} apart "
+                 f"(limit {NEAR_TIE_SAME})")
+        say(f"  {name}: {int(differ.sum())}/{differ.numel()} ids differ, all near-ties")
+    if int(got[1].max()) >= fw["vocab"] or int(got[1].min()) < 0:
+        fail(f"{name}: an id outside the vocab")
+    say(f"  ok {name}: values and lse within {TOPK_ATOL}, same bits from run to run")
+    # four columns in four column blocks share one weight column and lead the
+    # vocab: the ids must come out in ascending order with equal values
+    cols = [20, 300, 9000, 30000]
+    wg, bg = fw["wg"].clone(), fw["bg"].clone()
+    for c in cols[1:]:
+        wg[:, c] = wg[:, cols[0]]
+    bg[cols] = 1e3
+    v, i, _ = dk.fused_norm_generator_topk(x, fw["norm_s"], fw["norm_b"], wg, bg, k=BEAM_K)
+    torch.cuda.synchronize()
+    if i.cpu().tolist() != [cols] * BEAM_ROWS or not bool((v == v[:, :1]).all()):
+        fail(f"{name}: tied columns {cols} came out as {i[0].tolist()} with values "
+             f"{v[0].tolist()}")
+    say(f"  ok {name}: ties across column blocks go to the lowest id")
+    # the widest k the kernel carries, on 64 rows
+    kmax = dk.TOPK_MAX
+    args = (x[:64].contiguous(),) + args[1:]
+    got = dk.fused_norm_generator_topk(*args, k=kmax)
+    want = dk.fused_norm_generator_topk_reference(*args, k=kmax)
+    torch.cuda.synchronize()
+    name = f"fused_norm_generator_topk B=64 k={kmax}"
+    err = max(err, max_err(name + " values", got[0], want[0], TOPK_ATOL),
+              max_err(name + " lse", got[2], want[2], TOPK_ATOL))
+    differ = got[1] != want[1]
+    gap = (torch.gather(logits[:64], 1, want[1].long())
+           - torch.gather(logits[:64], 1, got[1].long())).abs()
+    if bool(differ.any()) and float(gap[differ].max()) >= NEAR_TIE_SAME:
+        fail(f"{name}: ids differ where the plain logits are {float(gap[differ].max())} "
+             f"apart (limit {NEAR_TIE_SAME})")
+    say(f"  ok {name}: values and lse within {TOPK_ATOL}, {int(differ.sum())} ids differ "
+        f"at near-ties")
+    return err
+
+
+def check_layer_step(fw, heads, tm):
+    """fused_layer_step at B=32 on layer 1's un-stacked weights."""
+    from vct_tpu_torch.ops import decode_kernels as dk
+
+    err, means = 0.0, []
+    for idx, with_bias in ((0, True), (11, False), (31, True)):
+        a = step_inputs(fw, 32, idx, tm, gen=6000 + idx)
+        w1 = {k: v[1] for k, v in fw["stacked"].items()}
+        mb = a["mem_bias"] if with_bias else None
+        k1, v1, k2, v2 = (a[c][1].clone() for c in ("kc", "vc", "kc", "vc"))
+        x_k, _, _ = dk.fused_layer_step(a["x"], k1, v1, a["ck"][1], a["cv"][1], mb, w1, idx,
+                                        heads=heads)
+        x_r, _, _ = dk.fused_layer_step_reference(a["x"], k2, v2, a["ck"][1], a["cv"][1], mb,
+                                                  w1, idx, heads=heads)
+        torch.cuda.synchronize()
+        name = f"fused_layer_step B=32 idx={idx} bias={with_bias}"
+        err = max(err, compare_float(name + " x_out", x_k, x_r, means),
+                  compare_float(name + " k row", k1[idx], k2[idx], means),
+                  compare_float(name + " v row", v1[idx], v2[idx], means))
+        say(f"  ok {name}")
+    return err
+
+
+def check_multi_step(fw, heads, tm):
+    """fused_multi_step at B=32, u=2 and 4, four windows each: every window's
+    chain and cache rows against the plain version one token at a time, then
+    the window poison. Each window starts from the plain version's state, so
+    a near-tie does not travel."""
+    from vct_tpu_torch.ops import decode_kernels as dk
+
+    b, err, means = 32, 0.0, []
+    emb, pe = fw["emb"], fw["pe"]
+    a = step_inputs(fw, b, 0, tm, gen=7000)
+    ck, cv, mb = a["ck"], a["cv"], a["mem_bias"]
+    start = torch.full((b,), 101, dtype=torch.int32, device=ck.device)
+    start[0] = 0  # a pad token embeds to zero
+    for u in (2, 4):
+        ks_k, vs_k, ks_r, vs_r = (torch.zeros_like(a["kc"]) for _ in range(4))
+        cur = start
+        for w in range(4):
+            l_view = (((w + 1) * u + 7) // 8) * 8
+            t_k, _, _ = dk.fused_multi_step(cur, ks_k, vs_k, ck, cv, mb, emb, pe, fw, w,
+                                            heads=heads, unroll=u, pad_id=0, l_view=l_view)
+            torch.cuda.synchronize()
+            cur_r = cur
+            ok = torch.ones((b,), dtype=torch.bool, device=ck.device)  # chains agree so far
+            for j in range(u):
+                pos = w * u + j
+                x = dk._embed_step(emb, pe, cur_r, pos, 0)
+                xs = dk._stack_reference(x, ks_r, vs_r, ck, cv, mb, fw["stacked"], pos,
+                                         heads, l_view)
+                logits = plain_logits(dk, xs, fw)
+                cur_r = torch.argmax(logits, dim=-1).to(torch.int32)
+                name = f"fused_multi_step u={u} window {w} token {j}"
+                err = max(err, token_err(name, t_k[ok, j], cur_r[ok], logits[ok],
+                                         NEAR_TIE_SAME))
+                ok &= t_k[:, j] == cur_r
+            rows = slice(w * u, w * u + u)
+            name = f"fused_multi_step u={u} window {w}"
+            err = max(err, compare_float(name + " k rows", ks_k[:, rows][:, :, ok],
+                                         ks_r[:, rows][:, :, ok], means),
+                      compare_float(name + " v rows", vs_k[:, rows][:, :, ok],
+                                    vs_r[:, rows][:, :, ok], means))
+            # go on from the plain version's chain and rows
+            ks_k.copy_(ks_r)
+            vs_k.copy_(vs_r)
+            cur = cur_r.contiguous()
+        say(f"  ok fused_multi_step B={b} u={u}: 4 windows, chains and cache rows")
+    t_k, _, _ = dk.fused_multi_step(start, torch.zeros_like(a["kc"]), torch.zeros_like(a["kc"]),
+                                    ck, cv, mb, emb, pe, fw, 2, heads=heads, unroll=4,
+                                    pad_id=0, l_view=8)
+    torch.cuda.synchronize()
+    if not bool((t_k == -1).all()):
+        fail("fused_multi_step: the window poison did not fire")
+    say("  ok fused_multi_step window poison (tokens -1)")
+    return err
+
+
+def plain_chain(fw, cks, cvs, mem_bias, heads, max_len, start_id, end_id, pad_id):
+    """The plain greedy loop -> (tokens [B, max_len], the plain logits' top-2
+    gap at every generated position [B, max_len - 1])."""
+    from vct_tpu_torch.ops import decode_kernels as dk
+
+    nl, _, b, e = cks.shape
+    ks = torch.zeros((nl, 32, b, e), dtype=cks.dtype, device=cks.device)
+    vs = torch.zeros_like(ks)
+    tokens = torch.full((b, max_len), pad_id, dtype=torch.int32, device=cks.device)
+    tokens[:, 0] = start_id
+    gaps = torch.full((b, max_len - 1), float("inf"), device=cks.device)
+    done = torch.zeros((b,), dtype=torch.bool, device=cks.device)
+    for i in range(max_len - 1):
+        x = dk._embed_step(fw["emb"], fw["pe"], tokens[:, i], i, pad_id)
+        xs = dk._stack_reference(x, ks, vs, cks, cvs, mem_bias, fw["stacked"], i, heads, 32)
+        logits = plain_logits(dk, xs, fw)
+        top = torch.topk(logits, 2, dim=-1).values
+        gaps[:, i] = top[:, 0] - top[:, 1]
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        tokens[:, i + 1] = nxt
+        done |= nxt == end_id
+        if bool(done.all()):
+            break
+    return tokens, gaps
+
+
+def chain_err(name, got, want, gaps, bound):
+    """Chains must agree except that a row may part where the plain logits'
+    top-2 gap is under ``bound``; returns the largest such gap."""
+    err = 0.0
+    for r in (got != want).any(dim=1).nonzero().flatten().tolist():
+        first = int((got[r] != want[r]).int().argmax())
+        gap = float(gaps[r, first - 1])
+        if gap >= bound:
+            fail(f"{name}: row {r} parts at position {first} with top-2 gap {gap} >= {bound}")
+        err = max(err, gap)
+    return err
+
+
+def eval_inputs(b, dev, seed):
+    g = torch.Generator().manual_seed(seed)
+    feats = [torch.randn((b, 12, 512), generator=g).to(dev)]
+    masks = torch.zeros((b, 12), dtype=torch.bool)
+    masks[1::3, 8:] = True
+    return feats, [masks.to(dev)]
+
+
+def check_sequence(model, fw):
+    """fused_sequence_decode at B=1 and 32 against the plain loop: free
+    running, with an end token that finishes rows early (at B=1 the whole
+    batch, so the kernel leaves its loop), and with a generator biased to the
+    end token (every row finishes at step 1)."""
+    from vct_tpu_torch.decode_fast import _prep_decode
+    from vct_tpu_torch.ops import decode_kernels as dk
+
+    err, heads = 0.0, fw["heads"]
+    dev = fw["wg"].device
+    for b in (1, 32):
+        feats, masks = eval_inputs(b, dev, SEED + 10 + b)
+        _, cks, cvs, mem_bias = _prep_decode(model, feats, masks, 30, fw)
+        kw = dict(heads=heads, max_len=30, start_id=101, pad_id=0)
+        free, gaps = plain_chain(fw, cks, cvs, mem_bias, heads, 30, 101, -1, 0)
+        got = dk.fused_sequence_decode(fw["emb"], fw["pe"], cks, cvs, mem_bias, fw,
+                                       end_id=-1, **kw)
+        torch.cuda.synchronize()
+        err = max(err, chain_err(f"fused_sequence_decode B={b}", got, free, gaps,
+                                 NEAR_TIE_SAME))
+        end_id = int(free[0, 3])
+        want, gaps = plain_chain(fw, cks, cvs, mem_bias, heads, 30, 101, end_id, 0)
+        got = dk.fused_sequence_decode(fw["emb"], fw["pe"], cks, cvs, mem_bias, fw,
+                                       end_id=end_id, **kw)
+        torch.cuda.synchronize()
+        err = max(err, chain_err(f"fused_sequence_decode B={b} end_id={end_id}", got, want,
+                                 gaps, NEAR_TIE_SAME))
+        if b == 1 and not bool((want[0, 4:] == 0).all()):
+            fail("fused_sequence_decode: the plain loop did not stop at the end token")
+        biased = dict(fw, bg=fw["bg"].clone())
+        biased["bg"][102] = 1e3
+        got = dk.fused_sequence_decode(fw["emb"], fw["pe"], cks, cvs, mem_bias, biased,
+                                       end_id=102, **kw)
+        torch.cuda.synchronize()
+        if got.cpu().tolist() != [[101, 102] + [0] * 28] * b:
+            fail(f"fused_sequence_decode B={b}: every row finished at step 1, got {got[0]}")
+        say(f"  ok fused_sequence_decode B={b}: free running, end_id={end_id}, and every "
+            f"row finished at once")
+    return err
+
+
+def check_beam_kernels(model, fw, heads, tm):
+    return {"fused_norm_generator_topk": check_topk(fw, heads, tm),
+            "fused_layer_step": check_layer_step(fw, heads, tm),
+            "fused_multi_step": check_multi_step(fw, heads, tm),
+            "fused_sequence_decode": check_sequence(model, fw)}
+
+
+def eval_config(repo: Path, root: Path, vocab: Path) -> Path:
+    """The training phase's config with the eval split on the train split's
+    videos: EVAL_VIDEOS videos, three eval batches of 64."""
+    cfg = json.loads(train_config(repo, root, vocab, 1).read_text())
+    cfg["data"]["eval"]["feat_dir"] = [str(root / "feats" / "train")]
+    cfg["data"]["eval"]["annotation_path"] = str(root / "train.txt")
+    path = root / "msvd_eval.json"
+    path.write_text(json.dumps(cfg))
+    return path
+
+
+def run_eval(repo: Path, root: Path, vocab: Path, ckpt: Path, card: str):
+    """vct_tpu_torch.cli.eval's main: greedy, --beam 4 and --beam 1 ->
+    (launches of the --beam 4 run, report)."""
+    from vct_tpu_torch.cli import eval as eval_cli
+    from vct_tpu_torch.ops import decode_kernels as dk
+
+    cfg_path = str(eval_config(repo, root, vocab))
+    runs, report = {}, {}
+    for label, flags in (("greedy", []), ("beam4", ["--beam", "4"]), ("beam1", ["--beam", "1"])):
+        out, metrics = root / f"pred_{label}.json", root / f"metrics_{label}.json"
+        reset_launches()
+        t0 = time.perf_counter()
+        with no_plain_on_cuda(f"eval {label}", dk):
+            scores = eval_cli.main(["-c", cfg_path, "-m", str(ckpt), "--out", str(out),
+                                    "--metrics_out", str(metrics)] + flags)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+        preds = json.loads(out.read_text())
+        record = json.loads(metrics.read_text())
+        record.pop("_meteor_synonyms")
+        if len(preds) != EVAL_VIDEOS or not all(isinstance(c, str) for c in preds.values()):
+            fail(f"eval {label}: {len(preds)} predictions for {EVAL_VIDEOS} videos")
+        if set(record) < {"Bleu_4", "METEOR", "ROUGE_L", "CIDEr"} or \
+                not all(math.isfinite(v) for v in record.values()) or \
+                record != {k: float(v) for k, v in scores.items()}:
+            fail(f"eval {label}: scores {record}")
+        runs[label] = (preds, launches)
+        report[f"eval_{label}_seconds"] = seconds
+        say(f"  eval {label}: {EVAL_VIDEOS} videos in {seconds:.2f} s with loading and "
+            f"scoring, {len(set(preds.values()))} distinct captions, CIDEr "
+            f"{record['CIDEr']:.4f}, launches "
+            f"{ {k: v for k, v in launches.items() if v} } [{card}]")
+    g, b4, b1 = (runs[k][1] for k in ("greedy", "beam4", "beam1"))
+    if g["fused_whole_step"] == 0 or g["fused_norm_generator_topk"]:
+        fail(f"eval greedy: launches {g}")
+    n_batches = -(-EVAL_VIDEOS // BATCH)
+    for label, l in (("beam4", b4), ("beam1", b1)):
+        steps = l["fused_norm_generator_topk"]
+        if steps != l["fused_layers_step"] or not n_batches <= steps <= 29 * n_batches \
+                or l["fused_whole_step"] or l["fused_norm_generator_argmax"]:
+            fail(f"eval {label}: expected one fused_layers_step and one "
+                 f"fused_norm_generator_topk launch per beam token, got {l}")
+    if runs["beam1"][0] != runs["greedy"][0]:
+        bad = [v for v in runs["greedy"][0] if runs["beam1"][0][v] != runs["greedy"][0][v]]
+        fail(f"eval: --beam 1 differs from greedy for {len(bad)} videos, e.g. {bad[0]}")
+    say("  ok --beam 1 predicts what greedy predicts")
+    return b4, report
+
+
+def module_score(model, feats, masks, tokens, end_id, length_penalty=0.6):
+    """The module path's length-normalised log-probability of ``tokens``,
+    teacher-forced, counted as beam search counts it (up to and with the
+    first end token)."""
+    memory, mem_mask, _ = model.encode(feats, masks)
+    b, max_len = tokens.shape
+    caches = model.init_cache(b, max_len, memory)
+    total = torch.zeros((b,), device=tokens.device)
+    lengths = torch.ones((b,), device=tokens.device)
+    alive = torch.ones((b,), dtype=torch.bool, device=tokens.device)
+    for i in range(max_len - 1):
+        logits, caches, _ = model.decode_step(tokens[:, i], caches, i, mem_mask)
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nxt = tokens[:, i + 1].long()
+        total += torch.where(alive, logp.gather(1, nxt[:, None])[:, 0], 0.0)
+        lengths += alive
+        alive &= nxt != end_id
+    return total / lengths.pow(length_penalty).clamp(min=1.0)
+
+
+class beam_trace:
+    """While active, records every step of a beam search (``decode.
+    beam_generate`` or ``decode_fast._beam_loop``) in ``steps``: the k best
+    candidate scores of every video, sorted, the selection (beam_idx [B, K],
+    tok_idx [B, K]) and, for a reference run, ``value_of(video, beam, token)``:
+    this run's score of any candidate, selected or not. The module path is
+    such a reference (it forms all K*V candidates). With ``plain=True`` the
+    kernel beam loop runs on the plain versions of its two kernels instead
+    (called directly, so CUDA tensors do not launch anything) and keeps each
+    step's whole log-softmax for ``value_of``."""
+
+    def __init__(self, plain=False, pad_id=0):
+        self.plain, self.pad_id, self.steps = plain, pad_id, []
+        self.top = self.cand = self.logp = self.entering = self.leaving = None
+
+    def __enter__(self):
+        import vct_tpu_torch.decode as dec
+        import vct_tpu_torch.decode_fast as df
+        from vct_tpu_torch.ops import decode_kernels as dk
+
+        self.saved = [(dec, "topk_first_win", dec.topk_first_win),
+                      (df, "topk_first_win", df.topk_first_win),
+                      (dec, "beam_advance", dec.beam_advance),
+                      (df, "fused_layers_step", df.fused_layers_step),
+                      (df, "fused_norm_generator_topk", df.fused_norm_generator_topk)]
+        real_topk, real_advance = dec.topk_first_win, dec.beam_advance
+
+        def topk(vals, k):
+            self.cand = vals
+            out = real_topk(vals, k)
+            self.top = out[0].cpu()
+            self.entering, self.leaving = self.leaving, out[0]
+            return out
+
+        def plain_topk(x, ns, nb, wg, bg, *, k):
+            logits = dk._ln(x, ns, nb) @ wg.float() + bg.float()
+            self.logp = logits - torch.logsumexp(logits, dim=-1, keepdim=True)
+            return dk.fused_norm_generator_topk_reference(x, ns, nb, wg, bg, k=k)
+
+        def advance(tokens, finished, lengths, beam_idx, tok_idx, i, end_id):
+            self.steps.append((self.top, beam_idx.cpu(), tok_idx.cpu(),
+                               self.value_fn(finished.clone())))
+            return real_advance(tokens, finished, lengths, beam_idx, tok_idx, i, end_id)
+
+        dec.topk_first_win = df.topk_first_win = topk
+        dec.beam_advance = advance
+        if self.plain:
+            df.fused_layers_step = dk.fused_layers_step_reference
+            df.fused_norm_generator_topk = plain_topk
+        return self
+
+    def value_fn(self, finished):
+        """This step's score of candidate (video, beam, token), from the
+        state the step started in."""
+        from vct_tpu_torch.ops.decode_kernels import NEG_INF
+
+        cand, logp, k = self.cand, self.logp, finished.shape[1]
+        if cand.shape[1] > k * k:  # the module path: all K*V candidates
+            v = cand.shape[1] // k
+            return lambda r, beam, tok: float(cand[r, beam * v + tok])
+        if not self.plain:
+            return None
+        scores = self.entering
+        if scores is None:  # the first step: only beam 0 is live
+            scores = torch.full_like(self.leaving, NEG_INF)
+            scores[:, 0] = 0.0
+
+        def value_of(r, beam, tok):
+            if bool(finished[r, beam]):  # frozen: [PAD] at zero cost, nothing else
+                return float(scores[r, beam]) if tok == self.pad_id else NEG_INF
+            return float(scores[r, beam] + logp[r * k + beam, tok])
+
+        return value_of
+
+    def __exit__(self, *exc):
+        for module, name, fn in self.saved:
+            setattr(module, name, fn)
+
+
+def beam_partings(name, got, want, near_tie, step_drift):
+    """Two traces of one search on the same inputs, ``want`` the reference.
+    A video's beams may part (another beam or token at some rank of a step's
+    selection) only at a near-tie of candidates: the reference's own score of
+    the candidate that ``got`` selected at that rank lies within ``near_tie``
+    plus twice the drift of the reference's selection there, where the drift
+    is how far the two runs' scores of that video's selected beams were apart
+    one step earlier. The drift of a video that has not parted stays under
+    ``step_drift`` per step taken.
+    -> (rows that parted, largest gap at a parting, largest drift)."""
+    b = want[0][1].shape[0]
+    together = torch.ones((b,), dtype=torch.bool)
+    drift = torch.zeros((b,))
+    worst_gap = worst_drift = 0.0
+    for i, ((top_g, beam_g, tok_g, _), (top_w, beam_w, tok_w, value_of)) in \
+            enumerate(zip(got, want)):
+        differ = (beam_g != beam_w) | (tok_g != tok_w)
+        for r in (differ.any(dim=1) & together).nonzero().flatten().tolist():
+            rank = int(differ[r].int().argmax())
+            gap = float(top_w[r, rank]) - value_of(r, int(beam_g[r, rank]), int(tok_g[r, rank]))
+            limit = near_tie + 2 * float(drift[r])
+            if not -limit < gap < limit:
+                fail(f"{name}: video {r} parts at step {i}, rank {rank}: the reference scores "
+                     f"its own selection {gap} above the other's (limit {limit}: near-tie "
+                     f"{near_tie} + twice the drift {float(drift[r])})")
+            worst_gap = max(worst_gap, gap)
+        together &= ~differ.any(dim=1)
+        drift = torch.where(together, (top_g - top_w).abs().max(dim=1).values, drift)
+        if bool(together.any()):
+            worst = float(drift[together].max())
+            if worst > step_drift * (i + 1):
+                fail(f"{name}: scores drifted {worst} apart by step {i} "
+                     f"(limit {step_drift} per step)")
+            worst_drift = max(worst_drift, worst)
+    return ~together, worst_gap, worst_drift
+
+
+def check_beam_loop(model, fw, b, k, seed):
+    """The kernel beam loop against the same loop on the plain versions of
+    its two kernels, on the same bfloat16 inputs (both round at the same
+    points): every step's selection equal unless the candidates part at a
+    near-tie (NEAR_TIE_SAME), and the videos that never part end in equal
+    tokens and scores."""
+    from vct_tpu_torch.decode_fast import beam_generate_fused
+
+    feats, masks = eval_inputs(b, fw["wg"].device, seed)
+    kw = dict(beam_size=k, max_len=30, start_id=101, end_id=102, fw=fw)
+    with beam_trace() as kernel:
+        tok_k, sc_k = beam_generate_fused(model, feats, masks, **kw)
+    with beam_trace(plain=True) as plain:
+        tok_p, sc_p = beam_generate_fused(model, feats, masks, **kw)
+    torch.cuda.synchronize()
+    name = f"beam loop bfloat16 B={b} K={k} ({b * k} rows)"
+    # a step adds one log-probability to a beam's score, and the two runs'
+    # log-probabilities agree to what decides a near-tie
+    step_drift = NEAR_TIE_SAME
+    parted, gap, drift = beam_partings(name, kernel.steps, plain.steps, NEAR_TIE_SAME,
+                                       step_drift)
+    same = ~parted.to(tok_k.device)
+    if not torch.equal(tok_k[same], tok_p[same]):
+        fail(f"{name}: videos whose selections never parted ended in different tokens")
+    off = float((sc_k[same] - sc_p[same]).abs().max()) if bool(same.any()) else 0.0
+    if off > step_drift * 29:
+        fail(f"{name}: final scores {off} apart (limit {step_drift * 29})")
+    say(f"  ok {name}: {int(same.sum())}/{b} videos select the same beams and tokens at "
+        f"every step as the loop on the plain versions (final scores within {off:.3g}, "
+        f"drift at most {drift:.3g}); {int(parted.sum())} part at candidate near-ties "
+        f"(largest gap {gap:.3g}, limit {NEAR_TIE_SAME} + twice the drift)")
+
+
+def check_beam_against_module(cfg, model, fw, dev):
+    """The kernel beam path on the card: against the module path in float32
+    at the eval batch's 256 beam rows (the two sum in different orders only:
+    the same selection at every step, or a parting where candidates lie
+    within 1e-4, and final scores within 1e-4); against the same loop on the
+    kernels' plain versions in bfloat16 at the eval batch's 256 beam rows and
+    at a beam of 16 (``check_beam_loop``); and against the module path in
+    bfloat16. The module path rounds every product and its logits to 8 bits,
+    so there the two searches part and end in different captions: each video
+    may part only at a candidate near-tie (NEAR_TIE_MODULE, the drift
+    allowed for), and the module path's own teacher-forced score of the
+    kernel path's caption must agree with the kernel path's score to one
+    near-tie unit per token after the length penalty. A beam wider than the
+    top-k kernel carries must raise."""
+    from vct_tpu_torch.cli.common import make_trainer_pieces
+    from vct_tpu_torch.decode import beam_generate, make_auto_beam_fn
+    from vct_tpu_torch.decode_fast import beam_generate_fused
+    from vct_tpu_torch.ops import decode_kernels as dk
+
+    with torch.no_grad():
+        cfg32 = cfg.replace(tpu=dataclasses.replace(cfg.tpu, dtype="float32"))
+        model32, _ = make_trainer_pieces(cfg32, dev, seed=SEED)
+        feats, masks = eval_inputs(BATCH, dev, SEED + 50)
+        kw = dict(beam_size=BEAM_K, max_len=30, start_id=101, end_id=102)
+        with beam_trace() as kernel:
+            tok_k, sc_k = beam_generate_fused(model32, feats, masks, **kw)
+        with beam_trace() as module:
+            tok_m, sc_m = beam_generate(model32, feats, masks, **kw)
+        torch.cuda.synchronize()
+        name = f"beam float32 B={BATCH} K={BEAM_K} against the module path"
+        parted, gap, drift = beam_partings(name, kernel.steps, module.steps, 1e-4, 1e-5)
+        same = ~parted.to(dev)
+        if not torch.equal(tok_k[same], tok_m[same]):
+            fail(f"{name}: videos whose selections never parted ended in different tokens")
+        off = float((sc_k - sc_m)[same].abs().max()) if bool(same.any()) else 0.0
+        if off > 1e-4:
+            fail(f"{name}: scores {off} apart (limit 1e-4)")
+        say(f"  ok {name}: {int(same.sum())}/{BATCH} videos select the same beams and tokens "
+            f"at every step and end token-equal, {int(parted.sum())} part at candidate "
+            f"near-ties (largest gap {gap:.3g}, limit 1e-4); final scores within {off:.3g}, "
+            f"drift at most {drift:.3g}")
+        del model32
+        check_beam_loop(model, fw, BATCH, BEAM_K, SEED + 51)
+        check_beam_loop(model, fw, 8, 16, SEED + 52)
+
+        feats, masks = eval_inputs(BATCH, dev, SEED + 51)
+        with beam_trace() as kernel:
+            tok_k, sc_k = beam_generate_fused(model, feats, masks, fw=fw, **kw)
+        with beam_trace() as module:
+            tok_m, sc_m = beam_generate(model, feats, masks, **kw)
+        rescored = module_score(model, feats, masks, tok_k, 102)
+        torch.cuda.synchronize()
+        name = f"beam bfloat16 B={BATCH} K={BEAM_K} against the module path"
+        parted, gap, drift = beam_partings(name, kernel.steps, module.steps, NEAR_TIE_MODULE,
+                                           NEAR_TIE_MODULE)
+        same = ~parted.to(dev)
+        if not torch.equal(tok_k[same], tok_m[same]):
+            fail(f"{name}: videos whose selections never parted ended in different tokens")
+        tol = NEAR_TIE_MODULE * 29 / 30 ** 0.6
+        own = float((sc_k - rescored).abs().max())
+        if own > tol:
+            fail(f"{name}: the kernel path's captions score {own} away from the module "
+                 f"path's scoring of them (limit {tol:.3f})")
+        short = sc_m - rescored
+        say(f"  ok {name}: {int(same.sum())}/{BATCH} videos select alike at every step; "
+            f"{int(parted.sum())} part, each at a candidate near-tie (largest gap {gap:.3g}, "
+            f"limit {NEAR_TIE_MODULE} + twice the drift, drift at most {drift:.3g}); the "
+            f"module path scores the kernel path's captions within {own:.4f} of theirs "
+            f"(limit {tol:.3f}); its own best is {float(short.mean()):+.4f} above that on "
+            f"average, from {float(short.min()):+.4f} to {float(short.max()):+.4f} by video "
+            f"(a reading, not a limit: after a parting the two searches are different "
+            f"searches)")
+
+        wide = dk.TOPK_MAX + 1
+        before = read_launches()
+        try:
+            make_auto_beam_fn(model, 30, 101, 102, wide)(*eval_inputs(2, dev, SEED + 53))
+        except ValueError as exc:
+            say(f"  ok a beam of {wide} raises on the card: {exc}")
+        else:
+            fail(f"a beam of {wide} ran on the card: the top-k kernel carries {dk.TOPK_MAX}")
+        if read_launches() != before:
+            fail(f"a beam of {wide} launched kernels before it raised")
+
+
+def per_layer_decode(fw, cks, cvs, mem_bias, max_len=30, start_id=101, pad_id=0):
+    """A greedy decode whose stack runs one fused_layer_step launch per layer
+    (decode_fast.layers_step_per_layer) -> tokens [B, max_len]. No entry
+    point of the port takes this route, as none of the reference does."""
+    from vct_tpu_torch.decode_fast import layers_step_per_layer
+    from vct_tpu_torch.ops import decode_kernels as dk
+
+    nl, _, b, e = cks.shape
+    ks = torch.zeros((nl, 32, b, e), dtype=cks.dtype, device=cks.device)
+    vs = torch.zeros_like(ks)
+    tokens = torch.full((b, max_len), pad_id, dtype=torch.int32, device=cks.device)
+    tokens[:, 0] = start_id
+    for i in range(max_len - 1):
+        x = dk._embed_step(fw["emb"], fw["pe"], tokens[:, i], i, pad_id)
+        x, ks, vs = layers_step_per_layer(x, ks, vs, cks, cvs, mem_bias, fw["stacked"], i,
+                                          heads=fw["heads"])
+        tokens[:, i + 1] = dk.fused_norm_generator_argmax(x, fw["norm_s"], fw["norm_b"],
+                                                          fw["wg"], fw["bg"])
+    return tokens
+
+
+def run_multi(model, fw):
+    """The opt-in greedy modes against the per-token kernel loop at B=1 and
+    B=32, and at B=32 a 29-token decode whose stack runs layer by layer
+    through fused_layer_step -> launches, counted from 0."""
+    from vct_tpu_torch.decode import first_mismatch_gaps
+    from vct_tpu_torch.decode_fast import _prep_decode, greedy_generate_fused
+    from vct_tpu_torch.ops import decode_kernels as dk
+
+    dev = fw["wg"].device
+    reset_launches()
+    with no_plain_on_cuda("multi", dk), torch.no_grad():
+        for b in (1, 32):
+            feats, masks = eval_inputs(b, dev, SEED + 20 + b)
+            kw = dict(max_len=30, start_id=101, end_id=-1, fw=fw)
+            base, _ = greedy_generate_fused(model, feats, masks, **kw)
+            runs = [(str(mode), lambda mode=mode: greedy_generate_fused(
+                model, feats, masks, **mode, **kw)[0])
+                for mode in (dict(multi_step=2), dict(multi_step=4),
+                             dict(sequence_kernel=True))]
+            if b == 32:
+                _, cks, cvs, mem_bias = _prep_decode(model, feats, masks, 30, fw)
+                runs.append(("one fused_layer_step per layer",
+                             lambda: per_layer_decode(fw, cks, cvs, mem_bias)))
+            for label, run in runs:
+                got = run()
+                torch.cuda.synchronize()
+                mism = first_mismatch_gaps(model, feats, masks, got, base)
+                for row, pos, gap in mism:
+                    if gap >= NEAR_TIE_SAME:
+                        fail(f"multi B={b} {label}: row {row} parts from the per-token loop "
+                             f"at position {pos} with top-2 gap {gap} >= {NEAR_TIE_SAME}")
+                say(f"  ok B={b} {label}: {b - len(mism)}/{b} rows token-equal to the "
+                    f"per-token kernel loop")
+    launches = read_launches()
+    for name in ("fused_multi_step", "fused_sequence_decode", "fused_layer_step"):
+        if launches[name] == 0:
+            fail(f"multi: {name} was never launched")
+    if launches["fused_sequence_decode"] != 2:
+        fail(f"multi: the sequence kernel takes one launch per caption batch, counted "
+             f"{launches['fused_sequence_decode']} for 2")
+    say(f"  launches {launches}")
+    return launches
+
+
+def time_beam_kernels(model, fw, heads, tm, card):
+    """name -> {ms, plain_ms, bound_ms, bound_by, library_ms} of the four
+    kernels at the shapes the eval and multi phases give them."""
+    import torch.nn.functional as F
+
+    from vct_tpu_torch.decode_fast import _prep_decode
+    from vct_tpu_torch.ops import decode_kernels as dk
+
+    out = {}
+    dt = fw["wg"].dtype
+    x = decoder_like(fw, heads, tm, BEAM_ROWS, 5001)
+    gargs = (x, fw["norm_s"], fw["norm_b"], fw["wg"], fw["bg"])
+    bg_dt = fw["bg"].to(dt)
+
+    def library_topk():  # layer_norm -> product on the bf16 weights -> topk + logsumexp
+        yn = F.layer_norm(x.float(), (x.shape[1],), fw["norm_s"], fw["norm_b"], 1e-5)
+        logits = torch.addmm(bg_dt, yn.to(dt), fw["wg"]).float()
+        return torch.topk(logits, BEAM_K, dim=-1), torch.logsumexp(logits, dim=-1)
+
+    bnd = bound_ms(nbytes(*gargs) + BEAM_ROWS * (8 * BEAM_K + 4),
+                   2.0 * BEAM_ROWS * fw["wg"].numel(), dt)
+    out["fused_norm_generator_topk"] = {
+        "ms": cuda_time(lambda: dk.fused_norm_generator_topk(*gargs, k=BEAM_K)),
+        "plain_ms": cuda_time(lambda: dk.fused_norm_generator_topk_reference(*gargs, k=BEAM_K),
+                              iters=5),
+        "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": cuda_time(library_topk)}
+    wide = (x[:64].contiguous(),) + gargs[1:]  # the widest k the kernel carries
+    wide_ms = cuda_time(lambda: dk.fused_norm_generator_topk(*wide, k=dk.TOPK_MAX))
+    say(f"  fused_norm_generator_topk at 64 rows, k={dk.TOPK_MAX}: kernel {wide_ms:.4f} ms "
+        f"[{card}]")
+
+    a = step_inputs(fw, 32, 12, tm, gen=8000)
+    w1 = {k: v[1] for k, v in fw["stacked"].items()}
+    largs = (a["x"], a["kc"][1].clone(), a["vc"][1].clone(), a["ck"][1], a["cv"][1],
+             a["mem_bias"], w1)
+    mats = [w1[k] for k in ("wqkv", "wo", "wcq", "wco", "w1", "w2")]
+    # the step at idx 12 attends cache rows 0..12
+    bnd = bound_ms(nbytes(*w1.values(), a["x"], largs[1][:13], largs[2][:13], *largs[3:6])
+                   + nbytes(a["x"]), 2.0 * 32 * sum(m.numel() for m in mats), dt)
+    out["fused_layer_step"] = {
+        "ms": cuda_time(lambda: dk.fused_layer_step(*largs, 12, heads=heads)),
+        "plain_ms": cuda_time(lambda: dk.fused_layer_step_reference(*largs, 12, heads=heads)),
+        "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
+
+    # several tokens per launch at B=32: every input once for ``bound_ms``;
+    # ``restream_bound_ms`` counts the weights once per token instead, since a
+    # token needs the previous token's argmax and the weights (88 MB) exceed
+    # what the card keeps on chip
+    b, u = 32, 4
+    feats, masks = eval_inputs(b, x.device, SEED + 60)
+    _, cks, cvs, mem_bias = _prep_decode(model, feats, masks, 30, fw)
+    ks = torch.zeros((cks.shape[0], 32, b, cks.shape[3]), dtype=dt, device=x.device)
+    vs = torch.zeros_like(ks)
+    cur = torch.full((b,), 101, dtype=torch.int32, device=x.device)
+    stack = {"x": a["x"], "kc": ks, "vc": vs, "ck": cks, "cv": cvs, "mem_bias": mem_bias}
+    per_token = step_bound(fw, stack, b, 8, True)
+    weights = nbytes(*fw["stacked"].values(), fw["wg"], fw["bg"], fw["norm_s"], fw["norm_b"])
+    mat_ops = 2.0 * b * (sum(fw["stacked"][k].numel()
+                             for k in ("wqkv", "wo", "wcq", "wco", "w1", "w2"))
+                         + fw["wg"].numel())
+
+    def once_bound(n_tok, rows):
+        moved = weights + nbytes(cks, cvs, mem_bias) + 2 * nbytes(ks[:, :rows]) \
+            + n_tok * b * (fw["emb"].shape[1] * 2 * 2 + 4)
+        return bound_ms(moved, n_tok * mat_ops, dt)
+
+    margs = (cur, ks, vs, cks, cvs, mem_bias, fw["emb"], fw["pe"], fw)
+    bnd = once_bound(u, 8)
+    out["fused_multi_step"] = {
+        "ms": cuda_time(lambda: dk.fused_multi_step(*margs, 1, heads=heads, unroll=u,
+                                                    pad_id=0, l_view=8)),
+        "plain_ms": cuda_time(lambda: dk.fused_multi_step_reference(
+            *margs, 1, heads=heads, unroll=u, pad_id=0, l_view=8), iters=5),
+        "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
+        "restream_bound_ms": u * per_token[0]}
+    sargs = (fw["emb"], fw["pe"], cks, cvs, mem_bias, fw)
+    skw = dict(heads=heads, max_len=30, start_id=101, end_id=-1, pad_id=0)
+    bnd = once_bound(29, 32)  # end_id=-1: this run's data needs all 29 tokens
+    out["fused_sequence_decode"] = {
+        "ms": cuda_time(lambda: dk.fused_sequence_decode(*sargs, **skw), iters=5),
+        "plain_ms": cuda_time(lambda: dk.fused_sequence_decode_reference(*sargs, **skw),
+                              iters=2),
+        "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
+        "restream_bound_ms": 29 * per_token[0]}
+    for name, t in out.items():
+        lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
+        extra = f", re-streamed bound {t['restream_bound_ms']:.4f} ms" \
+            if "restream_bound_ms" in t else ""
+        say(f"  {name}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}){extra}, library {lib} [{card}]")
+    return out
+
+
+def host_time(fn, reps=3):
+    """ms per call on the host clock around synchronised runs, after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1000 / reps
+
+
+def time_captions(model, fw, tm, card):
+    """ms per caption at B=1 of the greedy modes (29 tokens, the encoder
+    included), then greedy against beam-4 at eval batch 64 with beam's parts
+    timed apart at the shapes of its middle stage (l_view=16)."""
+    from vct_tpu_torch.decode_fast import beam_generate_fused, greedy_generate_fused
+    from vct_tpu_torch.ops import decode_kernels as dk
+
+    dev = fw["wg"].device
+    report = {}
+    feats, masks = eval_inputs(1, dev, SEED + 70)
+    kw = dict(max_len=30, start_id=101, end_id=-1, fw=fw)
+    with torch.no_grad():
+        for label, mode in (("per_token", {}), ("multi_u2", dict(multi_step=2)),
+                            ("multi_u4", dict(multi_step=4)),
+                            ("sequence", dict(sequence_kernel=True))):
+            ms = host_time(lambda: greedy_generate_fused(model, feats, masks, **mode, **kw),
+                           reps=5)
+            report[f"ms_per_caption_b1_{label}"] = ms
+            say(f"  B=1 greedy {label}: {ms:.3f} ms per caption ({ms / 29:.3f} ms/token) "
+                f"[{card}]")
+        feats, masks = eval_inputs(BATCH, dev, SEED + 71)
+        for label, fn in (
+                ("greedy", lambda: greedy_generate_fused(model, feats, masks, **kw)),
+                ("beam4", lambda: beam_generate_fused(model, feats, masks, beam_size=BEAM_K,
+                                                      **kw))):
+            ms = host_time(fn)
+            report[f"captions_per_s_b64_{label}"] = BATCH / ms * 1000
+            say(f"  eval batch {BATCH} {label}: {ms:.2f} ms per batch, "
+                f"{BATCH / ms * 1000:.1f} captions/s ({ms / 29:.3f} ms/token) [{card}]")
+        # beam's parts at 256 beam rows, per token
+        nl, e = fw["stacked"]["wqkv"].shape[:2]
+        ks = torch.randn((nl, 32, BEAM_ROWS, e), device=dev).to(fw["wg"].dtype)
+        ks2 = torch.empty_like(ks)
+        flat = torch.randint(0, BEAM_ROWS, (BEAM_ROWS,), device=dev)
+
+        def regather():  # both caches, the first 16 rows of every layer
+            for _ in range(2):
+                for li in range(nl):
+                    torch.index_select(ks[li, :16], 1, flat, out=ks2[li, :16])
+
+        topv = torch.randn((BEAM_ROWS, BEAM_K), device=dev)
+        topi = torch.randint(0, 30522, (BEAM_ROWS, BEAM_K), device=dev, dtype=torch.int32)
+        lse = torch.randn((BEAM_ROWS,), device=dev)
+        scores = torch.randn((BATCH, BEAM_K), device=dev)
+        finished = torch.zeros((BATCH, BEAM_K), dtype=torch.bool, device=dev)
+        frozen = torch.zeros((BEAM_K,), device=dev)
+
+        def merge():  # the [B, K, K] candidate merge of one beam step
+            logp = torch.where(finished[..., None], frozen,
+                               (topv - lse[:, None]).reshape(BATCH, BEAM_K, BEAM_K))
+            tok = torch.where(finished[..., None], 0, topi.reshape(BATCH, BEAM_K, BEAM_K))
+            cand = scores[..., None] + logp
+            s, idx = dk.topk_first_win(cand.reshape(BATCH, BEAM_K * BEAM_K), BEAM_K)
+            return s, idx // BEAM_K, torch.gather(tok.reshape(BATCH, -1), 1, idx)
+
+        a = step_inputs(fw, BEAM_ROWS, 12, tm, gen=9000)
+        parts = {
+            "stack_kernel": cuda_time(lambda: dk.fused_layers_step(
+                a["x"], a["kc"], a["vc"], a["ck"], a["cv"], a["mem_bias"], fw["stacked"], 12,
+                heads=fw["heads"], l_view=16)),
+            "regather": cuda_time(regather),
+            "candidate_merge": cuda_time(merge)}
+    for k, ms in parts.items():
+        report[f"beam_part_{k}_ms"] = ms
+    say(f"  beam-4 parts per token at {BEAM_ROWS} rows (device time, besides the top-k "
+        f"kernel above): " + ", ".join(f"{k} {ms:.4f} ms" for k, ms in parts.items())
+        + f" [{card}]")
     return report
 
 
@@ -819,38 +1695,25 @@ def run_training(repo: Path, root: Path, vocab: Path):
 
         return wrapped
 
-    plain_on_cuda = []
-    originals = {}
-    for name in ("softmax_stats_reference", "clipped_prob_stats_reference",
-                 "sce_backward_tiles_reference"):
-        fn = originals[name] = getattr(lk, name)
-
-        def spy(x, *a, _fn=fn, _name=name, **k):
-            if x.is_cuda:
-                plain_on_cuda.append(_name)
-            return _fn(x, *a, **k)
-
-        setattr(lk, name, spy)
     loop.make_train_step, loop.make_eval_step = recording_train, recording_eval
     try:
-        for fn in lk.WRAPPERS + dk.WRAPPERS:
-            fn.launches = 0
-        scores = train_cli.main(["-c", str(train_config(repo, root, vocab, 1)),
-                                 "--no_tensorboard"])
-        torch.cuda.synchronize()
-        launches = {fn.__name__: fn.launches for fn in lk.WRAPPERS}
-        decode_launches = dk.fused_whole_step.launches
-        first = [float(v) for v in losses]
-        vals = [{k: float(v) for k, v in parts.items()} for parts in val_parts]
-        losses.clear()
-        train_cli.main(["-c", str(train_config(repo, root, vocab, 2)), "--no_tensorboard",
-                        "--resume", "auto"])
-        torch.cuda.synchronize()
-        second = [float(v) for v in losses]
+        with no_plain_on_cuda("train", lk):
+            for fn in lk.WRAPPERS + dk.WRAPPERS:
+                fn.launches = 0
+            scores = train_cli.main(["-c", str(train_config(repo, root, vocab, 1)),
+                                     "--no_tensorboard"])
+            torch.cuda.synchronize()
+            launches = {fn.__name__: fn.launches for fn in lk.WRAPPERS}
+            decode_launches = dk.fused_whole_step.launches
+            first = [float(v) for v in losses]
+            vals = [{k: float(v) for k, v in parts.items()} for parts in val_parts]
+            losses.clear()
+            train_cli.main(["-c", str(train_config(repo, root, vocab, 2)), "--no_tensorboard",
+                            "--resume", "auto"])
+            torch.cuda.synchronize()
+            second = [float(v) for v in losses]
     finally:
         loop.make_train_step, loop.make_eval_step = make_train, make_eval
-        for name, fn in originals.items():
-            setattr(lk, name, fn)
     want = {"softmax_stats": TRAIN_STEPS + VAL_STEPS, "clipped_prob_stats": TRAIN_STEPS + VAL_STEPS,
             "sce_backward_tiles": TRAIN_STEPS}
     if len(first) != TRAIN_STEPS or len(vals) != VAL_STEPS or len(second) != TRAIN_STEPS:
@@ -858,8 +1721,6 @@ def run_training(repo: Path, root: Path, vocab: Path):
     if launches != want:
         fail(f"train: loss kernel launches {launches}, expected {want} "
              f"(3 per train step, 2 per validation step)")
-    if plain_on_cuda:
-        fail(f"train: plain versions ran on CUDA tensors: {sorted(set(plain_on_cuda))}")
     if decode_launches == 0:
         fail("train: the eval decode never launched fused_whole_step")
     if not all(math.isfinite(v) for v in first + second) or \
@@ -976,6 +1837,41 @@ def profile_train(repo, root, vocab, dev, card):
         say(f"  {ms:8.3f} ms/step  {count:6.1f}/step  {key[:100]}")
 
 
+def profile_decode(model, fw, card):
+    """Where one caption's time goes at B=1 in each greedy mode: ms per
+    caption without the profiler, then torch.profiler over 3 captions for the
+    device's busy time by kernel. The idle share sets the busy time against
+    the unprofiled caption, since the profiler slows the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vct_tpu_torch.decode_fast import greedy_generate_fused
+
+    feats, masks = eval_inputs(1, fw["wg"].device, SEED + 70)
+    kw = dict(max_len=30, start_id=101, end_id=-1, fw=fw)
+    with torch.no_grad():
+        for label, mode in (("per_token", {}), ("multi_u2", dict(multi_step=2)),
+                            ("multi_u4", dict(multi_step=4)),
+                            ("sequence", dict(sequence_kernel=True))):
+            def fn():
+                return greedy_generate_fused(model, feats, masks, **mode, **kw)
+
+            ms = host_time(fn, reps=5)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    fn()
+                torch.cuda.synchronize()
+            rows = [(e.key, e.device_time_total / 3e3, e.count / 3)
+                    for e in prof.key_averages()
+                    if e.device_time_total > 0 and str(e.device_type).endswith("CUDA")
+                    and not getattr(e, "is_user_annotation", False)]
+            busy = sum(r[1] for r in rows)
+            say(f"profile of a B=1 caption, {label} [{card}]: {ms:.3f} ms unprofiled, device "
+                f"busy {busy:.3f} ms, idle share {1 - busy / ms:.2f}, "
+                f"{sum(r[2] for r in rows):.0f} kernels per caption")
+            for key, k_ms, count in sorted(rows, key=lambda r: -r[1])[:4]:
+                say(f"  {k_ms:8.3f} ms/caption  {count:6.1f}/caption  {key[:90]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs a CUDA card")
@@ -1023,6 +1919,9 @@ def main() -> int:
         fw = extract_fast_weights(model)
         fw["vocab"] = model.config.vocab_size
         heads, tm = fw["heads"], cfg.tpu.max_frames + 1
+        if "--profile-decode" in sys.argv[1:]:
+            profile_decode(model, fw, card)
+            return 0
         say(f"model: configs/msvd.json, {n_params} parameters and buffers, vocab "
             f"{model.config.vocab_size} (padded {fw['wg'].shape[1]}), {cfg.tpu.dtype}")
 
@@ -1041,26 +1940,41 @@ def main() -> int:
             f"then a resumed epoch")
         launches.update(run_training(repo, work, vocab))
         check_step0_routes(repo, work, vocab, dev)
+        say("phase beam-kernels: the eval slice's kernels against their plain versions")
+        errs.update(check_beam_kernels(model, fw, heads, tm))
+        say(f"phase eval: vct_tpu_torch.cli.eval on {EVAL_VIDEOS} videos, eval batch {BATCH}: "
+            f"greedy, --beam 4, --beam 1")
+        beam_launches, eval_report = run_eval(repo, work, vocab, ckpt, card)
+        launches["fused_norm_generator_topk"] = beam_launches["fused_norm_generator_topk"]
+        check_beam_against_module(cfg, model, fw, dev)
+        say("phase multi: several tokens per launch against the per-token kernel loop")
+        multi_launches = run_multi(model, fw)
+        for name in ("fused_layer_step", "fused_multi_step", "fused_sequence_decode"):
+            launches[name] = multi_launches[name]
         say(f"phase timings [{card}]")
         kernel_times = time_kernels(fw, heads, tm)
         for name, t in kernel_times.items():
             lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
             say(f"  {name}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
                 f"{t['bound_ms']:.4f} ms ({t['bound_by']}), library {lib} [{card}]")
-        report = {"server_captions_per_s": cps, **time_decode(model, fw, card)}
+        kernel_times.update(time_beam_kernels(model, fw, heads, tm, card))
+        report = {"server_captions_per_s": cps, **eval_report, **time_decode(model, fw, card),
+                  **time_captions(model, fw, tm, card)}
         loss_times, loss_report = time_loss_kernels(dev, card)
         kernel_times.update(loss_times)
         report.update(loss_report)
         report.update(time_train_steps(repo, work, vocab, dev, card))
 
     say(json.dumps(report))
-    sources = {**{k: SOURCE for k in REPLACES}, **{k: LOSS_SOURCE for k in LOSS_REPLACES}}
+    sources = {**{k: SOURCE for k in REPLACES}, **{k: LOSS_SOURCE for k in LOSS_REPLACES},
+               **{k: v[1] for k, v in BEAM_REPLACES.items()}}
+    replaced = {**REPLACES, **LOSS_REPLACES, **{k: v[0] for k, v in BEAM_REPLACES.items()}}
     extra = {"sce_backward_tiles": bwd_errs}
     say(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name], "replaces": replaces,
          "launches": launches[name], "max_abs_err": errs[name], **kernel_times[name],
          **extra.get(name, {})}
-        for name, replaces in {**REPLACES, **LOSS_REPLACES}.items()]}))
+        for name, replaces in replaced.items()]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
     return 0

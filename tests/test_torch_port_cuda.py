@@ -158,6 +158,198 @@ def test_wrapper_rejects_bad_layouts(cuda):
 
 
 # ---------------------------------------------------------------------------
+# top-k, one layer's step, several tokens per launch (csrc/gen_topk.cu,
+# csrc/decode_multi.cu)
+# ---------------------------------------------------------------------------
+
+
+def _assert_topk(got, want, x, fw, dt):
+    """Values and logsumexp within the dtype's tolerance; ids equal except
+    where the plain logits of the two ids are within ``NEAR_TIE``."""
+    (v_k, i_k, lse_k), (v_r, i_r, lse_r) = got, want
+    torch.testing.assert_close(v_k, v_r, **TOL[dt])
+    torch.testing.assert_close(lse_k, lse_r, **TOL[dt])
+    logits = dk._ln(x, fw["norm_s"], fw["norm_b"]) @ fw["wg"].float() + fw["bg"]
+    gap = (torch.gather(logits, 1, i_r.long()) - torch.gather(logits, 1, i_k.long())).abs()
+    assert bool((gap[i_k != i_r] < NEAR_TIE).all()), (i_k, i_r)
+    assert int(i_k.max()) < V and int(i_k.min()) >= 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,k", [(1, 1), (12, 4), (40, 8), (20, 16), (9, dk.TOPK_MAX)])
+def test_generator_topk_kernel(cuda, dt, b, k):
+    fw, step = _inputs(cuda, dt, 0, b=b, seed=200 + b)
+    x = step[0]
+    args = (x, fw["norm_s"], fw["norm_b"], fw["wg"], fw["bg"])
+    launches = dk.fused_norm_generator_topk.launches
+    got = dk.fused_norm_generator_topk(*args, k=k)
+    again = dk.fused_norm_generator_topk(*args, k=k)
+    want = dk.fused_norm_generator_topk_reference(*args, k=k)
+    torch.cuda.synchronize()
+    assert dk.fused_norm_generator_topk.launches == launches + 2
+    _assert_topk(got, want, x, fw, dt)
+    for a, c in zip(got, again):  # the same bits from run to run
+        assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_generator_topk_ties_across_blocks_go_to_the_lowest_id(cuda, dt):
+    """Columns 20, 300 and 590 (three column blocks of 256) share one weight
+    column and lead the vocab: the ids come out in ascending order."""
+    fw, step = _inputs(cuda, dt, 0, b=9, seed=9)
+    wg, bg = fw["wg"].clone(), fw["bg"].clone()
+    wg[:, 300] = wg[:, 590] = wg[:, 20]
+    bg[20] = bg[300] = bg[590] = 1e3
+    v, i, _ = dk.fused_norm_generator_topk(step[0], fw["norm_s"], fw["norm_b"], wg, bg, k=4)
+    assert i[:, :3].cpu().tolist() == [[20, 300, 590]] * 9
+    assert bool((v[:, 0] == v[:, 1]).all()) and bool((v[:, 1] == v[:, 2]).all())
+    # above the kernel's cap a CUDA call raises; it never runs the plain version
+    launches = dk.fused_norm_generator_topk.launches
+    with pytest.raises(ValueError, match="above"):
+        dk.fused_norm_generator_topk(step[0], fw["norm_s"], fw["norm_b"], wg, bg,
+                                     k=dk.TOPK_MAX + 1)
+    assert dk.fused_norm_generator_topk.launches == launches
+
+
+@pytest.mark.cuda
+def test_beam_wider_than_the_kernel_raises_on_the_card(cuda):
+    """``beam_generate_fused`` (and so ``make_auto_beam_fn``) refuses a beam
+    above ``TOPK_MAX`` on CUDA tensors before it encodes anything."""
+    from vct_tpu_torch.decode_fast import beam_generate_fused
+
+    feats = [torch.zeros((2, 4, 16), device=cuda)]
+    with pytest.raises(ValueError, match="beam_size"):
+        beam_generate_fused(None, feats, None, beam_size=dk.TOPK_MAX + 1, pad_id=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("idx,with_bias", [(0, True), (7, False), (15, True)])
+def test_layer_step_kernel(cuda, dt, idx, with_bias):
+    fw, step = _inputs(cuda, dt, idx, seed=300 + idx)
+    x, kc, vc, ck, cv, mb = step
+    w1 = {k: v[1].contiguous() for k, v in fw["stacked"].items()}
+    mb = mb if with_bias else None
+    launches = dk.fused_layer_step.launches
+    x_k, k_k, v_k = dk.fused_layer_step(x, kc[1].clone(), vc[1].clone(), ck[1].contiguous(),
+                                        cv[1].contiguous(), mb, w1, idx, heads=H)
+    x_r, k_r, v_r = dk.fused_layer_step_reference(x, kc[1].clone(), vc[1].clone(), ck[1],
+                                                  cv[1], mb, w1, idx, heads=H)
+    torch.cuda.synchronize()
+    assert dk.fused_layer_step.launches == launches + 1
+    torch.testing.assert_close(x_k.float(), x_r.float(), **TOL[dt])
+    torch.testing.assert_close(k_k.float(), k_r.float(), **TOL[dt])
+    torch.testing.assert_close(v_k.float(), v_r.float(), **TOL[dt])
+
+
+def _tables(dev, dt, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    emb = torch.randn((V, E), generator=g).to(dev, dt)
+    pe = (torch.randn((L, E), generator=g) * 0.5).to(dev, dt)
+    return emb, pe
+
+
+def _assert_chain(got, want, replay):
+    """Token chains equal, or parting first at a near-tie: ``replay(row)``
+    gives the plain logits' top-2 gaps [n_tok] along the wanted chain."""
+    got, want = got.cpu(), want.cpu()
+    for r in (got != want).any(dim=1).nonzero().flatten().tolist():
+        first = int((got[r] != want[r]).int().argmax())
+        assert float(replay(r)[first]) < NEAR_TIE, (r, first, got[r], want[r])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,u", [(1, 2), (8, 4), (20, 8)])
+def test_multi_step_kernel_windows_and_poison(cuda, dt, b, u):
+    fw, step = _inputs(cuda, dt, 0, b=b, seed=400 + b)
+    _, kc, vc, ck, cv, mb = step
+    emb, pe = _tables(cuda, dt)
+    cur = torch.randint(1, V, (b,), generator=torch.Generator().manual_seed(b)
+                        ).to(cuda, torch.int32)
+    cur[0] = 0  # the pad row embeds to zero
+    ks_k, vs_k, ks_r, vs_r = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    cur_k = cur_r = cur
+    gaps = []
+    launches = dk.fused_multi_step.launches
+    for w in range(L // u):
+        l_view = min(-(-((w + 1) * u) // 8) * 8, L)
+        t_k, _, _ = dk.fused_multi_step(cur_k, ks_k, vs_k, ck, cv, mb, emb, pe, fw, w,
+                                        heads=H, unroll=u, pad_id=0, l_view=l_view)
+        # the plain version one token at a time, to read each step's top-2 gap
+        toks = []
+        for j in range(u):
+            pos = w * u + j
+            x = dk._embed_step(emb, pe, cur_r, pos, 0)
+            xs = dk._stack_reference(x, ks_r, vs_r, ck, cv, mb, fw["stacked"], pos, H, l_view)
+            gaps.append(_gaps(xs, fw))
+            cur_r = dk.fused_norm_generator_argmax_reference(xs, fw["norm_s"], fw["norm_b"],
+                                                             fw["wg"], fw["bg"])
+            toks.append(cur_r)
+        t_r = torch.stack(toks, dim=1)
+        torch.cuda.synchronize()
+        gap_w = torch.stack(gaps[-u:], dim=1)  # [b, u]
+        _assert_chain(t_k, t_r, lambda r: gap_w[r])
+        rows = slice(w * u, w * u + u)
+        same = (t_k == t_r).all(dim=1)  # rows whose chains agree wrote the same cache rows
+        torch.testing.assert_close(ks_k[:, rows][:, :, same].float(),
+                                   ks_r[:, rows][:, :, same].float(), **TOL[dt])
+        # go on from the plain chain so a near-tie does not travel
+        ks_k[:, rows], vs_k[:, rows] = ks_r[:, rows], vs_r[:, rows]
+        cur_k = cur_r = t_r[:, -1].contiguous()
+    assert dk.fused_multi_step.launches == launches + L // u
+    t_k, _, _ = dk.fused_multi_step(cur, kc.clone(), vc.clone(), ck, cv, mb, emb, pe, fw, 1,
+                                    heads=H, unroll=u, pad_id=0, l_view=u)
+    assert bool((t_k == -1).all())  # (1 + 1) * u > l_view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 8, 32])
+def test_sequence_decode_kernel(cuda, dt, b):
+    fw, step = _inputs(cuda, dt, 0, b=b, seed=500 + b)
+    _, _, _, ck, cv, mb = step
+    emb, pe = _tables(cuda, dt, seed=1)
+    kw = dict(heads=H, max_len=14, start_id=2, pad_id=0)
+
+    def replay(want):
+        """Top-2 gaps of the plain logits along the chain ``want``."""
+        nl = ck.shape[0]
+        ks = torch.zeros((nl, L, b, E), dtype=dt, device=cuda)
+        vs = torch.zeros_like(ks)
+        gaps = []
+        for i in range(want.shape[1] - 1):
+            x = dk._embed_step(emb, pe, want[:, i], i, 0)
+            gaps.append(_gaps(dk._stack_reference(x, ks, vs, ck, cv, mb, fw["stacked"], i, H,
+                                                  L), fw))
+        return torch.stack(gaps, dim=1)
+
+    launches = dk.fused_sequence_decode.launches
+    want = dk.fused_sequence_decode_reference(emb, pe, ck, cv, mb, fw, end_id=-1, **kw)
+    got = dk.fused_sequence_decode(emb, pe, ck, cv, mb, fw, end_id=-1, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == (b, 14) and got.dtype == torch.int32
+    gaps = replay(want)
+    _assert_chain(got[:, 1:], want[:, 1:], lambda r: gaps[r])
+    # a generator biased to the end token: every row finishes at step 1 and
+    # the kernel leaves its token loop there
+    end_id = 5
+    fw2 = dict(fw, bg=fw["bg"].clone())
+    fw2["bg"][end_id] = 1e3
+    want = dk.fused_sequence_decode_reference(emb, pe, ck, cv, mb, fw2, end_id=end_id, **kw)
+    got = dk.fused_sequence_decode(emb, pe, ck, cv, mb, fw2, end_id=end_id, **kw)
+    torch.cuda.synchronize()
+    assert got.cpu().tolist() == want.cpu().tolist() == [[2, 5] + [0] * 12] * b
+    assert dk.fused_sequence_decode.launches == launches + 2
+    if b == 32:
+        wide = torch.zeros((NL, TM, 33, E), dtype=dt, device=cuda)
+        with pytest.raises(ValueError, match="B <= 32"):
+            dk.fused_sequence_decode(emb, pe, wide, wide, None, fw, end_id=-1, **kw)
+
+
+# ---------------------------------------------------------------------------
 # the fused-loss kernels (csrc/sce_loss.cu)
 # ---------------------------------------------------------------------------
 # Tolerances: the float32 statistics and sums differ from the plain version by

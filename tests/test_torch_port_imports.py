@@ -75,7 +75,8 @@ def test_copied_host_module_has_not_drifted(rel):
 
 def test_serving_path_loads_no_jax():
     code = ("import sys, vct_tpu_torch.serve, vct_tpu_torch.decode_fast, "
-            "vct_tpu_torch.cli.common, vct_tpu_torch.cli.train, vct_tpu_torch.train.loop; "
+            "vct_tpu_torch.cli.common, vct_tpu_torch.cli.train, vct_tpu_torch.cli.eval, "
+            "vct_tpu_torch.train.loop; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN | {'vct_tpu'})!r}]; print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_clean_env(),

@@ -482,7 +482,6 @@ def test_trainer_refuses_what_later_slices_port(workspace):
     base = config_dict(workspace)
     for patch, match in (
             (lambda c: c["train"].update(task="match"), "matching slice"),
-            (lambda c: c["tpu"].update(beam_size=2), "beam slice"),
             (lambda c: c["tpu"].update(mesh_data=4), "DDP slice")):
         cfg = json.loads(json.dumps(base))
         patch(cfg)

@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
+from typing import Dict
 
 import torch
 
@@ -48,12 +50,34 @@ def make_trainer_pieces(cfg: Config, device: torch.device, *, seed=None):
     return model, tokenizer
 
 
-def load_checkpoint_into(model, path: str, log=print) -> dict:
-    """Load a reference-format ``.pth`` into ``model`` (lenient, like every
+def memory_mask_advisory(cfg: Config) -> str:
+    """One-line parity note for reference ``.pth`` loads: this decoder masks
+    padded memory slots by default, the reference never does — observable
+    only when videos are shorter than ``tpu.max_frames``. Empty when the
+    quirk flag already matches."""
+    if cfg is None or cfg.tpu.quirk_no_memory_mask_in_decoder:
+        return ""
+    return (
+        "note: decoder cross-attention masks padded memory slots (a fix over "
+        "the reference); for bit-parity evals with this .pth on videos "
+        "shorter than max_frames set tpu.quirk_no_memory_mask_in_decoder=true"
+    )
+
+
+def load_checkpoint_into(model, path: str, log=print, cfg: Config = None) -> dict:
+    """Load a reference-format ``.pth`` state dict, or the model weights of a
+    train-state ``.pt`` checkpoint, into ``model`` (lenient, like every
     reference load site) -> the {missing, unexpected} report."""
     if not path.endswith((".pth", ".pt", ".bin")):
         raise ValueError(f"{path}: the port loads .pth/.pt/.bin state dicts")
     report = load_state_dict_into(model, load_torch_state_dict(path))
     log(f"loaded {path}: missing={len(report['missing'])} "
         f"unexpected={len(report['unexpected'])}")
+    advisory = memory_mask_advisory(cfg)
+    if advisory:
+        log(advisory)
     return report
+
+
+def print_scores(scores: Dict[str, float]) -> None:
+    print(json.dumps({k: round(float(v), 4) for k, v in scores.items()}, indent=2))

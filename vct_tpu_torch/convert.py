@@ -108,10 +108,14 @@ def state_dict_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 
 def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
     """Load a ``.pth`` state_dict on the CPU, unwrapping ``{'state_dict': ...}``
-    and stripping the DDP ``module.`` prefix."""
+    and the ``model`` entry of a train-state checkpoint
+    (``train.state.save_checkpoint``), and stripping the DDP ``module.``
+    prefix."""
     raw = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(raw, dict) and "state_dict" in raw:
         raw = raw["state_dict"]
+    elif isinstance(raw, dict) and "optimizer" in raw and isinstance(raw.get("model"), dict):
+        raw = raw["model"]
     return {(k[len("module."):] if k.startswith("module.") else k): v
             for k, v in raw.items()}
 

@@ -1,8 +1,9 @@
 """Build ``vct_tpu_torch/csrc/*.cu`` with ``nvcc`` and load it with ctypes.
 
 The library is compiled at first use into ``vct_tpu_torch/_build/<hash>/``
-(git-ignored), keyed by a hash of the sources and the compiler flags, so an
-edited kernel is rebuilt and an unchanged one is loaded as it is. Each source
+(git-ignored), keyed by a hash of the sources, their shared headers
+(``*.cuh``) and the compiler flags, so an edited kernel is rebuilt and an
+unchanged one is loaded as it is. Each source
 is compiled by its own ``nvcc`` process, all started together, and the objects
 are linked into one library. The sources have a plain C interface and include
 no PyTorch header, which keeps a build to seconds. Nothing here runs at import
@@ -42,7 +43,7 @@ def _sources():
 
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -86,6 +87,12 @@ def load_library() -> ctypes.CDLL:
     lib.vct_decode_step.restype = _I
     lib.vct_gen_argmax.argtypes = [_I] + [_P] * 7 + [_I] * 3 + [_P]
     lib.vct_gen_argmax.restype = _I
+    lib.vct_decode_multi.argtypes = [_I, _P] + [_I] * 18 + [_P]
+    lib.vct_decode_multi.restype = _I
+    lib.vct_gen_topk_blocks.argtypes = [_I]
+    lib.vct_gen_topk_blocks.restype = _I
+    lib.vct_gen_topk.argtypes = [_I] + [_P] * 11 + [_I] * 4 + [_P]
+    lib.vct_gen_topk.restype = _I
     lib.vct_sce_block_rows.argtypes = [_I]
     lib.vct_sce_block_rows.restype = _I
     lib.vct_sce_softmax_stats.argtypes = [_I] + [_P] * 7 + [_I] * 3 + [_P]

@@ -17,7 +17,10 @@ def on_cuda(x: torch.Tensor, name: str) -> bool:
     return True
 
 
-def expect(t: torch.Tensor, name: str, shape, dtype, device) -> None:
+def expect(t: torch.Tensor, name: str, shape, dtype, device, *, vector_loads: bool = True
+           ) -> None:
+    """``vector_loads``: the kernel reads the tensor in 16-byte loads, so it
+    must start on a 16-byte boundary."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -26,7 +29,7 @@ def expect(t: torch.Tensor, name: str, shape, dtype, device) -> None:
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    if t.data_ptr() % 16:
+    if vector_loads and t.data_ptr() % 16:
         raise ValueError(f"{name} must start on a 16-byte boundary")
 
 

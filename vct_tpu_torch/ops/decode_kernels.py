@@ -1,13 +1,23 @@
-"""The three greedy decode-step kernels, each beside its plain PyTorch version.
+"""The decode kernels, each beside its plain PyTorch version.
 
-Port of the kernels on the serving path in ``vct_tpu/ops/pallas_decode.py``:
+Port of the kernels in ``vct_tpu/ops/pallas_decode.py``:
 
 * ``fused_layers_step`` (``pallas_decode.py:516``) — one token through the
   whole decoder stack; x_out is NaN when ``idx >= l_view``;
 * ``fused_norm_generator_argmax`` (``pallas_decode.py:811``) — final
   LayerNorm, vocab projection and first-win argmax without storing logits;
 * ``fused_whole_step`` (``pallas_decode.py:581``) — both in one launch; the
-  tokens are -1 when ``idx >= l_view``.
+  tokens are -1 when ``idx >= l_view``;
+* ``fused_norm_generator_topk`` (``pallas_decode.py:721``) — final LayerNorm,
+  vocab projection, per-row top-k (lowest id wins ties) and logsumexp
+  without storing logits: beam search's candidates;
+* ``fused_layer_step`` (``pallas_decode.py:211``) — one decoder layer's step
+  on un-stacked weights and [L, B, E] caches;
+* ``fused_multi_step`` (``pallas_decode.py:1289``) — ``unroll`` greedy tokens
+  per launch, embedding and argmax feedback inside; tokens are -1 when the
+  window reaches past ``l_view``;
+* ``fused_sequence_decode`` (``pallas_decode.py:997``) — the whole greedy
+  caption in one launch (B <= 32).
 
 The public functions keep the reference's argument layout: caches
 [NL, L, B, E], cross K/V [NL, Tm, B, E], memory bias [B, Tm] float32 (or
@@ -18,7 +28,8 @@ columns carry a ``NEG_INF`` bias. ``idx`` is a host int. Unlike the reference
 in place; the same tensors are returned.
 
 Dispatch: a wrapper given CPU tensors runs the ``*_reference`` version; given
-CUDA tensors it launches the CUDA kernel (``csrc/decode_step.cu``) or raises.
+CUDA tensors it launches the CUDA kernel (``csrc/decode_step.cu``,
+``csrc/gen_topk.cu``, ``csrc/decode_multi.cu``) or raises.
 Each wrapper counts its kernel launches in ``<wrapper>.launches``.
 """
 
@@ -41,7 +52,9 @@ STACK_KEYS = ("wqkv", "bqkv", "wo", "bo", "wcq", "bcq", "wco", "bco",
               "n1s", "n1b", "n2s", "n2b", "w1", "b1", "w2", "b2", "n3s", "n3b")
 _NORM_KEYS = ("n1s", "n1b", "n2s", "n2b", "n3s", "n3b")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_SPAN = 1024  # LMAX in csrc/decode_step.cu
+_MAX_SPAN = 1024  # LMAX in csrc/decode_common.cuh
+TOPK_MAX = 32     # TOPK_MAX in csrc/gen_topk.cu: the widest beam the kernel carries
+SEQUENCE_MAX_B = 32  # fused_sequence_decode's batch rule, kept from the reference
 
 
 # ---------------------------------------------------------------------------
@@ -98,6 +111,10 @@ def _stack_reference(x, k_cache, v_cache, ck, cv, mem_bias, w, idx, heads, l):
     return x
 
 
+def _round_up8(n: int) -> int:
+    return (n + 7) // 8 * 8
+
+
 def _window(k_cache, l_view):
     big_l = k_cache.shape[1]
     return big_l if l_view is None else l_view
@@ -127,6 +144,85 @@ def fused_whole_step_reference(x, k_cache, v_cache, ck, cv, mem_bias, weights,
     if idx >= l:
         tok = torch.full_like(tok, -1)
     return tok, k_cache, v_cache
+
+
+def topk_first_win(vals: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k over the last axis by k passes of first-win argmax -> (values
+    [..., k], indices [..., k] int64): the lowest index wins among equal
+    values, which ``torch.topk`` does not promise."""
+    vals = vals.clone()
+    out_v, out_i = [], []
+    for _ in range(k):
+        arg = torch.argmax(vals, dim=-1, keepdim=True)  # first index of the max
+        out_v.append(torch.gather(vals, -1, arg))
+        out_i.append(arg)
+        vals.scatter_(-1, arg, float("-inf"))
+    return torch.cat(out_v, dim=-1), torch.cat(out_i, dim=-1)
+
+
+def fused_norm_generator_topk_reference(x, norm_scale, norm_bias, wg, bg, *, k: int):
+    logits = _ln(x, norm_scale, norm_bias) @ wg.float() + bg.float()
+    topv, topi = topk_first_win(logits, k)
+    return topv, topi.to(torch.int32), torch.logsumexp(logits, dim=-1)
+
+
+def _as_stack(weights: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """One layer's un-stacked weights viewed with a leading layer axis of 1."""
+    return {k: weights[k].unsqueeze(0) for k in STACK_KEYS}
+
+
+def fused_layer_step_reference(x, k_cache, v_cache, ck, cv, mem_bias, weights, idx: int, *,
+                               heads: int):
+    out = _stack_reference(x, k_cache.unsqueeze(0), v_cache.unsqueeze(0), ck.unsqueeze(0),
+                           cv.unsqueeze(0), mem_bias, _as_stack(weights), idx, heads,
+                           k_cache.shape[0])
+    return out, k_cache, v_cache
+
+
+def _embed_step(emb, pe, cur, pos: int, pad_id: int):
+    """The decoder input of tokens ``cur`` [B] at position ``pos``: the
+    embedding row (zero for ``pad_id``) plus the position's row, summed in
+    float32 and rounded once to the compute dtype."""
+    x = emb[cur.long()].float().masked_fill((cur == pad_id)[:, None], 0.0)
+    return (x + pe[pos].float()).to(emb.dtype)
+
+
+def fused_multi_step_reference(cur, k_cache, v_cache, ck, cv, mem_bias, emb, pe, weights,
+                               w_idx: int, *, heads: int, unroll: int = 4, pad_id: int = 0,
+                               l_view: Optional[int] = None):
+    l = _window(k_cache, l_view)
+    toks = []
+    for j in range(unroll):
+        pos = w_idx * unroll + j
+        x = _embed_step(emb, pe, cur, pos, pad_id)
+        cur, _, _ = fused_whole_step_reference(x, k_cache, v_cache, ck, cv, mem_bias,
+                                               weights, pos, heads=heads, l_view=l)
+        toks.append(cur)
+    toks = torch.stack(toks, dim=1)
+    if (w_idx + 1) * unroll > l:
+        toks = torch.full_like(toks, -1)
+    return toks, k_cache, v_cache
+
+
+def fused_sequence_decode_reference(emb, pe, ck, cv, mem_bias, weights, *, heads: int,
+                                    max_len: int, start_id: int, end_id: int,
+                                    pad_id: int = 0):
+    nl, _, b, e = ck.shape
+    l_pad = _round_up8(max_len)
+    ks = torch.zeros((nl, l_pad, b, e), dtype=ck.dtype, device=ck.device)
+    vs = torch.zeros_like(ks)
+    tokens = torch.full((b, max_len), pad_id, dtype=torch.int32, device=ck.device)
+    tokens[:, 0] = start_id
+    done = torch.zeros((b,), dtype=torch.bool, device=ck.device)
+    for i in range(max_len - 1):
+        x = _embed_step(emb, pe, tokens[:, i], i, pad_id)
+        nxt, _, _ = fused_whole_step_reference(x, ks, vs, ck, cv, mem_bias, weights, i,
+                                               heads=heads)
+        tokens[:, i + 1] = nxt
+        done |= nxt == end_id
+        if bool(done.all()):  # every later position keeps pad_id
+            break
+    return tokens
 
 
 # ---------------------------------------------------------------------------
@@ -172,6 +268,29 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _check_gen(gen, e, dt, dev) -> int:
+    v = gen["wg"].shape[1]
+    if v % 8:
+        raise ValueError(f"vocab width {v} must be a multiple of 8")
+    _expect(gen["norm_s"], "norm_s", (e,), torch.float32, dev)
+    _expect(gen["norm_b"], "norm_b", (e,), torch.float32, dev)
+    _expect(gen["wg"], "wg", (e, v), dt, dev)
+    _expect(gen["bg"], "bg", (v,), torch.float32, dev)
+    return v
+
+
+def _step_pointers(x, k_cache, v_cache, ck, cv, mem_bias, stacked, gen, out, scratch, keys,
+                   *extra):
+    """The device pointers in ``StepArgs`` order (csrc/decode_common.cuh), then
+    ``extra``; the tensors stay referenced by the caller until the launch."""
+    g = gen or {}
+    tensors = [x, k_cache, v_cache, ck, cv, mem_bias,
+               *(stacked[k] for k in STACK_KEYS),
+               g.get("norm_s"), g.get("norm_b"), g.get("wg"), g.get("bg"),
+               out, scratch, keys, *extra]
+    return (ctypes.c_void_p * len(tensors))(*map(_ptr, tensors))
+
+
 def _launch_step(x, k_cache, v_cache, ck, cv, mem_bias, stacked, idx, heads, l_view,
                  gen: Optional[Dict[str, torch.Tensor]]):
     from vct_tpu_torch.ops._build import load_library
@@ -181,25 +300,15 @@ def _launch_step(x, k_cache, v_cache, ck, cv, mem_bias, stacked, idx, heads, l_v
     dev = x.device
     v = 0
     if gen is not None:
-        v = gen["wg"].shape[1]
-        if v % 8:
-            raise ValueError(f"vocab width {v} must be a multiple of 8")
-        _expect(gen["norm_s"], "norm_s", (e,), torch.float32, dev)
-        _expect(gen["norm_b"], "norm_b", (e,), torch.float32, dev)
-        _expect(gen["wg"], "wg", (e, v), x.dtype, dev)
-        _expect(gen["bg"], "bg", (v,), torch.float32, dev)
+        v = _check_gen(gen, e, x.dtype, dev)
         out = torch.empty((b,), dtype=torch.int32, device=dev)
         keys = torch.empty((b,), dtype=torch.int64, device=dev)
     else:
         out = torch.empty_like(x)
         keys = None
     scratch = torch.empty((b * (5 * e + f),), dtype=torch.float32, device=dev)
-    g = gen or {}
-    tensors = [x, k_cache, v_cache, ck, cv, mem_bias,
-               *(stacked[k] for k in STACK_KEYS),
-               g.get("norm_s"), g.get("norm_b"), g.get("wg"), g.get("bg"),
-               out, scratch, keys]
-    ptrs = (ctypes.c_void_p * len(tensors))(*map(_ptr, tensors))
+    ptrs = _step_pointers(x, k_cache, v_cache, ck, cv, mem_bias, stacked, gen, out, scratch,
+                          keys)
     lib = load_library()
     with torch.cuda.device(dev):
         err = lib.vct_decode_step(
@@ -207,6 +316,40 @@ def _launch_step(x, k_cache, v_cache, ck, cv, mem_bias, stacked, idx, heads, l_v
             nl, big_l, tm, v, int(idx), l, int(gen is not None), _stream(dev))
     _raise_on(err, "decode_step kernel")
     return out
+
+
+def _launch_multi(cur, k_cache, v_cache, ck, cv, mem_bias, emb, pe, weights, *, heads,
+                  l_view, i0, n_tok, seq, poison, tok_out, start_id, end_id, pad_id):
+    """One launch of ``n_tok`` greedy tokens from position ``i0`` (csrc/
+    decode_multi.cu): a window's raw argmax chain into ``tok_out`` [B, n_tok],
+    or (``seq``) the whole caption into ``tok_out`` [B, max_len]."""
+    from vct_tpu_torch.ops._build import load_library
+
+    dt, dev = ck.dtype, ck.device
+    b, e = ck.shape[2], ck.shape[3]
+    # the stack's checks take x: a stand-in of the right shape, never read
+    x = torch.empty((b, e), dtype=dt, device=dev)
+    b, e, nl, big_l, tm, f, l = _check_stack(x, k_cache, v_cache, ck, cv, mem_bias,
+                                             weights["stacked"], heads, l_view)
+    v = _check_gen(weights, e, dt, dev)
+    n_emb = emb.shape[0]
+    _expect(emb, "emb", (n_emb, e), dt, dev)
+    if pe.shape[0] < i0 + n_tok:
+        raise ValueError(f"pe has {pe.shape[0]} rows; positions reach {i0 + n_tok}")
+    _expect(pe, "pe", (pe.shape[0], e), dt, dev)
+    if cur is not None:
+        _expect(cur, "cur", (b,), torch.int32, dev, vector_loads=False)
+    keys = torch.zeros((n_tok, b), dtype=torch.int64, device=dev)  # below every real key
+    scratch = torch.empty((b * (5 * e + f),), dtype=torch.float32, device=dev)
+    ptrs = _step_pointers(None, k_cache, v_cache, ck, cv, mem_bias, weights["stacked"],
+                          weights, None, scratch, keys, emb, pe, cur, tok_out)
+    lib = load_library()
+    with torch.cuda.device(dev):
+        err = lib.vct_decode_multi(
+            _DTYPE_CODE[dt], ctypes.cast(ptrs, ctypes.c_void_p), b, e, heads, f, nl, big_l,
+            tm, v, l, n_emb, int(i0), int(n_tok), int(seq), int(poison), int(start_id),
+            int(end_id), int(pad_id), tok_out.shape[1], _stream(dev))
+    _raise_on(err, "decode_multi kernel")
 
 
 # ---------------------------------------------------------------------------
@@ -276,7 +419,136 @@ def fused_norm_generator_argmax(x, norm_scale, norm_bias, wg, bg) -> torch.Tenso
     return tok
 
 
+def fused_norm_generator_topk(x, norm_scale, norm_bias, wg, bg, *, k: int
+                              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """LayerNorm -> vocab projection -> per-row top-k and logsumexp -> (values
+    [B, k] float32, ids [B, k] int32, lse [B] float32); the [B, V] logits are
+    never stored. ``values - lse[:, None]`` are the k largest log-softmax
+    entries of each row, so beam search forms its candidates from k numbers
+    per beam. The lowest id wins among equal logits; the result does not
+    change from run to run. The kernel carries 1 <= k <= ``TOPK_MAX`` and
+    raises above it; the plain version (CPU tensors) takes any k up to the
+    vocab width."""
+    if not 1 <= k <= wg.shape[1]:
+        raise ValueError(f"k={k} outside 1..{wg.shape[1]}, the vocab width")
+    if not _on_cuda(x, "fused_norm_generator_topk"):
+        return fused_norm_generator_topk_reference(x, norm_scale, norm_bias, wg, bg, k=k)
+    if k > TOPK_MAX:
+        raise ValueError(f"k={k} above {TOPK_MAX}, the widest top-k the kernel carries")
+    from vct_tpu_torch.ops._build import load_library
+
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"x has dtype {x.dtype}; kernels take float32 or bfloat16")
+    b, e = x.shape
+    dev = x.device
+    if e % 8:
+        raise ValueError(f"width {e} must be a multiple of 8 (16-byte weight loads)")
+    _expect(x, "x", (b, e), x.dtype, dev)
+    v = _check_gen({"norm_s": norm_scale, "norm_b": norm_bias, "wg": wg, "bg": bg}, e,
+                   x.dtype, dev)
+    lib = load_library()
+    n_blk = lib.vct_gen_topk_blocks(v)
+    part_key = torch.empty((b, n_blk, k), dtype=torch.int64, device=dev)
+    part_m = torch.empty((b, n_blk), dtype=torch.float32, device=dev)
+    part_s = torch.empty((b, n_blk), dtype=torch.float32, device=dev)
+    topv = torch.empty((b, k), dtype=torch.float32, device=dev)
+    topi = torch.empty((b, k), dtype=torch.int32, device=dev)
+    lse = torch.empty((b,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.vct_gen_topk(_DTYPE_CODE[x.dtype], x.data_ptr(), norm_scale.data_ptr(),
+                               norm_bias.data_ptr(), wg.data_ptr(), bg.data_ptr(),
+                               part_key.data_ptr(), part_m.data_ptr(), part_s.data_ptr(),
+                               topv.data_ptr(), topi.data_ptr(), lse.data_ptr(), b, e, v, k,
+                               _stream(dev))
+    _raise_on(err, "gen_topk kernel")
+    fused_norm_generator_topk.launches += 1
+    return topv, topi, lse
+
+
+def fused_layer_step(x, k_cache, v_cache, ck, cv, mem_bias, weights, idx: int, *,
+                     heads: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One decoder layer's decode step -> (x_out [B, E], k_cache, v_cache with
+    row ``idx`` written). Caches [L, B, E], cross K/V [Tm, B, E], ``mem_bias``
+    [B, Tm] float32 or None, ``weights`` one layer's un-stacked set (wqkv
+    [E, 3E], ..., n3b [E]); the whole cache is the window."""
+    if not _on_cuda(x, "fused_layer_step"):
+        return fused_layer_step_reference(x, k_cache, v_cache, ck, cv, mem_bias, weights,
+                                          idx, heads=heads)
+    out = _launch_step(x, k_cache.unsqueeze(0), v_cache.unsqueeze(0), ck.unsqueeze(0),
+                       cv.unsqueeze(0), mem_bias, _as_stack(weights), idx, heads, None, None)
+    fused_layer_step.launches += 1
+    return out, k_cache, v_cache
+
+
+def fused_multi_step(cur, k_cache, v_cache, ck, cv, mem_bias, emb, pe, weights, w_idx: int,
+                     *, heads: int, unroll: int = 4, pad_id: int = 0,
+                     l_view: Optional[int] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``unroll`` greedy steps in one launch -> (tokens [B, unroll] int32, the
+    raw argmax chain; k_cache, v_cache with rows [w_idx * unroll, w_idx *
+    unroll + unroll) written in place). ``cur`` [B] int32 is the window's
+    first input token, ``emb`` [V, E] and ``pe`` [>= L, E] the embedding and
+    position tables in the compute dtype, ``pad_id`` the embedding row forced
+    to zero, ``weights`` as ``fused_whole_step`` takes them.
+
+    ``l_view`` must cover every row the window touches: the tokens are -1
+    whenever ``(w_idx + 1) * unroll > l_view``. The all-rows-finished -> pad
+    rule stays with the caller, between windows."""
+    big_l = k_cache.shape[1]
+    l = big_l if l_view is None else l_view
+    if unroll < 1 or big_l % unroll or l % unroll or not 0 < l <= big_l:
+        raise ValueError(f"unroll {unroll} must divide the cache rows {big_l} and the "
+                         f"window {l}")
+    if not _on_cuda(ck, "fused_multi_step"):
+        return fused_multi_step_reference(cur, k_cache, v_cache, ck, cv, mem_bias, emb, pe,
+                                          weights, w_idx, heads=heads, unroll=unroll,
+                                          pad_id=pad_id, l_view=l)
+    tok = torch.empty((ck.shape[2], unroll), dtype=torch.int32, device=ck.device)
+    _launch_multi(cur, k_cache, v_cache, ck, cv, mem_bias, emb, pe, weights, heads=heads,
+                  l_view=l, i0=w_idx * unroll, n_tok=unroll, seq=False,
+                  poison=(w_idx + 1) * unroll > l, tok_out=tok, start_id=0, end_id=-1,
+                  pad_id=pad_id)
+    fused_multi_step.launches += 1
+    return tok, k_cache, v_cache
+
+
+def fused_sequence_decode(emb, pe, ck, cv, mem_bias, weights, *, heads: int, max_len: int,
+                          start_id: int, end_id: int, pad_id: int = 0) -> torch.Tensor:
+    """The whole greedy generation in one launch -> tokens [B, max_len] int32,
+    B <= ``SEQUENCE_MAX_B``. Same tokens as the per-token loop: once every
+    row has emitted ``end_id`` the remaining positions are ``pad_id`` (the
+    kernel leaves its token loop there). The self-attention caches are
+    scratch of the launch: a token attends only rows already written, so
+    they are left as allocated (the reference zeroes them first)."""
+    nl, _, b, e = ck.shape
+    if b > SEQUENCE_MAX_B:
+        raise ValueError(f"sequence kernel takes B <= {SEQUENCE_MAX_B}, got {b}")
+    if max_len < 2:
+        raise ValueError(f"max_len {max_len} leaves no token to generate")
+    if not _on_cuda(ck, "fused_sequence_decode"):
+        return fused_sequence_decode_reference(emb, pe, ck, cv, mem_bias, weights,
+                                               heads=heads, max_len=max_len,
+                                               start_id=start_id, end_id=end_id,
+                                               pad_id=pad_id)
+    l_pad = _round_up8(max_len)
+    ks = torch.empty((nl, l_pad, b, e), dtype=ck.dtype, device=ck.device)
+    vs = torch.empty_like(ks)
+    tokens = torch.full((b, max_len), pad_id, dtype=torch.int32, device=ck.device)
+    tokens[:, 0] = start_id
+    _launch_multi(None, ks, vs, ck, cv, mem_bias, emb, pe, weights, heads=heads,
+                  l_view=l_pad, i0=0, n_tok=max_len - 1, seq=True, poison=False,
+                  tok_out=tokens, start_id=start_id, end_id=end_id, pad_id=pad_id)
+    fused_sequence_decode.launches += 1
+    return tokens
+
+
 fused_layers_step.launches = 0
 fused_whole_step.launches = 0
 fused_norm_generator_argmax.launches = 0
-WRAPPERS = (fused_whole_step, fused_layers_step, fused_norm_generator_argmax)
+fused_norm_generator_topk.launches = 0
+fused_layer_step.launches = 0
+fused_multi_step.launches = 0
+fused_sequence_decode.launches = 0
+WRAPPERS = (fused_whole_step, fused_layers_step, fused_norm_generator_argmax,
+            fused_norm_generator_topk, fused_layer_step, fused_multi_step,
+            fused_sequence_decode)

@@ -2,8 +2,9 @@
 
 A worker thread drains a request queue up to ``max_batch`` (or
 ``batch_timeout_ms``), pads the batch to ``max_batch`` rows and runs one
-greedy decode on the device — on CUDA, one ``fused_whole_step`` launch per
-token for ``max_batch`` <= 64. One decode stays in flight: the next group is
+decode on the device — greedy (on CUDA, one ``fused_whole_step`` launch per
+token for ``max_batch`` <= 64) or, with ``tpu.beam_size`` > 1, beam search on
+the decode kernels. One decode stays in flight: the next group is
 launched before the previous group's tokens are copied back.
 
 Endpoints (stdlib ``http.server``; JSON out):
@@ -56,19 +57,24 @@ class CaptionService:
                  max_queue: Optional[int] = None,
                  max_body_bytes: int = 64 * 1024 * 1024, log=print):
         from vct_tpu_torch.cli.common import load_checkpoint_into, make_trainer_pieces
-        from vct_tpu_torch.decode import make_auto_greedy_fn
+        from vct_tpu_torch.decode import make_auto_beam_fn, make_auto_greedy_fn
 
-        if cfg.tpu.beam_size > 1:
-            raise NotImplementedError("beam search is not ported yet")
         self.cfg, self.log, self.device = cfg, log, torch.device(device)
         self.max_batch = max_batch
         self.batch_timeout = batch_timeout_ms / 1000.0
         self.model, self.tokenizer = make_trainer_pieces(cfg, self.device)
         load_checkpoint_into(self.model, ckpt_path, log=log)
         self.model.to_compute_dtype()
-        self.decode_fn = make_auto_greedy_fn(
-            self.model, cfg.test.max_length, self.tokenizer.start_id,
-            self.tokenizer.end_id)
+        # tpu.beam_size > 1 serves beam search, the same dispatch the
+        # Trainer's epoch eval uses
+        if cfg.tpu.beam_size > 1:
+            self.decode_fn = make_auto_beam_fn(
+                self.model, cfg.test.max_length, self.tokenizer.start_id,
+                self.tokenizer.end_id, cfg.tpu.beam_size)
+        else:
+            self.decode_fn = make_auto_greedy_fn(
+                self.model, cfg.test.max_length, self.tokenizer.start_id,
+                self.tokenizer.end_id)
 
         # build the kernels and warm the decode now, so /healthz is truthful
         # and the first requests do not pay for it

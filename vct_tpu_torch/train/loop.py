@@ -5,10 +5,10 @@ losses -> caption-metric eval -> sample prediction -> logging -> metric/loss
 earlystop -> periodic save. Checkpoints are full resumable train states;
 ``Trainer.resume`` continues mid-run with the same save/stop/LR decisions.
 
-Ported: the caption task with the MME encoder, greedy eval decoding on the
-decode kernels. Left to later slices: device meshes and tensor parallelism
-(DDP), beam-search eval, the match/cross tasks with their text encoder, and
-the UniVL decoder import.
+Ported: the caption task with the MME encoder, eval decoding on the decode
+kernels (greedy, or beam search when ``tpu.beam_size`` > 1). Left to later
+slices: device meshes and tensor parallelism (DDP), the match/cross tasks
+with their text encoder, and the UniVL decoder import.
 """
 
 from __future__ import annotations
@@ -24,7 +24,12 @@ from vct_tpu_torch.config import Config
 from vct_tpu_torch.convert import load_state_dict_into, load_torch_state_dict
 from vct_tpu_torch.data.collate import collate
 from vct_tpu_torch.data.loader import DataLoader, build_dataloader
-from vct_tpu_torch.decode import detokenize_batch, make_auto_greedy_fn
+from vct_tpu_torch.decode import (
+    detokenize_batch,
+    make_auto_beam_fn,
+    make_auto_greedy_fn,
+    pipelined_map,
+)
 from vct_tpu_torch.evalcap.scorer import COCOScorer, make_coco_sample
 from vct_tpu_torch.models.mmt4caption import DTYPES, MMT4Caption
 from vct_tpu_torch.text.tokenizer import CaptionPreprocessor, make_tokenizer
@@ -60,8 +65,6 @@ class Trainer:
         if self.task in ("match", "cross"):
             raise NotImplementedError(
                 f"the {self.task} task comes with the matching slice of the port")
-        if cfg.tpu.beam_size > 1:
-            raise NotImplementedError("beam-search eval comes with the beam slice of the port")
         if cfg.model.caption_decoder.univl:
             raise NotImplementedError("the UniVL decoder import is not ported yet")
         if cfg.tpu.mesh_data > 1 or cfg.tpu.mesh_model > 1:
@@ -152,14 +155,20 @@ class Trainer:
             loss_beta=self.cfg.model.loss_beta)
 
     def _greedy_fn(self):
-        """A greedy decoder over the model's CURRENT weights (the kernel
-        weights are extracted anew: training changes them every step)."""
+        """The eval decoder over the model's CURRENT weights (the kernel
+        weights are extracted anew: training changes them every step): beam
+        search when ``tpu.beam_size`` > 1, greedy otherwise."""
         self.model.eval()
-        return make_auto_greedy_fn(self.model, self.cfg.test.max_length,
+        cfg = self.cfg
+        if cfg.tpu.beam_size > 1:
+            return make_auto_beam_fn(self.model, cfg.test.max_length,
+                                     self.tokenizer.start_id, self.tokenizer.end_id,
+                                     cfg.tpu.beam_size)
+        return make_auto_greedy_fn(self.model, cfg.test.max_length,
                                    self.tokenizer.start_id, self.tokenizer.end_id)
 
     def eval_epoch(self, verbose: bool = False) -> Dict[str, float]:
-        """Greedy-decode the eval split and score it with the COCO scorers."""
+        """Decode the eval split and score it with the COCO scorers."""
         loader = self.loaders.get("eval")
         if loader is None:
             return {}
@@ -168,11 +177,16 @@ class Trainer:
         return dict(COCOScorer(verbose=verbose).score(gts, samples, ids))
 
     def decode_split(self, loader: DataLoader) -> Dict[str, str]:
-        greedy = self._greedy_fn()
+        """The next batch's decode is launched before the previous one's
+        tokens are fetched and detokenised (``pipelined_map``)."""
+        decode = self._greedy_fn()
         vid2result: Dict[str, str] = {}
-        for batch in self._progress(loader, "decode"):
+
+        def _launch(batch):
             arrays = batch_to_arrays(batch, self.device)
-            tokens, _ = greedy(arrays["feats"], arrays["masks"])
+            return decode(arrays["feats"], arrays["masks"])[0]
+
+        for batch, tokens in pipelined_map(_launch, self._progress(loader, "decode")):
             caps = detokenize_batch(self.tokenizer, tokens)
             for vid, cap in list(zip(batch.vids, caps))[: batch.n_valid]:
                 vid2result[vid] = cap
