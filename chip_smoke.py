@@ -5,6 +5,9 @@ CUDA card.
     python3 chip_smoke.py                  every phase below
     python3 chip_smoke.py --profile-train  build, then a torch.profiler
                                            reading of a few MSVD train steps
+    python3 chip_smoke.py --profile-long-train  the same reading of the
+                                           long-video recipe's train step, with
+                                           the attention kernels on and off
     python3 chip_smoke.py --profile-decode build, then a torch.profiler
                                            reading of one caption at B=1 in
                                            each greedy mode
@@ -68,11 +71,44 @@ Phases, each of which must pass:
               sequence kernel, beam-4 against greedy captions/s at eval
               batch 64 with beam's parts apart
 
-Launch counts are set to 0 just before phases 4, 5, 7, 9 and 10 and read just
-after each: the server must have launched the whole-step kernel, the B=128
-decode the other two decode kernels, training the three loss kernels, the
-beam eval the stack and top-k kernels once per beam token, the multi phase
-the other three. The line
+ 12. attn-kernels  fused_attention and fused_attention_trainable (forward and
+              backward, dropout rate 0 and 0.3 with a seeded keep mask)
+              against their plain versions: bfloat16 at the long-video
+              recipe's three shapes (B=32, H=8, D=96; encoder 256 x 256 with
+              a [B,1,1,Tk] padding bias, decoder self 128 x 128 with a
+              [B,1,T,T] causal + padding bias, cross 128 x 256), float32 at
+              ragged small shapes, no bias, a fully masked row, the same bits
+              from two runs, and shapes outside the kernels' span, which
+              raise before any launch
+ 13. long-train  the long-video recipe (configs/msvd.json with
+              tpu.max_frames 255, tpu.max_caption_len 129 and batch 32;
+              videos of 100-400 frames, captions of 40-140 words) through
+              vct_tpu_torch.cli.train's main: 10 train steps, a validation
+              pass, an eval decode, a checkpoint; every loss finite, the loss
+              falls; 7 forward and 7 backward attention launches and 3 loss
+              kernel launches per train step, 7 inference attention launches
+              per validation step; step 0's loss and gradients with
+              tpu.use_pallas_attention on against off under one generator
+              seed (the same dropout masks), and no attention launch when off
+ 14. long-eval  vct_tpu_torch.cli.eval greedy on the long recipe: one
+              attention launch per batch; one batch's tokens against the
+              module path of a model with the kernels off
+ 15. encoders  an HMME model (512 + 1024 wide, layers (2, 1), 127 + 127
+              frames -> 256 tokens) and a SimpleSep model at the MSVD width:
+              caption loss and gradients on the kernel route against the math
+              route; an MME encode with biGRU aggregation against the CPU
+ 16. attn-timings  for each long-recipe shape the kernels' forward and
+              backward ms, the bound, the plain version, the math path and
+              F.scaled_dot_product_attention with the same mask (timed only,
+              the port never calls it); ms per long train step with the
+              attention kernels on and off
+
+Launch counts are set to 0 just before phases 4, 5, 7, 9, 10, 13 and 14 and
+read just after each: the server must have launched the whole-step kernel,
+the B=128 decode the other two decode kernels, training the three loss
+kernels, the beam eval the stack and top-k kernels once per beam token, the
+multi phase the other three, the long training the trainable attention kernel
+forward and backward, the long eval the inference attention kernel. The line
 before the last is a JSON object with one entry per kernel; the last line is
 {"ok": true, "device": {...}}, printed only when every phase passed. Any
 failure exits 1 before it.
@@ -1802,14 +1838,13 @@ def time_train_steps(repo, root, vocab, dev, card):
     return report
 
 
-def profile_train(repo, root, vocab, dev, card):
-    """Where a train step's time goes on the kernel route: ms per step without
+def profile_train(tr, card):
+    """Where a train step of the Trainer ``tr`` goes: ms per step without
     the profiler, then torch.profiler over 10 steps for the device's busy
     time by kernel. The idle share sets the busy time against the unprofiled
     step, since the profiler slows the host several times over."""
     from torch.profiler import ProfilerActivity, profile
 
-    tr = make_trainer(repo, root, vocab, dev)
     batch = first_batch(tr)
     for _ in range(3):
         tr.train_step(tr.state, batch)
@@ -1872,6 +1907,586 @@ def profile_decode(model, fw, card):
                 say(f"  {k_ms:8.3f} ms/caption  {count:6.1f}/caption  {key[:90]}")
 
 
+# ---------------------------------------------------------------------------
+# phases 12-16: the attention kernels, the long-video recipe, the encoder
+# families
+# ---------------------------------------------------------------------------
+
+ATTN_SOURCE = "vct_tpu_torch/csrc/attention.cu"
+ATTN_REPLACES = {
+    "fused_attention": "vct_tpu/ops/pallas_attention.py:81",
+    "fused_attention_trainable": "vct_tpu/ops/pallas_attention.py:271",
+}
+# The long-video recipe: configs/msvd.json with these fields changed.
+LONG_FRAMES, LONG_CAPTION, LONG_BATCH = 255, 129, 32
+LONG_TRAIN_STEPS, LONG_VAL_STEPS = 10, 1
+LONG_B, LONG_H, LONG_D = LONG_BATCH, 8, 96
+# name -> (Tq, Tk, bias kind) at B=32, H=8, D=96: what one long train step runs
+LONG_SHAPES = {
+    "encoder_self": (LONG_FRAMES + 1, LONG_FRAMES + 1, "padding"),
+    "decoder_self": (LONG_CAPTION - 1, LONG_CAPTION - 1, "rows"),
+    "decoder_cross": (LONG_CAPTION - 1, LONG_FRAMES + 1, "padding"),
+}
+RAGGED_SHAPES = [(31, 13, 2, 96), (13, 13, 8, 96), (8, 16, 4, 64), (37, 200, 2, 128)]
+# Forward: kernel and plain version round at the same points (float32 logits
+# and softmax, weights rounded to the value dtype, float32 accumulation,
+# output rounded) and differ by summation order: 2e-5 in float32 on outputs of
+# magnitude ~1; in bfloat16 one unit (0.02 at magnitudes up to 2), almost all
+# values equal (mean 1e-3). Backward, float32: 1e-4 of the largest gradient.
+# Backward, bfloat16: the kernel rounds P, the dropped P and dS to bfloat16
+# for the tensor cores where the plain version keeps them float32 (2**-9
+# relative per element, averaged down over the sum): 2% of the largest value.
+ATTN_FWD_ATOL = {torch.float32: 2e-5, torch.bfloat16: 0.02}
+ATTN_FWD_MEAN = {torch.float32: 2e-6, torch.bfloat16: 1e-3}
+ATTN_GRAD_REL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def attn_inputs(dev, dt, b, tq, tk, h, d, bias_kind, rate, seed):
+    """Seeded q, k, v, dO, the framework's bias of that kind and a keep mask."""
+    from vct_tpu_torch.ops.attention import causal_bias, combine_bias, padding_bias
+
+    g = torch.Generator().manual_seed(seed)
+    q, k, v, do = (torch.randn(s, generator=g).to(dev, dt)
+                   for s in ((b, tq, h, d), (b, tk, h, d), (b, tk, h, d), (b, tq, h, d)))
+    bias = None
+    if bias_kind is not None:
+        pad = torch.zeros((b, tk), dtype=torch.bool)
+        pad[1::2, tk - tk // 3:] = True  # odd rows end in padding
+        bias = padding_bias(pad.to(dev))
+        if bias_kind == "rows":
+            bias = combine_bias(causal_bias(tq, device=dev), bias)
+    keep = None
+    if rate > 0:
+        keep = (torch.rand((b, h, tq, tk), generator=g) >= rate).to(dev)
+    return q, k, v, do, bias, keep
+
+
+def attn_compare(name, args, rate, dt, plain):
+    """Both kernels against their plain versions ``plain`` = (forward,
+    backward) -> (forward, backward) max abs differences."""
+    from vct_tpu_torch.ops import attention_kernels as ak
+
+    q, k, v, do, bias, keep = args
+    want = plain[0](q, k, v, bias, keep, rate)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = ak.fused_attention_trainable(*leaves, bias, keep, rate)
+    out.backward(do)
+    torch.cuda.synchronize()
+    out = out.detach()
+    fwd = max_err(f"{name} forward", out, want, ATTN_FWD_ATOL[dt])
+    if float((out.float() - want.float()).abs().mean()) > ATTN_FWD_MEAN[dt]:
+        fail(f"{name} forward: mean difference above {ATTN_FWD_MEAN[dt]}")
+    if rate == 0.0:
+        fwd = max(fwd, max_err(f"{name} inference", ak.fused_attention(q, k, v, bias), want,
+                               ATTN_FWD_ATOL[dt]))
+    bwd = 0.0
+    refs = plain[1](q, k, v, bias, keep, rate, do)
+    for label, leaf, ref in zip(("dq", "dk", "dv"), leaves, refs):
+        bwd = max(bwd, abs_and_rel(f"{name} {label}", leaf.grad, ref, ATTN_GRAD_REL[dt])[0])
+    return fwd, bwd
+
+
+def check_attention_kernels(dev):
+    from vct_tpu_torch.ops import attention_kernels as ak
+
+    errs = {"fused_attention": 0.0, "fused_attention_trainable": 0.0}
+    worst_bwd = 0.0
+    plain = (ak.fused_attention_trainable_reference, ak.fused_attention_backward_reference)
+    with no_plain_on_cuda("attn-kernels", ak):
+        cases = [(torch.bfloat16, LONG_B, tq, tk, LONG_H, LONG_D, kind, name)
+                 for name, (tq, tk, kind) in LONG_SHAPES.items()]
+        cases += [(torch.float32, 2, tq, tk, h, d, "rows" if tq == tk else "padding",
+                   f"ragged {tq}x{tk}x{h}x{d}") for tq, tk, h, d in RAGGED_SHAPES]
+        cases += [(torch.bfloat16, 2, 70, 130, 2, 96, None, "no bias"),
+                  (torch.float32, 2, 37, 200, 2, 128, None, "no bias float32")]
+        for i, (dt, b, tq, tk, h, d, kind, name) in enumerate(cases):
+            for rate in (0.0, 0.3):
+                args = attn_inputs(dev, dt, b, tq, tk, h, d, kind, rate, seed=100 + i)
+                label = f"attention {name} {str(dt).split('.')[1]} rate {rate}"
+                fwd, bwd = attn_compare(label, args, rate, dt, plain)
+                errs["fused_attention_trainable"] = max(errs["fused_attention_trainable"], fwd)
+                if rate == 0.0:
+                    errs["fused_attention"] = max(errs["fused_attention"], fwd)
+                worst_bwd = max(worst_bwd, bwd)
+            say(f"  ok {name} ({str(dt).split('.')[1]}, B={b}, Tq={tq}, Tk={tk}, H={h}, D={d}): "
+                f"forward and backward, rate 0 and 0.3")
+        # a fully masked row: uniform over the real keys, and a finite gradient
+        q, k, v, do, _, _ = attn_inputs(dev, torch.float32, 2, 33, 45, 2, 64, None, 0.0, 7)
+        bias = torch.zeros((2, 2, 33, 45), device=dev)
+        bias[0, 1, 5] = ak.NEG_INF
+        out = ak.fused_attention(q, k, v, bias)
+        max_err("attention fully masked row", out[0, 5, 1], v[0, :, 1].mean(dim=0), 2e-6)
+        attn_compare("attention fully masked row", (q, k, v, do, bias, None), 0.0,
+                     torch.float32, plain)
+        # no atomics: the same bits from two runs
+        args = attn_inputs(dev, torch.bfloat16, 8, 128, 256, LONG_H, LONG_D, "padding", 0.3, 9)
+        runs = []
+        for _ in range(2):
+            leaves = [t.clone().requires_grad_() for t in args[:3]]
+            out = ak.fused_attention_trainable(*leaves, args[4], args[5], 0.3)
+            out.backward(args[3])
+            runs.append([out.detach()] + [t.grad for t in leaves])
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, c) for a, c in zip(*runs)):
+            fail("attention: two runs of forward and backward gave different bits")
+    for bad, why in ((torch.zeros((1, 128, 2, 100), device=dev), "head width 100"),
+                     (torch.zeros((1, 128, 2, 256), device=dev), "head width 256"),
+                     (torch.zeros((1, 128, 2, 64), device=dev, dtype=torch.float16), "float16")):
+        before = [ak.fused_attention.launches, ak.fused_attention_trainable.launches]
+        try:
+            ak.fused_attention_trainable(bad, bad, bad)
+        except (ValueError, TypeError):
+            pass
+        else:
+            fail(f"attention: {why} is outside the kernels' span and did not raise")
+        if [ak.fused_attention.launches, ak.fused_attention_trainable.launches] != before:
+            fail(f"attention: {why} launched a kernel before it raised")
+    say(f"  ok a fully masked row, the same bits twice, three shapes that raise; max abs "
+        f"differences {errs}, backward {worst_bwd:.4g}")
+    return errs, {"backward_max_abs_err": worst_bwd}
+
+
+def attention_counts():
+    from vct_tpu_torch.ops import attention_kernels as ak
+
+    return {"fused_attention": ak.fused_attention.launches,
+            "fused_attention_trainable": ak.fused_attention_trainable.launches,
+            "fused_attention_trainable_backward": ak.fused_attention_trainable.backward_launches}
+
+
+def reset_attention_counts():
+    from vct_tpu_torch.ops import attention_kernels as ak
+
+    ak.fused_attention.launches = 0
+    ak.fused_attention_trainable.launches = 0
+    ak.fused_attention_trainable.backward_launches = 0
+
+
+# ---- the long-video recipe ------------------------------------------------------
+
+
+def write_long_dataset(root: Path) -> None:
+    """A seeded long-video workspace under ``root``: videos of 100-400 frames
+    x 512 (those above 255 are subsampled, those below padded, so the mask is
+    used) and captions of 40-140 words (some cut at 129 positions). 40 train
+    videos x 8 captions give LONG_TRAIN_STEPS batches of 32, 4 validation
+    videos x 8 give one."""
+    rng = np.random.default_rng(SEED + 4)
+    words = [f"w{i}" for i in rng.choice(np.arange(1000, 30522), 40, replace=False)]
+    for split, n_vid in (("train", LONG_TRAIN_STEPS * LONG_BATCH // 8),
+                         ("val", LONG_VAL_STEPS * LONG_BATCH // 8)):
+        feat_dir = root / "feats" / split
+        feat_dir.mkdir(parents=True)
+        lines = []
+        for i in range(n_vid):
+            np.save(feat_dir / f"{split}{i}.npy",
+                    rng.standard_normal((int(rng.integers(100, 401)), 512)).astype(np.float32))
+            for _ in range(8):
+                cap = " ".join(rng.choice(words, int(rng.integers(40, 141))))
+                lines.append(f"{split}{i} {cap}")
+        (root / f"{split}.txt").write_text("\n".join(lines))
+
+
+def long_config(repo: Path, root: Path, vocab: Path, *, eval_split: str = "val",
+                **tpu) -> Path:
+    """configs/msvd.json as the long-video recipe (``tpu.max_frames`` 255,
+    ``tpu.max_caption_len`` 129, batch 32 in every split) on the long
+    workspace's paths -> file."""
+    cfg = json.loads(train_config(repo, root, vocab, 1, max_frames=LONG_FRAMES,
+                                  max_caption_len=LONG_CAPTION, **tpu).read_text())
+    for name in ("train", "validation", "eval"):
+        cfg["data"][name]["batch_size"] = LONG_BATCH
+    cfg["data"]["eval"]["feat_dir"] = [str(root / "feats" / eval_split)]
+    cfg["data"]["eval"]["annotation_path"] = str(root / f"{eval_split}.txt")
+    cfg["train"]["tag"] = "long"
+    path = root / ("_".join(["long", eval_split] + [f"{k}{v}" for k, v in tpu.items()])
+                   + ".json")
+    path.write_text(json.dumps(cfg))
+    return path
+
+
+def long_trainer(repo, root, vocab, dev, **tpu):
+    from vct_tpu_torch.cli.common import load_config
+    from vct_tpu_torch.train.loop import Trainer
+
+    return Trainer(load_config(str(long_config(repo, root, vocab, **tpu))), device=dev,
+                   log=lambda *_: None)
+
+
+def run_long_training(repo: Path, root: Path, vocab: Path):
+    """The long recipe through vct_tpu_torch.cli.train's main: one epoch of
+    LONG_TRAIN_STEPS steps, a validation pass, an eval decode, a checkpoint
+    -> launch counts of the attention kernels."""
+    import vct_tpu_torch.train.loop as loop
+    from vct_tpu_torch.cli import train as train_cli
+    from vct_tpu_torch.ops import attention_kernels as ak
+    from vct_tpu_torch.ops import decode_kernels as dk
+    from vct_tpu_torch.ops import loss_kernels as lk
+
+    losses = []
+    make_train = loop.make_train_step
+
+    def recording_train(task):
+        step = make_train(task)
+
+        def wrapped(state, batch):
+            state, metrics = step(state, batch)
+            losses.append(metrics["loss"])
+            return state, metrics
+
+        return wrapped
+
+    loop.make_train_step = recording_train
+    try:
+        with no_plain_on_cuda("long-train", ak), no_plain_on_cuda("long-train", lk):
+            for fn in lk.WRAPPERS + dk.WRAPPERS:
+                fn.launches = 0
+            reset_attention_counts()
+            scores = train_cli.main(["-c", str(long_config(repo, root, vocab)),
+                                     "--no_tensorboard"])
+            torch.cuda.synchronize()
+    finally:
+        loop.make_train_step = make_train
+    counts = attention_counts()
+    loss_launches = {fn.__name__: fn.launches for fn in lk.WRAPPERS}
+    steps, val = LONG_TRAIN_STEPS, LONG_VAL_STEPS
+    # a train step: 1 encoder + 3 x (self, cross) trainable launches forward and
+    # as many backward; a validation step the same seven on the inference
+    # kernel; the eval decode's encoder one per batch (its 29 decode steps are
+    # single-query and run fused_whole_step), and one more for the sample
+    # caption the Trainer prints after the epoch
+    want = {"fused_attention": 7 * val + 1 + 1, "fused_attention_trainable": 7 * steps,
+            "fused_attention_trainable_backward": 7 * steps}
+    want_loss = {"softmax_stats": steps + val, "clipped_prob_stats": steps + val,
+                 "sce_backward_tiles": steps}
+    values = [float(v) for v in losses]
+    if len(values) != steps:
+        fail(f"long-train: {len(values)} train steps, expected {steps}")
+    if counts != want:
+        fail(f"long-train: attention launches {counts}, expected {want}")
+    if loss_launches != want_loss:
+        fail(f"long-train: loss kernel launches {loss_launches}, expected {want_loss}")
+    if dk.fused_whole_step.launches == 0:
+        fail("long-train: the eval decode never launched fused_whole_step")
+    if not all(math.isfinite(v) for v in values):
+        fail(f"long-train: a loss is not finite: {values}")
+    head, tail = sum(values[:3]) / 3, sum(values[-3:]) / 3
+    if not tail < head:
+        fail(f"long-train: the loss did not fall: first three {head}, last three {tail}")
+    if not (root / "ckpt" / "long_latest.pt").is_file() or \
+            set(scores) < {"Bleu_4", "METEOR", "ROUGE_L", "CIDEr"}:
+        fail(f"long-train: no checkpoint or no scores ({scores})")
+    say(f"  {steps} train steps at batch {LONG_BATCH}: loss {head:.4f} (first three) -> "
+        f"{tail:.4f} (last three); attention launches {counts}; loss kernel launches "
+        f"{loss_launches}; eval decode fused_whole_step launches "
+        f"{dk.fused_whole_step.launches}")
+    return counts
+
+
+def check_long_step0_routes(repo, root, vocab, dev):
+    """Step 0 of the long recipe with the same weights, batch and generator
+    seed (so the same dropout masks) with the attention kernels on and off:
+    loss within 1e-3 relative, every gradient within 3% of its largest value
+    (bfloat16 values one unit apart move single elements that far; the loss
+    kernels' own limit). With the flag off no attention kernel is launched."""
+    grads, losses, counts = [], [], []
+    for kernels in (True, False):
+        tr = long_trainer(repo, root, vocab, dev, use_pallas_attention=kernels)
+        batch = first_batch(tr)
+        tr.model.train()
+        reset_attention_counts()
+        loss = tr.model.caption_loss(batch["feats"], batch["masks"], batch["token_ids"],
+                                     batch["token_mask"], row_valid=batch["row_valid"])
+        loss.backward()
+        torch.cuda.synchronize()
+        counts.append(attention_counts())
+        losses.append(float(loss.detach()))
+        grads.append({k: p.grad for k, p in tr.model.named_parameters()})
+    if counts[0] != {"fused_attention": 0, "fused_attention_trainable": 7,
+                     "fused_attention_trainable_backward": 7} or any(counts[1].values()):
+        fail(f"long step 0: attention launches {counts[0]} with the kernels on, "
+             f"{counts[1]} with them off")
+    if abs(losses[0] - losses[1]) > 1e-3 * abs(losses[1]):
+        fail(f"long step 0: loss {losses[0]} with the attention kernels, {losses[1]} without")
+    worst = 0.0
+    for k, ref in grads[1].items():
+        worst = max(worst, rel_err(f"long step 0 gradient {k}", grads[0][k], ref, 3e-2))
+    say(f"  step 0: loss {losses[0]:.6f} (attention kernels) vs {losses[1]:.6f} (math path), "
+        f"worst gradient difference {worst:.3g} of its largest value, {len(grads[1])} "
+        f"parameters; launches {counts[0]} on, {counts[1]} off")
+
+
+def run_long_eval(repo: Path, root: Path, vocab: Path, ckpt: Path, dev, card: str):
+    """vct_tpu_torch.cli.eval greedy on the long recipe (the train split's 40
+    videos, two batches), then one batch's tokens against the module path of
+    a model with the kernels off."""
+    from vct_tpu_torch.cli import eval as eval_cli
+    from vct_tpu_torch.cli.common import load_checkpoint_into, load_config, make_trainer_pieces
+    from vct_tpu_torch.decode import make_auto_greedy_fn
+    from vct_tpu_torch.ops import attention_kernels as ak
+    from vct_tpu_torch.ops import decode_kernels as dk
+
+    n_videos = LONG_TRAIN_STEPS * LONG_BATCH // 8
+    n_batches = -(-n_videos // LONG_BATCH)
+    cfg_path = long_config(repo, root, vocab, eval_split="train")
+    out = root / "pred_long.json"
+    reset_launches()
+    reset_attention_counts()
+    t0 = time.perf_counter()
+    with no_plain_on_cuda("long-eval", ak), no_plain_on_cuda("long-eval", dk):
+        scores = eval_cli.main(["-c", str(cfg_path), "-m", str(ckpt), "--out", str(out)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts, decode = attention_counts(), read_launches()
+    preds = json.loads(out.read_text())
+    if len(preds) != n_videos or not all(math.isfinite(float(v)) for v in scores.values()):
+        fail(f"long-eval: {len(preds)} predictions for {n_videos} videos, scores {scores}")
+    if counts != {"fused_attention": n_batches, "fused_attention_trainable": 0,
+                  "fused_attention_trainable_backward": 0}:
+        fail(f"long-eval: attention launches {counts}, expected one per batch ({n_batches})")
+    if not n_batches <= decode["fused_whole_step"] <= 29 * n_batches:
+        fail(f"long-eval: decode launches {decode}")
+    say(f"  long eval greedy: {n_videos} videos in {seconds:.2f} s with loading and scoring, "
+        f"attention launches {counts}, fused_whole_step {decode['fused_whole_step']} [{card}]")
+
+    models = []
+    for kernels in (True, False):
+        cfg = load_config(str(long_config(repo, root, vocab, eval_split="train",
+                                          use_pallas_attention=kernels)))
+        model, _ = make_trainer_pieces(cfg, dev)
+        load_checkpoint_into(model, str(ckpt), log=lambda *_: None, cfg=cfg)
+        models.append(model.to_compute_dtype())
+    g = torch.Generator().manual_seed(SEED + 40)
+    feats = [torch.randn((LONG_BATCH, LONG_FRAMES, 512), generator=g).to(dev)]
+    masks = [(torch.arange(LONG_FRAMES)[None, :]
+              >= torch.randint(100, LONG_FRAMES + 1, (LONG_BATCH, 1), generator=g)).to(dev)]
+    reset_attention_counts()
+    got, _ = make_auto_greedy_fn(models[0], 30, 101, 102)(feats, masks)
+    on = attention_counts()
+    off_fn = make_auto_greedy_fn(models[1], 30, 101, 102)
+    reset_launches()
+    off_fn(feats, masks)
+    if on["fused_attention"] != 1 or any(attention_counts()[k] != on[k] for k in on) \
+            or any(read_launches().values()):
+        fail(f"long-eval: launches {on} with the kernels on; with them off attention "
+             f"{attention_counts()}, decode {read_launches()}")
+    check_against_module(models[1], feats, masks, got, "long eval, kernels on vs off")
+    return counts, {"long_eval_seconds": seconds}
+
+
+# ---- the other encoder families ---------------------------------------------------
+
+
+def encoder_model(repo, vocab, dev, dtype, kernels, video_encoder, modal_shape, **mme):
+    """configs/msvd.json's model with ``video_encoder`` fields, ``mme`` fields
+    and the modalities replaced, seeded weights."""
+    from vct_tpu_torch.cli.common import load_config, make_trainer_pieces
+
+    cfg = load_config(str(repo / "configs" / "msvd.json"))
+    ve = cfg.model.video_encoder
+    ve = dataclasses.replace(ve, mme=dataclasses.replace(ve.mme, **mme), **video_encoder)
+    model_cfg = dataclasses.replace(
+        cfg.model, video_encoder=ve, modal=[f"m{i}" for i in range(len(modal_shape))],
+        modal_shape=list(modal_shape))
+    cfg = cfg.replace(model=model_cfg, tpu=dataclasses.replace(
+        cfg.tpu, vocab_path=str(vocab), dtype=dtype, use_pallas_attention=kernels))
+    model, _ = make_trainer_pieces(cfg, torch.device("cpu"), seed=SEED + 5)
+    return model.to(dev)
+
+
+def check_encoders(repo, vocab, dev):
+    """HMME (512 + 1024 wide, layers (2, 1), 127 + 127 frames -> 256 tokens)
+    and SimpleSep (two modalities of 128 frames) at the MSVD width in
+    bfloat16: caption loss and one backward on the kernel route against the
+    math route (same weights, no dropout: eval mode); then an MME encode with
+    biGRU aggregation in float32 against the CPU result."""
+    from vct_tpu_torch.ops import attention_kernels as ak
+
+    g = torch.Generator().manual_seed(SEED + 6)
+    tokens = torch.randint(1000, 30000, (8, LONG_CAPTION), generator=g).to(dev, torch.int32)
+    tokens[:, 0] = 101
+    tokens[1::2, 90:] = 0
+    for label, ve, frames, want in (
+            # 3 decoder layers x (self, cross) and two encoder attentions each:
+            # HMME's shared stack is max(2, 1) layers deep, SimpleSep runs one
+            # layer per modality
+            ("hmme", {"type": "hmme", "layer": (2, 1)}, 127, (6 + 2, 6 + 2)),
+            ("simple", {"type": "simple", "layer": 1}, 128, (6 + 2, 6 + 2))):
+        feats = [torch.randn((8, frames, w), generator=g).to(dev) for w in (512, 1024)]
+        masks = [(torch.arange(frames)[None, :] >= n).to(dev) for n in
+                 (torch.randint(60, frames + 1, (8, 1), generator=g),
+                  torch.randint(60, frames + 1, (8, 1), generator=g))]
+        outs = []
+        for kernels in (True, False):
+            model = encoder_model(repo, vocab, dev, "bfloat16", kernels, ve, (512, 1024))
+            reset_attention_counts()
+            with no_plain_on_cuda(f"encoders {label}", ak):
+                loss = model.caption_loss(feats, masks, tokens, tokens == 0)
+                loss.backward()
+            torch.cuda.synchronize()
+            counts = attention_counts()
+            got = (counts["fused_attention_trainable"],
+                   counts["fused_attention_trainable_backward"])
+            if got != (want if kernels else (0, 0)) or counts["fused_attention"]:
+                fail(f"encoders {label}: attention launches {counts} with kernels={kernels}")
+            outs.append((float(loss.detach()),
+                         {k: p.grad for k, p in model.named_parameters()}))
+        if not math.isfinite(outs[0][0]) or abs(outs[0][0] - outs[1][0]) > 1e-3 * abs(outs[1][0]):
+            fail(f"encoders {label}: loss {outs[0][0]} on the kernel route, {outs[1][0]} on "
+                 f"the math route")
+        worst = max(rel_err(f"encoders {label} gradient {k}", outs[0][1][k], ref, 3e-2)
+                    for k, ref in outs[1][1].items())
+        say(f"  ok {label}: loss {outs[0][0]:.6f} vs {outs[1][0]:.6f}, worst gradient "
+            f"difference {worst:.3g} of its largest value, {want[0]} + {want[1]} attention "
+            f"launches")
+    cpu = encoder_model(repo, vocab, torch.device("cpu"), "float32", True, {}, (512,),
+                        aggregation="biGRU")
+    feats = [torch.randn((4, 12, 512), generator=g)]
+    masks = [torch.arange(12)[None, :] >= torch.tensor([[12], [7], [12], [3]])]
+    with torch.no_grad():
+        mem_cpu, _, agg_cpu = cpu.encode(feats, masks)
+        card_model = cpu.to(dev)
+        mem, _, agg = card_model.encode([f.to(dev) for f in feats], [m.to(dev) for m in masks])
+    err = max(max_err("encoders biGRU memory", mem.cpu(), mem_cpu, 1e-4),
+              max_err("encoders biGRU aggregate", agg.cpu(), agg_cpu, 1e-4))
+    say(f"  ok MME with biGRU aggregation, card against CPU in float32: max abs difference "
+        f"{err:.3g}")
+
+
+# ---- timings ---------------------------------------------------------------------------
+
+
+def time_attention(dev, card):
+    """name -> the kernels' line entries, and a report of every shape: kernel
+    forward and backward ms (CUDA events), the bound, the plain version, the
+    math path (dot_product_attention with the kernels off) and
+    F.scaled_dot_product_attention with the same mask (timed only)."""
+    import torch.nn.functional as F
+
+    from vct_tpu_torch.models.layers import Dropout, DropoutRng
+    from vct_tpu_torch.ops import attention_kernels as ak
+    from vct_tpu_torch.ops.attention import dot_product_attention
+
+    dt = torch.bfloat16
+    b, h, d = LONG_B, LONG_H, LONG_D
+    report, per_shape = {}, {}
+    for name, (tq, tk, kind) in LONG_SHAPES.items():
+        q, k, v, do, bias, keep = attn_inputs(dev, dt, b, tq, tk, h, d, kind, 0.3, seed=50)
+        cells = b * h
+        fwd_bound = bound_ms(nbytes(q, k, v, bias) + nbytes(q), 4.0 * tq * tk * d * cells, dt)
+        drop_bound = bound_ms(nbytes(q, k, v, bias, keep) + nbytes(q),
+                              4.0 * tq * tk * d * cells, dt)
+        bwd_bound = bound_ms(nbytes(q, k, v, do, bias, keep) + nbytes(q, k, v),
+                             10.0 * tq * tk * d * cells, dt)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        drop = Dropout(0.3, DropoutRng(torch.Generator(device=dev).manual_seed(1))).train()
+        mask = bias.to(dt)
+        qt, kt, vt = (t.transpose(1, 2) for t in leaves)
+
+        def kernel_train():
+            return ak.fused_attention_trainable(*leaves, bias, keep, 0.3)
+
+        def math_train():
+            return dot_product_attention(*leaves, bias, dropout=drop)[0]
+
+        def lib_train():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, dropout_p=0.3)
+
+        def with_backward(fn, grad):
+            def run():
+                for t in leaves:
+                    t.grad = None
+                fn().backward(grad)
+            return run
+
+        t = {
+            "inference_ms": cuda_time(lambda: ak.fused_attention(q, k, v, bias)),
+            "inference_plain_ms": cuda_time(
+                lambda: ak.fused_attention_reference(q, k, v, bias), iters=5),
+            "inference_math_ms": cuda_time(
+                lambda: dot_product_attention(q, k, v, bias)[0], iters=5),
+            "inference_library_ms": cuda_time(lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask)),
+            "inference_bound_ms": fwd_bound[0],
+            "forward_ms": cuda_time(kernel_train),
+            "forward_plain_ms": cuda_time(
+                lambda: ak.fused_attention_trainable_reference(q, k, v, bias, keep, 0.3),
+                iters=5),
+            "forward_math_ms": cuda_time(math_train, iters=5),
+            "forward_library_ms": cuda_time(lib_train),
+            "forward_bound_ms": drop_bound[0],
+            "bound_by": drop_bound[1],
+            "backward_plain_ms": cuda_time(
+                lambda: ak.fused_attention_backward_reference(q, k, v, bias, keep, 0.3, do),
+                iters=5),
+            "backward_bound_ms": bwd_bound[0],
+            "backward_bound_by": bwd_bound[1],
+        }
+        both = cuda_time(with_backward(kernel_train, do))
+        t["backward_ms"] = both - t["forward_ms"]
+        t["backward_math_ms"] = cuda_time(with_backward(math_train, do), iters=5) \
+            - t["forward_math_ms"]
+        t["backward_library_ms"] = cuda_time(with_backward(lib_train, do.transpose(1, 2))) \
+            - t["forward_library_ms"]
+        per_shape[name] = t
+        say(f"  attention {name} (B={b}, H={h}, Tq={tq}, Tk={tk}, D={d}, bf16) [{card}]:")
+        say(f"    inference: kernel {t['inference_ms']:.4f} ms, bound "
+            f"{t['inference_bound_ms']:.4f} ({fwd_bound[1]}), plain "
+            f"{t['inference_plain_ms']:.4f}, math path {t['inference_math_ms']:.4f}, library "
+            f"{t['inference_library_ms']:.4f}")
+        say(f"    forward with dropout: kernel {t['forward_ms']:.4f} ms, bound "
+            f"{t['forward_bound_ms']:.4f} ({t['bound_by']}), plain {t['forward_plain_ms']:.4f}, "
+            f"math path {t['forward_math_ms']:.4f}, library {t['forward_library_ms']:.4f}")
+        say(f"    backward: kernel {t['backward_ms']:.4f} ms, bound "
+            f"{t['backward_bound_ms']:.4f} ({t['backward_bound_by']}), plain "
+            f"{t['backward_plain_ms']:.4f}, math path {t['backward_math_ms']:.4f}, library "
+            f"{t['backward_library_ms']:.4f}")
+        for key, val in t.items():
+            if key.endswith("_ms"):
+                report[f"attention_{name}_{key}"] = val
+    enc = per_shape["encoder_self"]
+    kernels = {
+        # the eval path runs the inference kernel at the encoder's shape
+        "fused_attention": {
+            "ms": enc["inference_ms"], "plain_ms": enc["inference_plain_ms"],
+            "bound_ms": enc["inference_bound_ms"], "bound_by": enc["bound_by"],
+            "library_ms": enc["inference_library_ms"],
+            "math_path_ms": enc["inference_math_ms"]},
+        "fused_attention_trainable": {
+            "ms": enc["forward_ms"], "plain_ms": enc["forward_plain_ms"],
+            "bound_ms": enc["forward_bound_ms"], "bound_by": enc["bound_by"],
+            "library_ms": enc["forward_library_ms"], "math_path_ms": enc["forward_math_ms"],
+            "backward_ms": enc["backward_ms"], "backward_plain_ms": enc["backward_plain_ms"],
+            "backward_bound_ms": enc["backward_bound_ms"],
+            "backward_library_ms": enc["backward_library_ms"]},
+    }
+    return kernels, report
+
+
+def time_long_train_steps(repo, root, vocab, dev, card):
+    """ms per train step of the long recipe (batch 32, dropout on) on a fixed
+    batch with the attention kernels on, off, off, on."""
+    report = {}
+    for i, kernels in enumerate((True, False, False, True)):
+        tr = long_trainer(repo, root, vocab, dev, use_pallas_attention=kernels)
+        batch = first_batch(tr)
+        for _ in range(2):
+            tr.train_step(tr.state, batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(6):
+            tr.train_step(tr.state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / 6
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        label = f"long_train_step_ms_attention_{'kernels' if kernels else 'math'}_{i // 2}"
+        report[label] = ms
+        say(f"  long train step, attention {'kernels' if kernels else 'math path'}: "
+            f"{ms:.2f} ms, peak memory so far {peak:.0f} MiB [{card}]")
+        del tr
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs a CUDA card")
@@ -1906,8 +2521,17 @@ def main() -> int:
         vocab = work / "vocab.txt"
         synthetic_vocab(vocab)
         write_dataset(work)
+        long_work = work / "long"
+        long_work.mkdir()
+        write_long_dataset(long_work)
         if "--profile-train" in sys.argv[1:]:
-            profile_train(repo, work, vocab, dev, card)
+            profile_train(make_trainer(repo, work, vocab, dev), card)
+            return 0
+        if "--profile-long-train" in sys.argv[1:]:
+            for kernels in (True, False):
+                say(f"long-video recipe, tpu.use_pallas_attention={kernels}")
+                profile_train(long_trainer(repo, long_work, vocab, dev,
+                                           use_pallas_attention=kernels), card)
             return 0
         cfg = load_config(str(repo / "configs" / "msvd.json"))
         cfg = cfg.replace(tpu=dataclasses.replace(cfg.tpu, vocab_path=str(vocab)))
@@ -1965,11 +2589,37 @@ def main() -> int:
         report.update(loss_report)
         report.update(time_train_steps(repo, work, vocab, dev, card))
 
+        say("phase attn-kernels: the attention kernels against their plain versions")
+        attn_errs, attn_bwd_errs = check_attention_kernels(dev)
+        errs.update(attn_errs)
+        say(f"phase long-train: vct_tpu_torch.cli.train on the long-video recipe "
+            f"({LONG_FRAMES} frames, captions to {LONG_CAPTION}), {LONG_TRAIN_STEPS} batches "
+            f"of {LONG_BATCH}")
+        train_counts = run_long_training(repo, long_work, vocab)
+        check_long_step0_routes(repo, long_work, vocab, dev)
+        say("phase long-eval: vct_tpu_torch.cli.eval greedy on the long-video recipe")
+        eval_counts, long_report = run_long_eval(repo, long_work, vocab, ckpt, dev, card)
+        report.update(long_report)
+        launches["fused_attention"] = eval_counts["fused_attention"]
+        launches["fused_attention_trainable"] = train_counts["fused_attention_trainable"]
+        say("phase encoders: HMME and SimpleSep on the kernel route, biGRU aggregation")
+        check_encoders(repo, vocab, dev)
+        say(f"phase attn-timings [{card}]")
+        attn_times, attn_report = time_attention(dev, card)
+        kernel_times.update(attn_times)
+        report.update(attn_report)
+        report.update(time_long_train_steps(repo, long_work, vocab, dev, card))
+
     say(json.dumps(report))
     sources = {**{k: SOURCE for k in REPLACES}, **{k: LOSS_SOURCE for k in LOSS_REPLACES},
-               **{k: v[1] for k, v in BEAM_REPLACES.items()}}
-    replaced = {**REPLACES, **LOSS_REPLACES, **{k: v[0] for k, v in BEAM_REPLACES.items()}}
-    extra = {"sce_backward_tiles": bwd_errs}
+               **{k: v[1] for k, v in BEAM_REPLACES.items()},
+               **{k: ATTN_SOURCE for k in ATTN_REPLACES}}
+    replaced = {**REPLACES, **LOSS_REPLACES, **{k: v[0] for k, v in BEAM_REPLACES.items()},
+                **ATTN_REPLACES}
+    extra = {"sce_backward_tiles": bwd_errs,
+             "fused_attention_trainable": {
+                 **attn_bwd_errs,
+                 "backward_launches": train_counts["fused_attention_trainable_backward"]}}
     say(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name], "replaces": replaces,
          "launches": launches[name], "max_abs_err": errs[name], **kernel_times[name],

@@ -483,3 +483,123 @@ def test_loss_wrappers_reject_bad_layouts(cuda):
     with pytest.raises(ValueError, match="at most"):
         lk.softmax_stats(wide, torch.zeros((512, wide.shape[1]), dtype=torch.bfloat16,
                                            device=cuda), b[:512].contiguous(), labels)
+
+
+# ---------------------------------------------------------------------------
+# the fused attention kernels (csrc/attention.cu)
+# ---------------------------------------------------------------------------
+# float32: kernel and plain version differ by summation order only (2e-5 on
+# outputs of magnitude ~1, 1e-4 of the largest gradient). bfloat16 forward:
+# same rounding points, so outputs agree to one bfloat16 unit (2**-8
+# relative; 0.02 absolute at magnitudes up to 2) and almost all exactly;
+# bfloat16 backward: the kernel rounds P and dS to bfloat16 for the tensor
+# cores where the plain version keeps them float32, so gradients agree to 2%
+# of their largest value.
+
+from vct_tpu_torch.ops import attention_kernels as ak  # noqa: E402
+
+ATTN_SHAPES = [  # (B, Tq, Tk, H, D)
+    (2, 31, 13, 2, 96), (2, 13, 13, 8, 96), (2, 8, 16, 4, 64), (1, 37, 200, 2, 128),
+    (2, 128, 256, 2, 96), (3, 65, 130, 3, 16)]
+
+
+def _attn_inputs(dev, dt, shape, bias_kind, rate, seed=0):
+    b, tq, tk, h, d = shape
+    g = torch.Generator().manual_seed(seed)
+    q, k, v, do = (torch.randn(s, generator=g).to(dev, dt)
+                   for s in ((b, tq, h, d), (b, tk, h, d), (b, tk, h, d), (b, tq, h, d)))
+    bias = None
+    if bias_kind == "padding":
+        bias = torch.zeros((b, 1, 1, tk))
+        bias[:, :, :, tk - tk // 3:] = ak.NEG_INF
+    elif bias_kind == "causal":
+        bias = torch.where(torch.ones(tq, tk).tril().bool(), 0.0, ak.NEG_INF)[None, None]
+    elif bias_kind == "rows":
+        bias = torch.where(torch.ones(tq, tk).tril().bool(), 0.0, ak.NEG_INF)[None, None]
+        bias = bias + torch.zeros((b, 1, 1, tk))
+        bias[0, :, :, 1:3] = ak.NEG_INF
+    elif bias_kind == "full":
+        bias = torch.randn((b, h, tq, tk), generator=g)
+        bias[0, 0, 0] = ak.NEG_INF  # a fully masked row: uniform over the keys
+    keep = None
+    if rate > 0:
+        keep = (torch.rand((b, h, tq, tk), generator=g) >= rate).to(dev)
+    return q, k, v, None if bias is None else bias.to(dev), keep, do
+
+
+def _close(got, want, dt, grad=False):
+    assert bool(torch.isfinite(got.float()).all())
+    err = (got.float() - want.float()).abs()
+    scale = float(want.float().abs().max())
+    if dt == torch.float32:
+        assert float(err.max()) <= (1e-4 * scale if grad else 2e-5), float(err.max())
+    elif grad:
+        assert float(err.max()) <= 2e-2 * scale, (float(err.max()), scale)
+    else:
+        assert float(err.max()) <= 0.02 and float(err.mean()) <= 1e-3, \
+            (float(err.max()), float(err.mean()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bias_kind", [None, "padding", "causal", "rows", "full"])
+@pytest.mark.parametrize("shape", ATTN_SHAPES)
+def test_attention_kernels(cuda, dt, bias_kind, shape):
+    if bias_kind in ("causal", "rows") and shape[1] != shape[2]:
+        pytest.skip("square biases need Tq == Tk")
+    for rate in (0.0, 0.3):
+        q, k, v, bias, keep, do = _attn_inputs(cuda, dt, shape, bias_kind, rate)
+        if rate == 0.0:
+            before = ak.fused_attention.launches
+            _close(ak.fused_attention(q, k, v, bias),
+                   ak.fused_attention_reference(q, k, v, bias), dt)
+            assert ak.fused_attention.launches == before + 1
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        counts = (ak.fused_attention_trainable.launches,
+                  ak.fused_attention_trainable.backward_launches)
+        out = ak.fused_attention_trainable(*leaves, bias, keep, rate)
+        out.backward(do)
+        torch.cuda.synchronize()
+        assert (ak.fused_attention_trainable.launches,
+                ak.fused_attention_trainable.backward_launches) == (counts[0] + 1,
+                                                                    counts[1] + 1)
+        _close(out, ak.fused_attention_trainable_reference(q, k, v, bias, keep, rate), dt)
+        want = ak.fused_attention_backward_reference(q, k, v, bias, keep, rate, do)
+        for got, ref in zip((t.grad for t in leaves), want):
+            _close(got, ref, dt, grad=True)
+
+
+@pytest.mark.cuda
+def test_attention_kernel_reads_packed_qkv_in_place_and_repeats_its_bits(cuda):
+    b, t, h, d = 2, 70, 4, 32
+    g = torch.Generator().manual_seed(3)
+    qkv = torch.randn((b, t, 3 * h * d), generator=g).to(cuda, torch.bfloat16)
+    q, k, v = (qkv[..., i * h * d:(i + 1) * h * d].reshape(b, t, h, d) for i in range(3))
+    assert not q.is_contiguous() and ak._strided(q) is q
+    do = torch.randn((b, t, h, d), generator=g).to(cuda, torch.bfloat16)
+    runs = []
+    for _ in range(2):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        out = ak.fused_attention_trainable(*leaves)
+        out.backward(do)
+        runs.append([out.detach()] + [x.grad for x in leaves])
+    for a, c in zip(*runs):
+        assert torch.equal(a, c)
+    _close(ak.fused_attention(q, k, v),
+           ak.fused_attention_reference(q.contiguous(), k.contiguous(), v.contiguous()),
+           torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_attention_wrapper_raises_outside_the_kernels_span(cuda):
+    def mk(d, dt=torch.float32):
+        return torch.zeros((1, 4, 2, d), device=cuda, dtype=dt)
+
+    with pytest.raises(ValueError):
+        ak.fused_attention(mk(100), mk(100), mk(100))
+    with pytest.raises(ValueError):
+        ak.fused_attention(mk(256), mk(256), mk(256))
+    with pytest.raises(TypeError):
+        ak.fused_attention(*(mk(64, torch.float16),) * 3)
+    with pytest.raises(ValueError):  # a rate without a mask
+        ak.fused_attention_trainable(mk(64), mk(64), mk(64), None, None, 0.3)

@@ -19,6 +19,7 @@ from vct_tpu_torch.decode import (
     detokenize_batch,
     first_mismatch_gaps,
     greedy_generate,
+    make_auto_beam_fn,
     make_auto_greedy_fn,
 )
 from vct_tpu_torch.decode_fast import greedy_generate_fused
@@ -100,6 +101,38 @@ def test_auto_dispatch(pair3):
     assert attn_m.shape == (MAX_LEN - 1, 3, B, 7)
     torch.testing.assert_close(attn_m.sum(-1), torch.ones(MAX_LEN - 1, 3, B))
     assert_same_tokens(pm, feats, masks, tok_f, tok_m)
+
+
+@pytest.mark.parametrize("kernels_on", [True, False])
+def test_auto_dispatch_follows_use_pallas_attention(pair3, monkeypatch, kernels_on):
+    """A model with ``tpu.use_pallas_attention`` false decodes on the module
+    path, greedy and beam, as the reference dispatch does; with it true both
+    go through the decode kernels' wrappers."""
+    import dataclasses
+
+    from vct_tpu_torch.ops import decode_kernels as dk
+
+    jm, variables, pm = pair3
+    feats, masks = make_inputs()
+    calls = {"n": 0}
+    for name in ("fused_whole_step", "fused_layers_step"):
+        original = getattr(dk, name)
+
+        def counting(*a, _fn=original, **k):
+            calls["n"] += 1
+            return _fn(*a, **k)
+
+        monkeypatch.setattr("vct_tpu_torch.decode_fast." + name, counting)
+    monkeypatch.setattr(pm, "tpu", dataclasses.replace(pm.tpu,
+                                                       use_pallas_attention=kernels_on))
+    tok_g, _ = make_auto_greedy_fn(pm, MAX_LEN, 2, -1)(to_torch(feats), to_torch(masks))
+    greedy_calls = calls["n"]
+    tok_b, scores = make_auto_beam_fn(pm, MAX_LEN, 2, -1, 3)(to_torch(feats), to_torch(masks))
+    assert (greedy_calls > 0) is kernels_on and (calls["n"] > greedy_calls) is kernels_on
+    want, _ = greedy_generate(pm, to_torch(feats), to_torch(masks), max_len=MAX_LEN,
+                              start_id=2, end_id=-1)
+    assert_same_tokens(pm, feats, masks, tok_g, want)
+    assert tok_b.shape == (B, MAX_LEN) and bool(torch.isfinite(scores).all())
 
 
 def test_detokenize_batch_truncates_at_sep():

@@ -62,7 +62,8 @@ def make_auto_greedy_fn(model, max_len: int, start_id: int, end_id: int,
                         collect_attn: bool = False) -> Callable:
     """fn(feats, masks) -> (tokens, attn): the decode kernels
     (``decode_fast``; on CPU tensors their plain versions), or the module
-    path when attention maps are collected. The kernel weights are extracted
+    path when attention maps are collected or the model has its kernels off
+    (``tpu.use_pallas_attention`` false). The kernel weights are extracted
     once, at the first call: load the checkpoint before decoding."""
 
     def module_fn(video_feats, video_masks):
@@ -70,7 +71,7 @@ def make_auto_greedy_fn(model, max_len: int, start_id: int, end_id: int,
                                start_id=start_id, end_id=end_id,
                                collect_attn=collect_attn)
 
-    if collect_attn:
+    if collect_attn or not model.tpu.use_pallas_attention:
         return module_fn
 
     from vct_tpu_torch.decode_fast import extract_fast_weights, greedy_generate_fused
@@ -211,11 +212,15 @@ def make_auto_beam_fn(model, max_len: int, start_id: int, end_id: int, beam_size
     """fn(feats, masks) -> (tokens, scores): beam search on the decode kernels
     (``decode_fast.beam_generate_fused``: one stack launch and one
     norm/generator/top-k launch per token; on CPU tensors their plain
-    versions). On a card a beam wider than the top-k kernel carries raises
-    ``ValueError``; it never falls to the module path. The kernel weights
-    are extracted once, at the first call: load the checkpoint before
-    decoding. One process drives one device; the sharded variants come with
-    the multi-device slice."""
+    versions), or on the module path when the model has its kernels off
+    (``tpu.use_pallas_attention`` false). On a card a beam wider than the
+    top-k kernel carries raises ``ValueError``; it never falls to the module
+    path. The kernel weights are extracted once, at the first call: load the
+    checkpoint before decoding. One process drives one device; the sharded
+    variants come with the multi-device slice."""
+    if not model.tpu.use_pallas_attention:
+        return make_beam_fn(model, max_len, start_id, end_id, beam_size, length_penalty)
+
     from vct_tpu_torch.decode_fast import extract_fast_weights, make_fused_beam_fn
 
     weights = {}

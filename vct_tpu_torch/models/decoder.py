@@ -37,7 +37,7 @@ class CapDecoder(nn.Module):
                  activation: str = "gelu", quirk_no_memory_mask: bool = False,
                  dropout_rate: float = 0.0, rng=None, sce_loss_alpha: float = 0.5,
                  use_fused_loss: bool = True, fused_loss_kernels: bool = True,
-                 dtype=torch.float32, device=None):
+                 use_kernels: bool = False, dtype=torch.float32, device=None):
         super().__init__()
         self.pad_id, self.dtype = pad_id, dtype
         self.embed_dim, self.vocab_size = embed_dim, vocab_size
@@ -47,7 +47,8 @@ class CapDecoder(nn.Module):
         self.fused_loss_kernels = fused_loss_kernels
         self.decoder = TransformerDecoder(num_layers, embed_dim, nhead,
                                           dim_feedforward, activation, dropout_rate,
-                                          rng=rng, dtype=dtype, device=device)
+                                          rng=rng, use_kernels=use_kernels, dtype=dtype,
+                                          device=device)
         self.generator = LMHead(embed_dim, vocab_size, dtype=dtype, device=device)
         self.tgt_to_emb = nn.Embedding(vocab_size, embed_dim, device=device)
         self.positional_encoding = PositionalEmbedding(embed_dim, 5000, dropout_rate,

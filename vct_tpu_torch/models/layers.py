@@ -67,11 +67,15 @@ class Dropout(nn.Module):
     def active(self) -> bool:
         return self.training and self.rate > 0.0
 
+    def draw_keep(self, shape, device) -> torch.Tensor:
+        """The next keep mask (bool, True = kept) from the generator."""
+        return torch.rand(tuple(shape), device=device,
+                          generator=self.rng.generator) >= self.rate
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.active:
             return x
-        keep = torch.rand(x.shape, device=x.device, generator=self.rng.generator) >= self.rate
-        return torch.where(keep, x / (1.0 - self.rate), 0.0)
+        return torch.where(self.draw_keep(x.shape, x.device), x / (1.0 - self.rate), 0.0)
 
 
 def activation_fn(name: str):
@@ -87,11 +91,12 @@ class MultiHeadAttention(nn.Module):
     layout: ``in_proj_weight`` [3E, E] with q/k/v stacked on the output dim."""
 
     def __init__(self, embed_dim: int, num_heads: int, dropout_rate: float = 0.0, *,
-                 rng: Optional[DropoutRng] = None,
+                 rng: Optional[DropoutRng] = None, use_kernels: bool = False,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         e = embed_dim
         self.embed_dim, self.num_heads, self.dtype = e, num_heads, dtype
+        self.use_kernels = use_kernels  # the fused attention kernels, where eligible
         self.attn_dropout = Dropout(dropout_rate, rng)
         self.in_proj_weight = nn.Parameter(torch.empty(3 * e, e, device=device))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * e, device=device))
@@ -121,7 +126,8 @@ class MultiHeadAttention(nn.Module):
                return_weights: bool = False):
         drop = self.attn_dropout if dropout and self.attn_dropout.active else None
         out, weights = dot_product_attention(q, k, v, bias, dropout=drop,
-                                             return_weights=return_weights)
+                                             return_weights=return_weights,
+                                             use_kernels=self.use_kernels)
         b, t = out.shape[:2]
         out = linear(out.reshape(b, t, self.embed_dim), self.out_proj.weight,
                      self.out_proj.bias, self.dtype)
@@ -141,11 +147,13 @@ class TransformerEncoderLayer(nn.Module):
 
     def __init__(self, embed_dim: int, num_heads: int, dim_feedforward: int = 2048,
                  activation: str = "gelu", dropout_rate: float = 0.0, *,
-                 rng: Optional[DropoutRng] = None, dtype=torch.float32, device=None):
+                 rng: Optional[DropoutRng] = None, use_kernels: bool = False,
+                 dtype=torch.float32, device=None):
         super().__init__()
         self.dtype = dtype
         self.self_attn = MultiHeadAttention(embed_dim, num_heads, dropout_rate, rng=rng,
-                                            dtype=dtype, device=device)
+                                            use_kernels=use_kernels, dtype=dtype,
+                                            device=device)
         self.linear1 = nn.Linear(embed_dim, dim_feedforward, device=device)
         self.linear2 = nn.Linear(dim_feedforward, embed_dim, device=device)
         self.norm1 = nn.LayerNorm(embed_dim, eps=LN_EPS, device=device)
@@ -172,13 +180,13 @@ class TransformerEncoder(nn.Module):
     def __init__(self, num_layers: int, embed_dim: int, num_heads: int,
                  dim_feedforward: int = 2048, activation: str = "gelu",
                  dropout_rate: float = 0.0, *, rng: Optional[DropoutRng] = None,
-                 dtype=torch.float32, device=None):
+                 use_kernels: bool = False, dtype=torch.float32, device=None):
         super().__init__()
         self.dtype = dtype
         self.layers = nn.ModuleList(
             TransformerEncoderLayer(embed_dim, num_heads, dim_feedforward,
-                                    activation, dropout_rate, rng=rng, dtype=dtype,
-                                    device=device)
+                                    activation, dropout_rate, rng=rng,
+                                    use_kernels=use_kernels, dtype=dtype, device=device)
             for _ in range(num_layers))
         self.norm = nn.LayerNorm(embed_dim, eps=LN_EPS, device=device)
 
@@ -194,13 +202,16 @@ class TransformerDecoderLayer(nn.Module):
 
     def __init__(self, embed_dim: int, num_heads: int, dim_feedforward: int = 2048,
                  activation: str = "gelu", dropout_rate: float = 0.0, *,
-                 rng: Optional[DropoutRng] = None, dtype=torch.float32, device=None):
+                 rng: Optional[DropoutRng] = None, use_kernels: bool = False,
+                 dtype=torch.float32, device=None):
         super().__init__()
         self.embed_dim, self.num_heads, self.dtype = embed_dim, num_heads, dtype
         self.self_attn = MultiHeadAttention(embed_dim, num_heads, dropout_rate, rng=rng,
-                                            dtype=dtype, device=device)
+                                            use_kernels=use_kernels, dtype=dtype,
+                                            device=device)
         self.multihead_attn = MultiHeadAttention(embed_dim, num_heads, dropout_rate,
-                                                 rng=rng, dtype=dtype, device=device)
+                                                 rng=rng, use_kernels=use_kernels,
+                                                 dtype=dtype, device=device)
         self.dropout = Dropout(dropout_rate, rng)
         self.dropout1 = Dropout(dropout_rate, rng)
         self.dropout2 = Dropout(dropout_rate, rng)
@@ -276,13 +287,13 @@ class TransformerDecoder(nn.Module):
     def __init__(self, num_layers: int, embed_dim: int, num_heads: int,
                  dim_feedforward: int = 2048, activation: str = "gelu",
                  dropout_rate: float = 0.0, *, rng: Optional[DropoutRng] = None,
-                 dtype=torch.float32, device=None):
+                 use_kernels: bool = False, dtype=torch.float32, device=None):
         super().__init__()
         self.dtype = dtype
         self.layers = nn.ModuleList(
             TransformerDecoderLayer(embed_dim, num_heads, dim_feedforward,
-                                    activation, dropout_rate, rng=rng, dtype=dtype,
-                                    device=device)
+                                    activation, dropout_rate, rng=rng,
+                                    use_kernels=use_kernels, dtype=dtype, device=device)
             for _ in range(num_layers))
         self.norm = nn.LayerNorm(embed_dim, eps=LN_EPS, device=device)
 

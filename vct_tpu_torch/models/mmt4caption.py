@@ -1,5 +1,6 @@
 """MMT4Caption, caption task (port of ``vct_tpu/models/mmt4caption.py``):
-the MME video encoder plus the caption decoder, with the task forwards
+a video encoder (MME, HMME or SimpleSep by ``video_encoder.type``) plus the
+caption decoder, with the task forwards
 ``caption_loss`` / ``caption_loss_parts`` / ``caption_logits`` and the
 decoding primitives ``encode`` / ``init_cache`` / ``decode_step``.
 ``model.train()`` turns dropout on (rate ``config.dropout``) and
@@ -16,7 +17,7 @@ from torch import nn
 
 from vct_tpu_torch.config import ModelConfig, TPUConfig
 from vct_tpu_torch.models.decoder import CapDecoder
-from vct_tpu_torch.models.encoder import MultiModalEncoder
+from vct_tpu_torch.models.encoder import HMMEncoder, MultiModalEncoder, SimpleSepEncoder
 from vct_tpu_torch.models.layers import DropoutRng
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -28,18 +29,26 @@ class MMT4Caption(nn.Module):
         super().__init__()
         self.config, self.tpu, self.dtype = config, tpu, dtype
         ve, cd = config.video_encoder, config.caption_decoder
-        if ve.type != "mme":
-            raise NotImplementedError(
-                f"video encoder {ve.type!r} is not ported yet (only 'mme')")
         self.dropout_rng = DropoutRng()
-        self.video_encoder = MultiModalEncoder(
-            config.modal_shape, config.embed_dim, ve.nhead, ve.feedforward,
-            config.activation, global_type=ve.mme.aggregation,
-            modal_different=ve.mme.modal_different,
-            temporal_type=ve.mme.temporal, do_norm=ve.mme.do_norm,
-            quirk_unmasked_agg=tpu.quirk_unmasked_aggregation,
-            num_encoder_layers=int(ve.layer), dropout_rate=config.dropout,
-            rng=self.dropout_rng, dtype=dtype, device=device)
+        common = dict(dropout_rate=config.dropout, rng=self.dropout_rng,
+                      use_kernels=tpu.use_pallas_attention, dtype=dtype, device=device)
+        args = (config.modal_shape, config.embed_dim, ve.nhead, ve.feedforward,
+                config.activation)
+        if ve.type == "simple":
+            self.video_encoder = SimpleSepEncoder(*args, num_encoder_layers=int(ve.layer),
+                                                  **common)
+        else:
+            front = dict(global_type=ve.mme.aggregation,
+                         modal_different=ve.mme.modal_different,
+                         temporal_type=ve.mme.temporal, do_norm=ve.mme.do_norm,
+                         quirk_unmasked_agg=tpu.quirk_unmasked_aggregation)
+            if ve.type == "hmme":
+                layers = ve.layer if isinstance(ve.layer, (tuple, list)) else (ve.layer,)
+                self.video_encoder = HMMEncoder(*args, num_encoder_layers=tuple(layers),
+                                                **front, **common)
+            else:
+                self.video_encoder = MultiModalEncoder(
+                    *args, num_encoder_layers=int(ve.layer), **front, **common)
         self.cap_decoder = CapDecoder(
             cd.layer, config.embed_dim, cd.nhead, cd.feedforward,
             config.vocab_size, pad_id=config.pad_id,
@@ -47,7 +56,8 @@ class MMT4Caption(nn.Module):
             quirk_no_memory_mask=tpu.quirk_no_memory_mask_in_decoder,
             dropout_rate=config.dropout, rng=self.dropout_rng,
             sce_loss_alpha=cd.sce_loss_alpha, use_fused_loss=tpu.use_fused_loss,
-            fused_loss_kernels=tpu.fused_loss_pallas, dtype=dtype, device=device)
+            fused_loss_kernels=tpu.fused_loss_pallas,
+            use_kernels=tpu.use_pallas_attention, dtype=dtype, device=device)
 
     def set_dropout_generator(self, generator: Optional[torch.Generator]) -> None:
         """Every dropout mask of this model is drawn from ``generator`` (on

@@ -26,7 +26,8 @@ BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_IP = ctypes.POINTER(ctypes.c_int)
 
 
 def _nvcc() -> str:
@@ -101,4 +102,8 @@ def load_library() -> ctypes.CDLL:
     lib.vct_sce_clipped_stats.restype = _I
     lib.vct_sce_backward.argtypes = [_I] + [_P] * 11 + [_I] * 3 + [_P]
     lib.vct_sce_backward.restype = _I
+    lib.vct_attn_forward.argtypes = [_I] + [_P] * 7 + [_I] * 5 + [_IP, _F, _F, _P]
+    lib.vct_attn_forward.restype = _I
+    lib.vct_attn_backward.argtypes = [_I] + [_P] * 11 + [_I] * 5 + [_IP, _F, _F, _P]
+    lib.vct_attn_backward.restype = _I
     return lib
