@@ -17,7 +17,11 @@ Phases, each of which must pass:
   2. build    nvcc builds vct_tpu_torch/csrc into the package's _build/
   3. kernels  each CUDA kernel against its plain PyTorch version on the card,
               at the MSVD widths in bfloat16 (seeded inputs, several idx and
-              l_view windows, both window poisons)
+              l_view windows, both window poisons); the generator + argmax
+              kernel at B = 1, 65, 128, 200 and 256 (tokens equal but at
+              near-ties, no pad column wins, the same tokens twice) and with
+              one weight column planted on both sides of a slab boundary and
+              in a far slab, where the lowest index must win
   4. server   configs/msvd.json with a synthetic 30522-entry vocab and seeded
               random weights saved as a reference-keyed .pth; the port's HTTP
               server on port 0 with max_batch 32 answers concurrent
@@ -79,7 +83,11 @@ Phases, each of which must pass:
               [B,1,T,T] causal + padding bias, cross 128 x 256), float32 at
               ragged small shapes, no bias, a fully masked row, the same bits
               from two runs, and shapes outside the kernels' span, which
-              raise before any launch
+              raise before any launch; the bfloat16 forward on both routes of
+              its shape rule (logits on chip, two passes) at Tk = 100, 255 and
+              257 with and without bias and keep mask, the two routes'
+              statistics against each other, and Tk = 800, past the on-chip
+              limit, through the wrappers
  13. long-train  the long-video recipe (configs/msvd.json with
               tpu.max_frames 255, tpu.max_caption_len 129 and batch 32;
               videos of 100-400 frames, captions of 40-140 words) through
@@ -103,6 +111,17 @@ Phases, each of which must pass:
               the port never calls it); ms per long train step with the
               attention kernels on and off
 
+Times: every row of the ``kernels`` line names its ``timer``. ``cuda_events``
+is ``cuda_time``, CUDA events around a Python loop of calls. ``graph_replay``
+is ``device_time`` (the calls captured into a CUDA graph and replayed: the
+device alone), used for the generator + argmax kernel, the attention forward
+and their library calls, because their wrappers' host code outlasts the
+kernels; ``eager_ms`` is the loop's reading of the same call.
+``previous_same_run_ms`` is the kernel that a redesign replaced, timed in this
+run on the same inputs by the same timer. ``cold_weight_ms`` replays the
+generator kernel on two copies of the weight in turn (94 MB against 50 MB of
+L2), so that no call finds its weight left in L2 by the call before.
+
 Launch counts are set to 0 just before phases 4, 5, 7, 9, 10, 13 and 14 and
 read just after each: the server must have launched the whole-step kernel,
 the B=128 decode the other two decode kernels, training the three loss
@@ -118,6 +137,7 @@ from __future__ import annotations
 
 import dataclasses
 import io
+import itertools
 import json
 import math
 import subprocess
@@ -166,6 +186,18 @@ BEAM_REPLACES = {
 # from the same float32 LayerNorm output and bfloat16 weights and differ by
 # the order of a 768-term float32 sum.
 TOPK_ATOL = 1e-3
+ARGMAX_BATCHES = (1, 65, 128, 200, 256)
+# ms of the kernels that a redesign replaced, as earlier runs of this script
+# recorded them by ``cuda_time`` (NVIDIA H100 80GB HBM3, 700.00 W). Printed on a
+# line of their own for the reader; the ``kernels`` line holds only what this
+# run measures (``previous_same_run_ms``).
+RECORDED_PREVIOUS_MS = {
+    "fused_norm_generator_argmax": 0.4596,
+    "fused_attention": {"encoder_self": 0.3009, "decoder_self": 0.0910,
+                        "decoder_cross": 0.1550},
+    "fused_attention_trainable": {"encoder_self": 0.3445, "decoder_self": 0.1657,
+                                  "decoder_cross": 0.1834},
+}
 BEAM_ROWS, BEAM_K = 256, 4   # eval batch 64 x beam 4
 LOSS_REPLACES = {
     "softmax_stats": "vct_tpu/ops/pallas_loss.py:124",
@@ -227,6 +259,45 @@ def cuda_time(fn, iters: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_time(fn, iters: int = 20) -> float:
+    """ms per call on the device alone: ``iters`` calls captured into one CUDA
+    graph and replayed, timed by CUDA events. A kernel of a few hundredths of
+    a millisecond takes less than its wrapper's Python and launch code, so
+    ``cuda_time`` of it reads the host; a decode loop's host runs ahead of the
+    device and its tokens cost the device time."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # a warm-up off the default stream, as capture wants
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (3 * iters)
+
+
+def library_plan(entry: str, *args, n: int) -> tuple:
+    """The launch plan the C launcher reports (``n`` ints)."""
+    import ctypes
+
+    from vct_tpu_torch.ops._build import load_library
+
+    out = (ctypes.c_int * n)()
+    if getattr(load_library(), entry)(*args, out) != 0:
+        fail(f"{entry}{args}: the launcher reports no plan")
+    return tuple(out)
 
 
 class no_plain_on_cuda:
@@ -358,19 +429,45 @@ def check_kernels(fw, heads, tm):
             compare_float(name + " k rows", k1[:, idx], k2[:, idx], means),
             compare_float(name + " v rows", v1[:, idx], v2[:, idx], means))
         say(f"  ok {name}")
-    # fused_norm_generator_argmax at B=128 on decoder-like activations
-    a = step_inputs(fw, 128, 9, tm, gen=2000)
-    x, _, _ = dk.fused_layers_step_reference(a["x"], a["kc"], a["vc"], a["ck"], a["cv"],
-                                             a["mem_bias"], fw["stacked"], 9,
-                                             heads=heads, l_view=16)
-    tok = dk.fused_norm_generator_argmax(x, fw["norm_s"], fw["norm_b"], fw["wg"], fw["bg"])
-    tok_ref = dk.fused_norm_generator_argmax_reference(x, fw["norm_s"], fw["norm_b"],
-                                                       fw["wg"], fw["bg"])
+    # fused_norm_generator_argmax on decoder-like activations: one M tile of 64
+    # rows, one of 128, two of 128; twice, for the same bits
+    gargs = (fw["norm_s"], fw["norm_b"], fw["wg"], fw["bg"])
+    for b in ARGMAX_BATCHES:
+        x = decoder_like(fw, heads, tm, b, 2000 + b)
+        tok = dk.fused_norm_generator_argmax(x, *gargs)
+        again = dk.fused_norm_generator_argmax(x, *gargs)
+        tok_ref = dk.fused_norm_generator_argmax_reference(x, *gargs)
+        torch.cuda.synchronize()
+        name = f"fused_norm_generator_argmax B={b}"
+        errs["fused_norm_generator_argmax"] = max(
+            errs["fused_norm_generator_argmax"],
+            token_err(name, tok, tok_ref, plain_logits(dk, x, fw), NEAR_TIE_SAME))
+        if not torch.equal(tok, again):
+            fail(f"{name}: two runs gave different tokens")
+        if int(tok.max()) >= fw["vocab"] or int(tok.min()) < 0:
+            fail(f"{name}: a token outside the vocab (a padded column won)")
+        say(f"  ok {name}")
+    # one weight column planted on both sides of a slab boundary and in a far
+    # slab, with a leading bias: the lowest index wins
+    plan = library_plan("vct_gen_argmax_plan", 1, 200, x.shape[1], fw["wg"].shape[1], -1, n=9)
+    if plan != tuple(dk.gen_argmax_plan(200, x.shape[1], fw["wg"].shape[1], x.dtype)):
+        fail(f"fused_norm_generator_argmax: the launcher plans {plan}, the Python mirror differs")
+    slab = plan[2]
+    wg, bg = fw["wg"].clone(), fw["bg"].clone()
+    planted = [slab - 1, slab, 40 * slab + 7]
+    for c in planted[1:]:
+        wg[:, c] = wg[:, planted[0]]
+    bg[planted] = 1e3
+    x = decoder_like(fw, heads, tm, 200, 2200)
+    tok = dk.fused_norm_generator_argmax(x, fw["norm_s"], fw["norm_b"], wg, bg)
+    bg[planted[0]] = 0.0
+    tok2 = dk.fused_norm_generator_argmax(x, fw["norm_s"], fw["norm_b"], wg, bg)
     torch.cuda.synchronize()
-    errs["fused_norm_generator_argmax"] = token_err(
-        "fused_norm_generator_argmax B=128", tok, tok_ref, plain_logits(dk, x, fw),
-        NEAR_TIE_SAME)
-    say("  ok fused_norm_generator_argmax B=128")
+    if tok.tolist() != [planted[0]] * 200 or tok2.tolist() != [planted[1]] * 200:
+        fail(f"fused_norm_generator_argmax: a tie across the slab boundary at {slab} did "
+             f"not go to the lower index")
+    del wg, bg
+    say(f"  ok fused_norm_generator_argmax ties across slabs (columns {planted})")
     # the window poisons
     a = step_inputs(fw, 32, 8, tm, gen=3000)
     tok, _, _ = dk.fused_whole_step(a["x"], a["kc"], a["vc"], a["ck"], a["cv"],
@@ -427,16 +524,44 @@ def time_kernels(fw, heads, tm):
     gargs = (x, fw["norm_s"], fw["norm_b"], fw["wg"], fw["bg"])
     bg_dt = fw["bg"].to(x.dtype)
 
-    def library_argmax():  # layer_norm -> product on the bf16 weights -> argmax
+    def library_argmax(wg=fw["wg"]):  # layer_norm -> product on the bf16 weights -> argmax
         yn = F.layer_norm(x.float(), (x.shape[1],), fw["norm_s"], fw["norm_b"], 1e-5)
-        return torch.argmax(torch.addmm(bg_dt, yn.to(x.dtype), fw["wg"]), dim=-1)
+        return torch.argmax(torch.addmm(bg_dt, yn.to(x.dtype), wg), dim=-1)
 
     bnd = bound_ms(nbytes(*gargs) + 4 * x.shape[0], 2.0 * x.shape[0] * fw["wg"].numel(),
                    x.dtype)
+    # device times (CUDA graph replay): the kernel, the CUDA-core kernel it
+    # replaced on the same inputs, and the library route, which rounds yn to
+    # bfloat16 once and so does less than the kernel
+    t = {"kernel": [], "previous": [], "library": []}
+    for _ in range(2):  # kernel, previous, library, library, previous, kernel
+        order = list(t) if not t["kernel"] else list(t)[::-1]
+        for which in order:
+            t[which].append(device_time(
+                {"kernel": lambda: dk.fused_norm_generator_argmax(*gargs),
+                 "previous": lambda: dk._launch_gen_argmax(*gargs, _route=0),
+                 "library": library_argmax}[which]))
+    # two copies of the weight in turn: each call streams its 47 MB from HBM
+    turn = itertools.cycle((fw["wg"], fw["wg"].clone()))
     out["fused_norm_generator_argmax"] = {
-        "ms": cuda_time(lambda: dk.fused_norm_generator_argmax(*gargs)),
+        "timer": "graph_replay",
+        "ms": min(t["kernel"]),
+        "cold_weight_ms": device_time(
+            lambda: dk.fused_norm_generator_argmax(*gargs[:3], next(turn), gargs[4])),
+        "eager_ms": cuda_time(lambda: dk.fused_norm_generator_argmax(*gargs)),
+        "previous_same_run_ms": min(t["previous"]),
         "plain_ms": cuda_time(lambda: dk.fused_norm_generator_argmax_reference(*gargs)),
-        "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": cuda_time(library_argmax)}
+        "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": min(t["library"]),
+        "library_cold_weight_ms": device_time(lambda: library_argmax(next(turn))),
+        "library_eager_ms": cuda_time(library_argmax)}
+    del turn
+    for b in (65, 256):
+        xb = step_inputs(fw, b, 12, tm, gen=4002 + b)["x"]
+        bargs = (xb,) + gargs[1:]
+        out["fused_norm_generator_argmax"][f"ms_b{b}"] = device_time(
+            lambda: dk.fused_norm_generator_argmax(*bargs))
+        out["fused_norm_generator_argmax"][f"previous_same_run_ms_b{b}"] = device_time(
+            lambda: dk._launch_gen_argmax(*bargs, _route=0))
     return out
 
 
@@ -2029,6 +2154,9 @@ def check_attention_kernels(dev):
         torch.cuda.synchronize()
         if not all(torch.equal(a, c) for a, c in zip(*runs)):
             fail("attention: two runs of forward and backward gave different bits")
+    routes = check_attention_routes(dev)
+    errs["fused_attention"] = max(errs["fused_attention"], routes)
+    errs["fused_attention_trainable"] = max(errs["fused_attention_trainable"], routes)
     for bad, why in ((torch.zeros((1, 128, 2, 100), device=dev), "head width 100"),
                      (torch.zeros((1, 128, 2, 256), device=dev), "head width 256"),
                      (torch.zeros((1, 128, 2, 64), device=dev, dtype=torch.float16), "float16")):
@@ -2044,6 +2172,59 @@ def check_attention_kernels(dev):
     say(f"  ok a fully masked row, the same bits twice, three shapes that raise; max abs "
         f"differences {errs}, backward {worst_bwd:.4g}")
     return errs, {"backward_max_abs_err": worst_bwd}
+
+
+def check_attention_routes(dev):
+    """The bfloat16 forward at ragged shapes on both routes of the shape rule
+    (logits on chip, two passes), with and without bias and keep mask, against
+    the plain version; the two routes' statistics against each other; the same
+    bits from two runs; a Tk past the on-chip limit through the wrappers ->
+    the largest forward difference."""
+    from vct_tpu_torch.ops import attention_kernels as ak
+
+    dt, worst = torch.bfloat16, 0.0
+    for tk in (100, 255, 257):
+        for kind in (None, "padding"):
+            for rate in (0.0, 0.3):
+                q, k, v, _, bias, keep = attn_inputs(dev, dt, 2, 70, tk, 2, LONG_D, kind, rate,
+                                                     seed=300 + tk)
+                want = ak.fused_attention_trainable_reference(q, k, v, bias, keep, rate)
+                stats = []
+                for route in (1, 0):
+                    name = f"attention Tk={tk} bias {kind} rate {rate} route {route}"
+                    out, st = ak._launch_forward(q, k, v, bias, keep, rate, True, route)
+                    again, st2 = ak._launch_forward(q, k, v, bias, keep, rate, True, route)
+                    torch.cuda.synchronize()
+                    worst = max(worst, max_err(name, out, want, ATTN_FWD_ATOL[dt]))
+                    if float((out.float() - want.float()).abs().mean()) > ATTN_FWD_MEAN[dt]:
+                        fail(f"{name}: mean difference above {ATTN_FWD_MEAN[dt]}")
+                    if not (torch.equal(out, again) and torch.equal(st, st2)):
+                        fail(f"{name}: two runs gave different bits")
+                    stats.append(st)
+                # row max and row sum: float32 on both routes, other summation orders
+                max_err(f"attention Tk={tk} bias {kind} statistics of the two routes",
+                        stats[0], stats[1], 1e-4 * float(stats[1].abs().max()))
+    # past the on-chip limit the shape rule takes the two-pass route; asking
+    # for the on-chip route there makes the launcher refuse before any launch
+    tk = 800
+    for keys, route in ((tk, 0), (256, 1)):
+        plan = library_plan("vct_attn_forward_plan", 1, keys, LONG_D, 1, -1, n=6)
+        if plan[0] != route or plan != tuple(ak.attention_forward_plan(keys, LONG_D, dt, True)):
+            fail(f"attention: the launcher plans {plan} for Tk={keys}, expected route {route} "
+                 f"and the Python mirror's plan")
+    q, k, v, do, bias, keep = attn_inputs(dev, dt, 2, 70, tk, 2, LONG_D, "padding", 0.3, seed=77)
+    plain = (ak.fused_attention_trainable_reference, ak.fused_attention_backward_reference)
+    worst = max(worst, attn_compare(f"attention Tk={tk} (two-pass route)",
+                                    (q, k, v, do, bias, keep), 0.3, dt, plain)[0])
+    try:
+        ak._launch_forward(q, k, v, bias, keep, 0.3, True, 1)
+    except RuntimeError:  # the launcher's refusal
+        pass
+    else:
+        fail(f"attention: the on-chip route took Tk={tk}, past its shared memory")
+    say(f"  ok both forward routes at Tk=100, 255, 257 (bias, keep mask, same bits twice, "
+        f"statistics), Tk={tk} by the shape rule; max abs difference {worst:.4g}")
+    return worst
 
 
 def attention_counts():
@@ -2399,21 +2580,47 @@ def time_attention(dev, card):
                 fn().backward(grad)
             return run
 
+        def lib_inference():
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask)
+
+        # Device times (CUDA graph replay) for the forward kernel, the two-pass
+        # kernel it replaced (still the route past the on-chip limit) and the
+        # library call: kernel, previous, library, library, previous, kernel.
+        with torch.no_grad():
+            runs = {
+                "inference": lambda: ak.fused_attention(q, k, v, bias),
+                "inference_previous": lambda: ak._launch_forward(
+                    q, k, v, bias, None, 0.0, False, 0),
+                "inference_library": lib_inference,
+                "forward": lambda: ak._launch_forward(q, k, v, bias, keep, 0.3, True),
+                "forward_previous": lambda: ak._launch_forward(q, k, v, bias, keep, 0.3, True, 0),
+                "forward_library": lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, dropout_p=0.3),
+            }
+            dev_ms = {key: device_time(fn) for key, fn in runs.items()}
+            for key, fn in reversed(runs.items()):
+                dev_ms[key] = min(dev_ms[key], device_time(fn))
         t = {
-            "inference_ms": cuda_time(lambda: ak.fused_attention(q, k, v, bias)),
+            "inference_ms": dev_ms["inference"],
+            "inference_eager_ms": cuda_time(lambda: ak.fused_attention(q, k, v, bias)),
+            "inference_previous_same_run_ms": dev_ms["inference_previous"],
             "inference_plain_ms": cuda_time(
                 lambda: ak.fused_attention_reference(q, k, v, bias), iters=5),
             "inference_math_ms": cuda_time(
                 lambda: dot_product_attention(q, k, v, bias)[0], iters=5),
-            "inference_library_ms": cuda_time(lambda: F.scaled_dot_product_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask)),
+            "inference_library_ms": dev_ms["inference_library"],
+            "inference_library_eager_ms": cuda_time(lib_inference),
             "inference_bound_ms": fwd_bound[0],
-            "forward_ms": cuda_time(kernel_train),
+            "forward_ms": dev_ms["forward"],
+            "forward_eager_ms": cuda_time(kernel_train),
+            "forward_previous_same_run_ms": dev_ms["forward_previous"],
             "forward_plain_ms": cuda_time(
                 lambda: ak.fused_attention_trainable_reference(q, k, v, bias, keep, 0.3),
                 iters=5),
             "forward_math_ms": cuda_time(math_train, iters=5),
-            "forward_library_ms": cuda_time(lib_train),
+            "forward_library_ms": dev_ms["forward_library"],
+            "forward_library_eager_ms": cuda_time(lib_train),
             "forward_bound_ms": drop_bound[0],
             "bound_by": drop_bound[1],
             "backward_plain_ms": cuda_time(
@@ -2422,21 +2629,30 @@ def time_attention(dev, card):
             "backward_bound_ms": bwd_bound[0],
             "backward_bound_by": bwd_bound[1],
         }
+        # the backward by difference of host-loop times (it is long enough
+        # for the device to be what the loop waits for)
         both = cuda_time(with_backward(kernel_train, do))
-        t["backward_ms"] = both - t["forward_ms"]
+        t["backward_ms"] = both - t["forward_eager_ms"]
         t["backward_math_ms"] = cuda_time(with_backward(math_train, do), iters=5) \
             - t["forward_math_ms"]
         t["backward_library_ms"] = cuda_time(with_backward(lib_train, do.transpose(1, 2))) \
-            - t["forward_library_ms"]
+            - t["forward_library_eager_ms"]
         per_shape[name] = t
         say(f"  attention {name} (B={b}, H={h}, Tq={tq}, Tk={tk}, D={d}, bf16) [{card}]:")
-        say(f"    inference: kernel {t['inference_ms']:.4f} ms, bound "
+        say(f"    inference: kernel {t['inference_ms']:.4f} ms (previous kernel "
+            f"{t['inference_previous_same_run_ms']:.4f}, recorded earlier "
+            f"{RECORDED_PREVIOUS_MS['fused_attention'][name]:.4f}; host loop "
+            f"{t['inference_eager_ms']:.4f}), bound "
             f"{t['inference_bound_ms']:.4f} ({fwd_bound[1]}), plain "
             f"{t['inference_plain_ms']:.4f}, math path {t['inference_math_ms']:.4f}, library "
-            f"{t['inference_library_ms']:.4f}")
-        say(f"    forward with dropout: kernel {t['forward_ms']:.4f} ms, bound "
+            f"{t['inference_library_ms']:.4f} (host loop {t['inference_library_eager_ms']:.4f})")
+        say(f"    forward with dropout: kernel {t['forward_ms']:.4f} ms (previous kernel "
+            f"{t['forward_previous_same_run_ms']:.4f}, recorded earlier "
+            f"{RECORDED_PREVIOUS_MS['fused_attention_trainable'][name]:.4f}; host loop "
+            f"{t['forward_eager_ms']:.4f}), bound "
             f"{t['forward_bound_ms']:.4f} ({t['bound_by']}), plain {t['forward_plain_ms']:.4f}, "
-            f"math path {t['forward_math_ms']:.4f}, library {t['forward_library_ms']:.4f}")
+            f"math path {t['forward_math_ms']:.4f}, library {t['forward_library_ms']:.4f} "
+            f"(host loop {t['forward_library_eager_ms']:.4f})")
         say(f"    backward: kernel {t['backward_ms']:.4f} ms, bound "
             f"{t['backward_bound_ms']:.4f} ({t['backward_bound_by']}), plain "
             f"{t['backward_plain_ms']:.4f}, math path {t['backward_math_ms']:.4f}, library "
@@ -2448,17 +2664,27 @@ def time_attention(dev, card):
     kernels = {
         # the eval path runs the inference kernel at the encoder's shape
         "fused_attention": {
-            "ms": enc["inference_ms"], "plain_ms": enc["inference_plain_ms"],
+            "timer": "graph_replay",
+            "ms": enc["inference_ms"], "eager_ms": enc["inference_eager_ms"],
+            "previous_same_run_ms": enc["inference_previous_same_run_ms"],
+            "plain_ms": enc["inference_plain_ms"],
             "bound_ms": enc["inference_bound_ms"], "bound_by": enc["bound_by"],
             "library_ms": enc["inference_library_ms"],
-            "math_path_ms": enc["inference_math_ms"]},
+            "math_path_ms": enc["inference_math_ms"],
+            "by_shape": {n: {key: per_shape[n]["inference_" + key] for key in
+                             ("ms", "previous_same_run_ms", "bound_ms", "library_ms")} for n in per_shape}},
         "fused_attention_trainable": {
-            "ms": enc["forward_ms"], "plain_ms": enc["forward_plain_ms"],
+            "timer": "graph_replay", "backward_timer": "cuda_events",
+            "ms": enc["forward_ms"], "eager_ms": enc["forward_eager_ms"],
+            "previous_same_run_ms": enc["forward_previous_same_run_ms"],
+            "plain_ms": enc["forward_plain_ms"],
             "bound_ms": enc["forward_bound_ms"], "bound_by": enc["bound_by"],
             "library_ms": enc["forward_library_ms"], "math_path_ms": enc["forward_math_ms"],
             "backward_ms": enc["backward_ms"], "backward_plain_ms": enc["backward_plain_ms"],
             "backward_bound_ms": enc["backward_bound_ms"],
-            "backward_library_ms": enc["backward_library_ms"]},
+            "backward_library_ms": enc["backward_library_ms"],
+            "by_shape": {n: {key: per_shape[n]["forward_" + key] for key in
+                             ("ms", "previous_same_run_ms", "bound_ms", "library_ms")} for n in per_shape}},
     }
     return kernels, report
 
@@ -2579,7 +2805,13 @@ def main() -> int:
         kernel_times = time_kernels(fw, heads, tm)
         for name, t in kernel_times.items():
             lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
-            say(f"  {name}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+            was = "" if "previous_same_run_ms" not in t else (
+                f" (previous kernel {t['previous_same_run_ms']:.4f}, recorded earlier "
+                f"{RECORDED_PREVIOUS_MS[name]:.4f}; weight not left in L2: kernel "
+                f"{t['cold_weight_ms']:.4f}, library {t['library_cold_weight_ms']:.4f}; host loop "
+                f"{t['eager_ms']:.4f}, library host loop {t['library_eager_ms']:.4f}; B=65 "
+                f"{t['ms_b65']:.4f}, B=256 {t['ms_b256']:.4f})")
+            say(f"  {name}: kernel {t['ms']:.4f} ms{was}, plain {t['plain_ms']:.4f} ms, bound "
                 f"{t['bound_ms']:.4f} ms ({t['bound_by']}), library {lib} [{card}]")
         kernel_times.update(time_beam_kernels(model, fw, heads, tm, card))
         report = {"server_captions_per_s": cps, **eval_report, **time_decode(model, fw, card),
@@ -2611,7 +2843,9 @@ def main() -> int:
         report.update(time_long_train_steps(repo, long_work, vocab, dev, card))
 
     say(json.dumps(report))
-    sources = {**{k: SOURCE for k in REPLACES}, **{k: LOSS_SOURCE for k in LOSS_REPLACES},
+    sources = {**{k: SOURCE for k in REPLACES},
+               "fused_norm_generator_argmax": "vct_tpu_torch/csrc/gen_argmax.cu",
+               **{k: LOSS_SOURCE for k in LOSS_REPLACES},
                **{k: v[1] for k, v in BEAM_REPLACES.items()},
                **{k: ATTN_SOURCE for k in ATTN_REPLACES}}
     replaced = {**REPLACES, **LOSS_REPLACES, **{k: v[0] for k, v in BEAM_REPLACES.items()},
@@ -2622,7 +2856,8 @@ def main() -> int:
                  "backward_launches": train_counts["fused_attention_trainable_backward"]}}
     say(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name], "replaces": replaces,
-         "launches": launches[name], "max_abs_err": errs[name], **kernel_times[name],
+         "launches": launches[name], "max_abs_err": errs[name], "timer": "cuda_events",
+         **kernel_times[name],
          **extra.get(name, {})}
         for name, replaces in replaced.items()]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

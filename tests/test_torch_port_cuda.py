@@ -603,3 +603,145 @@ def test_attention_wrapper_raises_outside_the_kernels_span(cuda):
         ak.fused_attention(*(mk(64, torch.float16),) * 3)
     with pytest.raises(ValueError):  # a rate without a mask
         ak.fused_attention_trainable(mk(64), mk(64), mk(64), None, None, 0.3)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core generator + argmax (csrc/gen_argmax.cu) and the forward with
+# its logits on chip (csrc/attention.cu, fwd_onchip_kernel)
+# ---------------------------------------------------------------------------
+
+
+def _plan_from_library(fn, *args, n):
+    import ctypes
+
+    from vct_tpu_torch.ops._build import load_library
+
+    out = (ctypes.c_int * n)()
+    assert getattr(load_library(), fn)(*args, out) == 0
+    return tuple(out)
+
+
+def _gen_inputs(dev, dt, b, e, v, v_pad, seed):
+    g = torch.Generator().manual_seed(seed)
+    x = (torch.randn((b, e), generator=g) * 2).to(dev, dt)
+    wg = torch.zeros((e, v_pad), device=dev, dtype=dt)
+    wg[:, :v] = (torch.randn((e, v), generator=g) * 0.2).to(dev, dt)
+    bg = torch.full((v_pad,), dk.NEG_INF, device=dev)
+    bg[:v] = (torch.randn((v,), generator=g) * 0.1).to(dev)
+    ns = (1 + 0.1 * torch.randn((e,), generator=g)).to(dev)
+    nb = (0.1 * torch.randn((e,), generator=g)).to(dev)
+    return x, ns, nb, wg, bg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 7, 64, 65, 128, 200, 256])
+def test_generator_argmax_routes(cuda, dt, b):
+    """Every batch size on the route its dtype takes: vocab 1000 padded to
+    1096 (not a multiple of the 256-column slab), width 136 (not a multiple
+    of the 64-wide K step); no pad column wins; the same tokens twice."""
+    e, v, v_pad = 136, 1000, 1096
+    args = _gen_inputs(cuda, dt, b, e, v, v_pad, seed=b)
+    plan = dk.gen_argmax_plan(b, e, v_pad, dt)
+    assert plan.route == (1 if dt == torch.bfloat16 else 0)
+    assert plan == _plan_from_library("vct_gen_argmax_plan", dk._DTYPE_CODE[dt], b, e, v_pad,
+                                      -1, n=9)
+    launches = dk.fused_norm_generator_argmax.launches
+    tok = dk.fused_norm_generator_argmax(*args)
+    again = dk.fused_norm_generator_argmax(*args)
+    want = dk.fused_norm_generator_argmax_reference(*args)
+    torch.cuda.synchronize()
+    assert dk.fused_norm_generator_argmax.launches == launches + 2
+    fw = {"norm_s": args[1], "norm_b": args[2], "wg": args[3], "bg": args[4]}
+    _assert_tokens(tok, want, _gaps(args[0], fw))
+    assert torch.equal(tok, again)
+    assert int(tok.max()) < v and int(tok.min()) >= 0
+    if dt == torch.bfloat16:  # the CUDA-core route on the same bfloat16 inputs
+        _assert_tokens(dk._launch_gen_argmax(*args, _route=0), want, _gaps(args[0], fw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [3, 130])
+def test_generator_argmax_tie_across_slabs_goes_to_the_lower_index(cuda, b):
+    """Columns 100, 255, 256 and 900 (three slabs of 256 columns, and the two
+    sides of a slab boundary) carry one weight column and lead the vocab: 100
+    wins; without it 255 beats 256."""
+    x, ns, nb, wg, bg = _gen_inputs(cuda, torch.bfloat16, b, 128, 1000, 1024, seed=11)
+    assert dk.gen_argmax_plan(b, 128, 1024, torch.bfloat16).cols == 256
+    for c in (255, 256, 900):
+        wg[:, c] = wg[:, 100]
+    bg[[100, 255, 256, 900]] = 1e3
+    tok = dk.fused_norm_generator_argmax(x, ns, nb, wg, bg)
+    assert tok.cpu().tolist() == [100] * b
+    bg[100] = 0.0
+    tok = dk.fused_norm_generator_argmax(x, ns, nb, wg, bg)
+    assert tok.cpu().tolist() == [255] * b
+
+
+@pytest.mark.cuda
+def test_generator_argmax_rejects_bad_layouts(cuda):
+    x, ns, nb, wg, bg = _gen_inputs(cuda, torch.bfloat16, 4, 128, 1000, 1024, seed=1)
+    with pytest.raises(ValueError, match="is on cpu"):
+        dk.fused_norm_generator_argmax(x, ns, nb.cpu(), wg, bg)
+    with pytest.raises(TypeError):
+        dk.fused_norm_generator_argmax(x, ns, nb, wg.float(), bg)
+    with pytest.raises(TypeError):
+        dk.fused_norm_generator_argmax(x.half(), ns, nb, wg.half(), bg)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        dk.fused_norm_generator_argmax(x, ns, nb, wg[:, :1004].contiguous(), bg[:1004])
+    with pytest.raises(RuntimeError):  # float32 has no tensor-core route: the launcher refuses
+        dk._launch_gen_argmax(x.float(), ns, nb, wg.float(), bg, _route=1)
+
+
+ONCHIP_SHAPES = [  # (B, Tq, Tk, H, D): ragged in both lengths, the three widths
+    (2, 100, 100, 2, 96), (1, 70, 255, 3, 96), (2, 33, 257, 2, 16), (1, 129, 64, 2, 128),
+    (1, 64, 704, 1, 96)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", [0, 1])
+@pytest.mark.parametrize("bias_kind", [None, "padding", "full"])
+@pytest.mark.parametrize("shape", ONCHIP_SHAPES)
+def test_attention_forward_routes(cuda, route, bias_kind, shape):
+    """The bfloat16 forward on each route at the same shapes, with and without
+    a keep mask, with the statistics the backward reads; two runs, one set of
+    bits."""
+    dt = torch.bfloat16
+    for rate in (0.0, 0.3):
+        q, k, v, bias, keep, _ = _attn_inputs(cuda, dt, shape, bias_kind, rate, seed=5)
+        out, stats = ak._launch_forward(q, k, v, bias, keep, rate, True, route)
+        again, stats2 = ak._launch_forward(q, k, v, bias, keep, rate, True, route)
+        torch.cuda.synchronize()
+        _close(out, ak.fused_attention_trainable_reference(q, k, v, bias, keep, rate), dt)
+        assert torch.equal(out, again) and torch.equal(stats, stats2)
+        logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * ak._scale(q)
+        if bias is not None:
+            logits = logits + bias
+        m = logits.max(dim=-1).values
+        l = torch.exp(logits - m[..., None]).sum(dim=-1)
+        torch.testing.assert_close(stats[..., 0], m, atol=1e-4, rtol=1e-5)
+        torch.testing.assert_close(stats[..., 1], l, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_attention_forward_plan_matches_the_launcher_and_its_boundary(cuda):
+    for dt in (torch.float32, torch.bfloat16):
+        for d in (16, 96, 128):
+            for tk in (1, 100, 256, 704, 705, 768, 769, 1500):
+                for has_keep in (False, True):
+                    plan = ak.attention_forward_plan(tk, d, dt, has_keep)
+                    assert plan == _plan_from_library(
+                        "vct_attn_forward_plan", ak._DTYPE_CODE[dt], tk, d, int(has_keep), -1,
+                        n=6), (dt, d, tk, has_keep)
+    # past the on-chip limit the wrappers run the two-pass route, and asking
+    # for the on-chip route there makes the launcher refuse before any launch
+    shape = (1, 70, 800, 2, 96)
+    q, k, v, bias, keep, do = _attn_inputs(cuda, torch.bfloat16, shape, "padding", 0.3, seed=2)
+    assert ak.attention_forward_plan(800, 96, torch.bfloat16, True).route == 0
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = ak.fused_attention_trainable(*leaves, bias, keep, 0.3)
+    out.backward(do)
+    _close(out, ak.fused_attention_trainable_reference(q, k, v, bias, keep, 0.3),
+           torch.bfloat16)
+    with pytest.raises(RuntimeError):
+        ak._launch_forward(q, k, v, bias, keep, 0.3, True, 1)

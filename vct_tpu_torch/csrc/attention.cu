@@ -24,20 +24,31 @@
 //     slices of a packed QKV projection need no copy); ragged edges are
 //     masked in the kernel; the bias comes with its broadcast strides (0 on
 //     singleton dims), so a [B,1,1,Tk] padding bias is one row per batch;
-//   * forward in two passes over the key tiles: pass 1 the row max m and the
-//     row sum l (online rescale), pass 2 recomputes the logits, forms
+//   * forward, bfloat16 (fwd_onchip_kernel): Q.K^T is computed ONCE. The
+//     float32 logits of a 64-row query tile stay in shared memory between the
+//     sweep that takes the row maximum and sum and the sweep that forms
 //     exp(s - m) / l, applies the keep mask, rounds the weights to v's dtype
-//     and accumulates P.V in float32: the reference's rounding points;
+//     and accumulates P.V in float32: the reference's rounding points. K and
+//     V tiles come through a double-buffered cp.async ring, the products are
+//     mma.sync.m16n8k16 with ldmatrix, O lives in registers for the whole key
+//     loop and P feeds the second product from registers. mma.sync and not
+//     wgmma: a cell is a few MFLOP against tens of KB, bound by bytes, and
+//     with 16 query rows per warp P never has to pass through shared memory
+//     in the operand layout a wgmma descriptor wants;
+//   * forward, float32, and bfloat16 when 64 rows of Tk logits do not fit a
+//     block's shared memory (forward_plan states the limit): fwd_kernel, two
+//     passes over the key tiles, pass 1 the row max m and the row sum l
+//     (online rescale), pass 2 recomputes the logits. Same rounding points;
 //   * backward without atomics, so the same bits from run to run: one kernel
 //     per query tile (delta = rowsum(P * dP), then dQ), one per key tile
 //     looping over the query tiles (dK, dV). P is recomputed from (m, l),
 //     which the forward saves ([B, H, Tq, 2] float32), never stored;
-//   * products: nvcuda::wmma 16x16x16 bf16 tiles with float32 accumulation
-//     (tile 64), or shared-memory FMA loops for float32 (tile 32). In the
-//     bf16 backward P, dropped P and dS are rounded to bf16 to feed the
+//   * products of the backward and of fwd_kernel: nvcuda::wmma 16x16x16 bf16
+//     tiles with float32 accumulation (tile 64), or shared-memory FMA loops
+//     for float32 (tile 32), accumulators in shared memory between tiles. In
+//     the bf16 backward P, dropped P and dS are rounded to bf16 to feed the
 //     tensor cores (the reference keeps them float32); in float32 nothing is
-//     rounded. Accumulators live in shared memory between tiles. wgmma, TMA,
-//     a software pipeline and a single-pass backward are later work.
+//     rounded. The backward recomputes P from the (m, l) either forward saves.
 //
 // Masks are large finite negatives (-1e30): a fully masked row gives a
 // uniform distribution over the Tk real keys.
@@ -50,6 +61,8 @@
 
 #include <type_traits>
 
+#include "mma_common.cuh"
+
 namespace {
 
 using namespace nvcuda;
@@ -57,7 +70,6 @@ typedef __nv_bfloat16 bf16;
 
 constexpr int THREADS = 256;
 constexpr int MAX_D = 128;
-constexpr int SMEM_LIMIT = 232448;
 
 template <typename T> struct Cfg;
 template <> struct Cfg<bf16> {
@@ -324,6 +336,324 @@ template <typename T> __global__ void __launch_bounds__(THREADS) fwd_kernel(Para
   store_rows<T>(static_cast<T*>(p.out), os, ALD, b, h, p.h, q0, p.tq, p.d);
 }
 
+// ---- forward with the logits on chip (bfloat16) ---------------------------------------
+//
+// One block is 64 query rows of one (batch, head) cell: 8 warps, warp (rg, kh)
+// owning the 16 rows of row group rg against key half kh (keys kh * 32 .. +31
+// of every 64-key tile). Two warps per row group double the warps an SM
+// holds at the same shared memory, which is what hides the latencies here.
+// The flat sequence Q tile, K tiles 0..n-1, V tiles 0..n-1 (each V tile with
+// its 64 x 64 keep bytes) runs through a two-stage cp.async ring, so the next
+// tile is in flight while this one is multiplied and V tile 0 while the rows
+// are reduced. Q.K^T is computed once: every thread parks the scaled, biased
+// logits of its own accumulator fragments in shared memory (a spill area that
+// no other thread reads, laid out lane-contiguous, so it needs no barrier and
+// has no bank conflict). The row maximum and sum meet across the two key
+// halves through a few floats of shared memory; the parked logits become e =
+// exp(s - m), and the second sweep forms e * (1 / l), applies the keep mask,
+// rounds to bfloat16 where the reference rounds and feeds the result to P.V
+// as the A operand straight from registers (two neighbouring accumulator
+// tiles are one A fragment). O stays in mma.sync fragments for the whole key
+// loop; at the end the kh = 1 warps hand their partial O to their kh = 0
+// partners, which round, stage their 16 rows and store 16 bytes a thread.
+
+constexpr int OC_THREADS = 256;
+constexpr int OC_TQ = 64, OC_TK = 64, OC_STAGES = 2;
+constexpr int OC_KEEP_LD = OC_TK + 16;  // 80-byte rows: 8 rows on 8 bank groups
+
+__host__ __device__ constexpr int oc_stage_bytes(int d) { return OC_TK * (d + 8) * 2; }
+__host__ __device__ constexpr int oc_key_tiles(int tk) { return (tk + OC_TK - 1) / OC_TK; }
+__host__ __device__ constexpr size_t oc_smem_bytes(int tk, int d, bool keep) {
+  return (size_t)OC_TQ * oc_key_tiles(tk) * OC_TK * sizeof(float) +
+         (size_t)OC_STAGES * (oc_stage_bytes(d) + (keep ? OC_TQ * OC_KEEP_LD : 0));
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+template <int DT>  // head width / 16
+__global__ void __launch_bounds__(OC_THREADS, 2) fwd_onchip_kernel(Params p) {
+  constexpr int D = DT * 16, LD = D + 8, STAGE = oc_stage_bytes(D), NS = OC_STAGES;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ float row_max[2][OC_TQ], row_sum[2][OC_TQ];  // per key half
+  const int n_tiles = oc_key_tiles(p.tk), nt4 = n_tiles * 4;
+  float2* parked = reinterpret_cast<float2*>(smem);
+  unsigned char* ring = smem + (size_t)OC_TQ * n_tiles * OC_TK * sizeof(float);
+  unsigned char* keeps = ring + NS * STAGE;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, q = lane & 3;
+  const int rg = warp & 3, kh = warp >> 2;
+  const int q0 = blockIdx.x * OC_TQ, h = blockIdx.y, b = blockIdx.z;
+  const bf16* qg = static_cast<const bf16*>(p.q) + (int64_t)b * p.q_sb + (int64_t)h * p.q_sh;
+  const bf16* kg = static_cast<const bf16*>(p.k) + (int64_t)b * p.k_sb + (int64_t)h * p.k_sh;
+  const bf16* vg = static_cast<const bf16*>(p.v) + (int64_t)b * p.v_sb + (int64_t)h * p.v_sh;
+  const unsigned char* keep_cell =
+      p.keep ? p.keep + ((int64_t)b * p.h + h) * p.tq * (int64_t)p.tk : nullptr;
+  const bool keep_fast = (p.tk & 15) == 0;  // every row segment on a 16-byte boundary
+
+  // item 0 is the Q tile, 1..n the K tiles, n+1..2n the V tiles; item i goes
+  // to stage i % NS
+  auto fetch = [&](int item) {
+    const bf16* src = qg;
+    int stride = p.q_st, t0 = q0, t_total = p.tq;
+    if (item > n_tiles) {
+      src = vg; stride = p.v_st; t0 = (item - n_tiles - 1) * OC_TK; t_total = p.tk;
+    } else if (item > 0) {
+      src = kg; stride = p.k_st; t0 = (item - 1) * OC_TK; t_total = p.tk;
+    }
+    bf16* dst = reinterpret_cast<bf16*>(ring + (item % NS) * STAGE);
+#pragma unroll
+    for (int i = 0; i < (DT + 1) / 2; ++i) {  // 64 rows x D / 8 pieces over 256 threads
+      const int idx = tid + i * OC_THREADS;
+      if (idx < OC_TK * 2 * DT) {
+        const int row = idx / (2 * DT), seg = idx - row * (2 * DT);
+        const bool ok = t0 + row < t_total;
+        cp_async16(dst + row * LD + seg * 8,
+                   src + (ok ? (int64_t)(t0 + row) * stride + seg * 8 : 0), ok);
+      }
+    }
+    if (item > n_tiles && keep_cell) {
+      unsigned char* kd = keeps + (item % NS) * (OC_TQ * OC_KEEP_LD);
+      if (keep_fast) {  // 64 rows x 4 pieces of 16 bytes: one a thread
+        const int row = tid >> 2, seg = tid & 3;
+        const bool ok = q0 + row < p.tq && t0 + seg * 16 < p.tk;
+        cp_async16(kd + row * OC_KEEP_LD + seg * 16,
+                   keep_cell + (ok ? (int64_t)(q0 + row) * p.tk + t0 + seg * 16 : 0), ok);
+      } else {
+        for (int idx = tid; idx < OC_TQ * OC_TK; idx += OC_THREADS) {
+          const int row = idx >> 6, col = idx & 63;
+          const bool ok = q0 + row < p.tq && t0 + col < p.tk;
+          kd[row * OC_KEEP_LD + col] = ok ? keep_cell[(int64_t)(q0 + row) * p.tk + t0 + col] : 0;
+        }
+      }
+    }
+  };
+  // the item has landed and every warp is done with the one before it, whose
+  // stage the item NS - 1 ahead then takes
+  auto turn = [&](int item) {
+    cp_async_wait<NS - 2>();
+    __syncthreads();
+    if (item + NS - 1 <= 2 * n_tiles) fetch(item + NS - 1);
+    cp_async_commit();
+  };
+
+  for (int item = 0; item < NS - 1; ++item) {
+    if (item <= 2 * n_tiles) fetch(item);
+    cp_async_commit();
+  }
+  turn(0);
+  uint32_t qf[DT][4];
+  {
+    const bf16* qs = reinterpret_cast<const bf16*>(ring);
+#pragma unroll
+    for (int kk = 0; kk < DT; ++kk)
+      ldmatrix_x4(qf[kk], qs + (rg * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
+  }
+
+  // this thread's two rows (g and g + 8 of the row group's 16); a row past Tq
+  // reads the last row's bias and is never stored
+  const int r_lo = q0 + rg * 16 + g, r_hi = r_lo + 8;
+  const float* bias_lo = nullptr;
+  const float* bias_hi = nullptr;
+  if (p.bias) {
+    const float* cell = p.bias + (int64_t)b * p.bias_sb + (int64_t)h * p.bias_sh;
+    bias_lo = cell + (int64_t)min(r_lo, p.tq - 1) * p.bias_sq;
+    bias_hi = cell + (int64_t)min(r_hi, p.tq - 1) * p.bias_sq;
+  }
+  const bool bias_rows = p.bias && p.bias_sq != 0;  // else one bias row serves every query row
+  float2* mine = parked + (size_t)warp * nt4 * 64 + lane;  // [nt4][2][32 lanes]
+
+  // sweep 1: the logits, once; row maxima
+  float m_lo = -INFINITY, m_hi = -INFINITY;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int c0 = t * OC_TK + kh * 32 + 2 * q;  // this thread's first key of the tile
+    // this tile's bias, asked for before the barrier and the products so that
+    // its latency hides behind them
+    float bl[4][2], bh[4][2];
+    if (bias_lo) {
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int c = min(c0 + nt * 8 + j, p.tk - 1);
+          bl[nt][j] = bias_lo[c * p.bias_sk];
+          bh[nt][j] = bias_rows ? bias_hi[c * p.bias_sk] : bl[nt][j];
+        }
+    }
+    turn(t + 1);
+    const bf16* ks = reinterpret_cast<const bf16*>(ring + ((t + 1) % NS) * STAGE) + kh * 32 * LD;
+    float sacc[4][4];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sacc[nt][j] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DT; ++kk)
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        uint32_t kb[4];  // keys np*16.., widths kk*16..: (b0, b1) of two n8 tiles
+        ldmatrix_x4(kb, ks + (np * 16 + (lane >> 4) * 8 + (lane & 7)) * LD + kk * 16 +
+                            ((lane >> 3) & 1) * 8);
+        mma_bf16_16816(sacc[2 * np], qf[kk], kb[0], kb[1]);
+        mma_bf16_16816(sacc[2 * np + 1], qf[kk], kb[2], kb[3]);
+      }
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      float s[4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        if (c0 + nt * 8 + j < p.tk) {
+          s[j] = sacc[nt][j] * p.scale;
+          s[2 + j] = sacc[nt][2 + j] * p.scale;
+          if (bias_lo) {
+            s[j] += bl[nt][j];
+            s[2 + j] += bh[nt][j];
+          }
+        } else {
+          s[j] = s[2 + j] = -INFINITY;  // past the last key: weight 0
+        }
+      }
+      m_lo = fmaxf(m_lo, fmaxf(s[0], s[1]));
+      m_hi = fmaxf(m_hi, fmaxf(s[2], s[3]));
+      mine[((t * 4 + nt) * 2) * 32] = make_float2(s[0], s[1]);
+      mine[((t * 4 + nt) * 2 + 1) * 32] = make_float2(s[2], s[3]);
+    }
+  }
+
+  // the rows' statistics, over both key halves; the parked logits become
+  // e = exp(s - m). A half whose keys all lie past Tk holds -inf and 0.
+  m_lo = quad_max(m_lo);
+  m_hi = quad_max(m_hi);
+  if (q == 0) {
+    row_max[kh][rg * 16 + g] = m_lo;
+    row_max[kh][rg * 16 + g + 8] = m_hi;
+  }
+  __syncthreads();
+  m_lo = fmaxf(row_max[0][rg * 16 + g], row_max[1][rg * 16 + g]);
+  m_hi = fmaxf(row_max[0][rg * 16 + g + 8], row_max[1][rg * 16 + g + 8]);
+  float l_lo = 0.f, l_hi = 0.f;
+#pragma unroll 4
+  for (int i = 0; i < nt4; ++i) {
+    float2 a = mine[(i * 2) * 32], c = mine[(i * 2 + 1) * 32];
+    a.x = expf(a.x - m_lo); a.y = expf(a.y - m_lo);
+    c.x = expf(c.x - m_hi); c.y = expf(c.y - m_hi);
+    l_lo += a.x + a.y;
+    l_hi += c.x + c.y;
+    mine[(i * 2) * 32] = a;
+    mine[(i * 2 + 1) * 32] = c;
+  }
+  l_lo = quad_sum(l_lo);
+  l_hi = quad_sum(l_hi);
+  if (q == 0) {
+    row_sum[kh][rg * 16 + g] = l_lo;
+    row_sum[kh][rg * 16 + g + 8] = l_hi;
+  }
+  __syncthreads();
+  l_lo = row_sum[0][rg * 16 + g] + row_sum[1][rg * 16 + g];
+  l_hi = row_sum[0][rg * 16 + g + 8] + row_sum[1][rg * 16 + g + 8];
+  if (p.stats && q == 0 && kh == 0) {
+    float* st = p.stats + ((int64_t)b * p.h + h) * p.tq * 2;
+    if (r_lo < p.tq) { st[r_lo * 2] = m_lo; st[r_lo * 2 + 1] = l_lo; }
+    if (r_hi < p.tq) { st[r_hi * 2] = m_hi; st[r_hi * 2 + 1] = l_hi; }
+  }
+  float w_lo = 1.0f / l_lo, w_hi = 1.0f / l_hi;  // one reciprocal per row
+  if (keep_cell) { w_lo /= p.keep_denom; w_hi /= p.keep_denom; }
+
+  // sweep 2: the weights, rounded to bfloat16, times v
+  float oacc[2 * DT][4];
+#pragma unroll
+  for (int nt = 0; nt < 2 * DT; ++nt)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) oacc[nt][j] = 0.f;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int item = n_tiles + 1 + t;
+    turn(item);
+    const bf16* vs = reinterpret_cast<const bf16*>(ring + (item % NS) * STAGE) + kh * 32 * LD;
+    const unsigned char* kt = keeps + (item % NS) * (OC_TQ * OC_KEEP_LD) +
+                              (rg * 16 + g) * OC_KEEP_LD + kh * 32 + 2 * q;
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      if (t * OC_TK + kh * 32 + kk * 16 >= p.tk) break;  // the rest is past the last key
+      const float2 e0 = mine[((t * 4 + 2 * kk) * 2) * 32];
+      const float2 e1 = mine[((t * 4 + 2 * kk) * 2 + 1) * 32];
+      const float2 e2 = mine[((t * 4 + 2 * kk + 1) * 2) * 32];
+      const float2 e3 = mine[((t * 4 + 2 * kk + 1) * 2 + 1) * 32];
+      float w[8] = {e0.x * w_lo, e0.y * w_lo, e1.x * w_hi, e1.y * w_hi,
+                    e2.x * w_lo, e2.y * w_lo, e3.x * w_hi, e3.y * w_hi};
+      if (keep_cell) {
+        const unsigned short k0 = *reinterpret_cast<const unsigned short*>(kt + kk * 16);
+        const unsigned short k1 =
+            *reinterpret_cast<const unsigned short*>(kt + 8 * OC_KEEP_LD + kk * 16);
+        const unsigned short k2 = *reinterpret_cast<const unsigned short*>(kt + kk * 16 + 8);
+        const unsigned short k3 =
+            *reinterpret_cast<const unsigned short*>(kt + 8 * OC_KEEP_LD + kk * 16 + 8);
+        if (!(k0 & 0xff)) w[0] = 0.f;
+        if (!(k0 >> 8)) w[1] = 0.f;
+        if (!(k1 & 0xff)) w[2] = 0.f;
+        if (!(k1 >> 8)) w[3] = 0.f;
+        if (!(k2 & 0xff)) w[4] = 0.f;
+        if (!(k2 >> 8)) w[5] = 0.f;
+        if (!(k3 & 0xff)) w[6] = 0.f;
+        if (!(k3 >> 8)) w[7] = 0.f;
+      }
+      const uint32_t pa[4] = {pack_bf16(w[0], w[1]), pack_bf16(w[2], w[3]), pack_bf16(w[4], w[5]),
+                              pack_bf16(w[6], w[7])};
+#pragma unroll
+      for (int np = 0; np < DT; ++np) {
+        uint32_t vb[4];  // keys kk*16.., widths np*16..: (b0, b1) of two n8 tiles
+        ldmatrix_x4_trans(vb, vs + (kk * 16 + (lane & 15)) * LD + np * 16 + (lane >> 4) * 8);
+        mma_bf16_16816(oacc[2 * np], pa, vb[0], vb[1]);
+        mma_bf16_16816(oacc[2 * np + 1], pa, vb[2], vb[3]);
+      }
+    }
+  }
+
+  // O = the two key halves' sums. Nothing is in flight into the ring any
+  // more; once every warp is done with it, the kh = 1 warp of a row group
+  // leaves its fragments there, lane-contiguous, for the same lanes of its
+  // kh = 0 partner, which then stages its 16 rows in the same place.
+  __syncthreads();
+  float2* handoff = reinterpret_cast<float2*>(ring) + (size_t)rg * (2 * DT * 2 * 32) + lane;
+  if (kh == 1) {
+#pragma unroll
+    for (int nt = 0; nt < 2 * DT; ++nt) {
+      handoff[(nt * 2) * 32] = make_float2(oacc[nt][0], oacc[nt][1]);
+      handoff[(nt * 2 + 1) * 32] = make_float2(oacc[nt][2], oacc[nt][3]);
+    }
+  }
+  __syncthreads();
+  if (kh == 1) return;
+#pragma unroll
+  for (int nt = 0; nt < 2 * DT; ++nt) {
+    const float2 a = handoff[(nt * 2) * 32], c = handoff[(nt * 2 + 1) * 32];
+    oacc[nt][0] += a.x; oacc[nt][1] += a.y;
+    oacc[nt][2] += c.x; oacc[nt][3] += c.y;
+  }
+  __syncwarp();
+  bf16* os = reinterpret_cast<bf16*>(handoff - lane);  // 16 x LD bf16 fit the 64 x D bytes
+#pragma unroll
+  for (int nt = 0; nt < 2 * DT; ++nt) {
+    *reinterpret_cast<uint32_t*>(os + g * LD + nt * 8 + 2 * q) = pack_bf16(oacc[nt][0], oacc[nt][1]);
+    *reinterpret_cast<uint32_t*>(os + (g + 8) * LD + nt * 8 + 2 * q) =
+        pack_bf16(oacc[nt][2], oacc[nt][3]);
+  }
+  __syncwarp();
+  bf16* og = static_cast<bf16*>(p.out);
+  for (int idx = lane; idx < 16 * 2 * DT; idx += 32) {
+    const int row = idx / (2 * DT), seg = idx - row * (2 * DT);
+    const int tq_row = q0 + rg * 16 + row;
+    if (tq_row < p.tq)
+      *reinterpret_cast<uint4*>(og + (((int64_t)b * p.tq + tq_row) * p.h + h) * D + seg * 8) =
+          *reinterpret_cast<const uint4*>(os + row * LD + seg * 8);
+  }
+}
+
 // ---- backward, per query tile: delta and dQ -------------------------------------------
 
 template <typename T> __global__ void __launch_bounds__(THREADS) bwd_dq_kernel(Params p) {
@@ -494,10 +824,67 @@ int launch_one(K kernel, const Params& p, int tiles, size_t smem, cudaStream_t s
   return (int)cudaGetLastError();
 }
 
-template <typename T> int launch_forward(const Params& p, cudaStream_t st) {
-  constexpr int TILE = Cfg<T>::TILE;
-  const Lay<T> lay{p.d};
-  return launch_one(fwd_kernel<T>, p, (p.tq + TILE - 1) / TILE, lay.total(2, 1, 1, 1), st);
+// The forward's launch plan: {route, query rows of a block, keys of a tile,
+// ring stages, dynamic shared memory, threads}. Route 1 keeps the logits of a
+// query tile on chip (bfloat16 only, and only while 64 rows of Tk logits, the
+// K/V ring and the keep tiles fit the 232,448 bytes a block may have: Tk up to
+// 768 at D = 96 without a keep mask, 704 with one). Route 0 is the two-pass
+// kernel: every float32 call, and bfloat16 past that limit. ``route`` -1 asks
+// for the rule; 0 or 1 asks for that route, and 1 fails where it does not fit.
+struct FwdPlan {
+  int route, tile_q, tile_k, stages, smem, threads;
+};
+
+template <typename T> FwdPlan two_pass_plan(int d) {
+  const Lay<T> lay{d};
+  return {0, Cfg<T>::TILE, Cfg<T>::TILE, 1, (int)lay.total(2, 1, 1, 1), THREADS};
+}
+
+bool forward_plan(int dtype, int tk, int d, bool keep, int route, FwdPlan* out) {
+  const bool fits = dtype == 1 && oc_smem_bytes(tk, d, keep) <= (size_t)SMEM_LIMIT;
+  if (route > 1 || (route == 1 && !fits)) return false;
+  if (route == 1 || (route < 0 && fits))
+    *out = {1, OC_TQ, OC_TK, OC_STAGES, (int)oc_smem_bytes(tk, d, keep), OC_THREADS};
+  else
+    *out = dtype == 1 ? two_pass_plan<bf16>(d) : two_pass_plan<float>(d);
+  return true;
+}
+
+template <int DT> int launch_onchip(const Params& p, const FwdPlan& plan, cudaStream_t st) {
+  auto kernel = fwd_onchip_kernel<DT>;
+  // the attribute is asked for once per device and size, not once per launch
+  static int granted[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= 64 || plan.smem > granted[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, plan.smem);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < 64) granted[dev] = plan.smem;
+  }
+  kernel<<<dim3((p.tq + OC_TQ - 1) / OC_TQ, p.h, p.b), OC_THREADS, plan.smem, st>>>(p);
+  return (int)cudaGetLastError();
+}
+
+int launch_forward(int dtype, const Params& p, int route, cudaStream_t st) {
+  FwdPlan plan;
+  if (!forward_plan(dtype, p.tk, p.d, p.keep != nullptr, route, &plan))
+    return (int)cudaErrorInvalidValue;
+  if (plan.route == 0) {
+    const int tiles = (p.tq + plan.tile_q - 1) / plan.tile_q;
+    return dtype == 1 ? launch_one(fwd_kernel<bf16>, p, tiles, plan.smem, st)
+                      : launch_one(fwd_kernel<float>, p, tiles, plan.smem, st);
+  }
+  switch (p.d / 16) {
+    case 1: return launch_onchip<1>(p, plan, st);
+    case 2: return launch_onchip<2>(p, plan, st);
+    case 3: return launch_onchip<3>(p, plan, st);
+    case 4: return launch_onchip<4>(p, plan, st);
+    case 5: return launch_onchip<5>(p, plan, st);
+    case 6: return launch_onchip<6>(p, plan, st);
+    case 7: return launch_onchip<7>(p, plan, st);
+    default: return launch_onchip<8>(p, plan, st);
+  }
 }
 
 template <typename T> int launch_backward(const Params& p, cudaStream_t st) {
@@ -517,11 +904,14 @@ extern "C" {
 // that dtype with unit stride on D and the element strides given (batch,
 // time, head); bias float32 with its four broadcast strides, or null; keep
 // bytes [B, H, Tq, Tk] contiguous, or null (then keep_denom is unused); out
-// [B, Tq, H, D] contiguous; stats float32 [B, H, Tq, 2] or null.
+// [B, Tq, H, D] contiguous; stats float32 [B, H, Tq, 2] or null; route -1 (by
+// the shape rule of forward_plan), which is what the package's wrappers always
+// pass; 0 or 1 are for checks that time or test one route against the other.
 
 int vct_attn_forward(int dtype, const void* q, const void* k, const void* v, const void* bias,
                      const void* keep, void* out, void* stats, int b, int h, int tq, int tk,
-                     int d, const int* strides, float scale, float keep_denom, void* stream) {
+                     int d, const int* strides, float scale, float keep_denom, int route,
+                     void* stream) {
   Params p = {};
   p.q = q; p.k = k; p.v = v; p.bias = (const float*)bias; p.keep = (const unsigned char*)keep;
   p.out = out; p.stats = (float*)stats;
@@ -534,7 +924,18 @@ int vct_attn_forward(int dtype, const void* q, const void* k, const void* v, con
   p.scale = scale; p.keep_denom = keep_denom;
   if (!shape_ok(p)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  return dtype == 1 ? launch_forward<bf16>(p, st) : launch_forward<float>(p, st);
+  return launch_forward(dtype, p, route, st);
+}
+
+// The plan vct_attn_forward follows for such a call: 6 ints, see FwdPlan.
+int vct_attn_forward_plan(int dtype, int tk, int d, int has_keep, int route, int* out) {
+  if (tk < 1 || d < 16 || d > MAX_D || d % 16) return (int)cudaErrorInvalidValue;
+  FwdPlan plan;
+  if (!forward_plan(dtype, tk, d, has_keep != 0, route, &plan)) return (int)cudaErrorInvalidValue;
+  const int vals[6] = {plan.route, plan.tile_q, plan.tile_k, plan.stages, plan.smem,
+                       plan.threads};
+  for (int i = 0; i < 6; ++i) out[i] = vals[i];
+  return 0;
 }
 
 // g = dO [B, Tq, H, D] with its strides; stats from the forward; delta float32

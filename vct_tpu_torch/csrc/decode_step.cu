@@ -4,7 +4,8 @@
 // Replaces (vct_tpu/ops/pallas_decode.py):
 //   * fused_layers_step   (:516, _layers_step_kernel :373 via _stack_layers :322)
 //   * fused_whole_step    (:581, _whole_step_kernel :397)
-//   * fused_norm_generator_argmax (:811, _gen_argmax_kernel :783)
+//   * (fused_norm_generator_argmax :811 on its own is gen_argmax.cu; the
+//     whole-step kernel runs the same projection as its last phase)
 //   * fused_layer_step    (:211, _layer_step_kernel :155): decode_step_kernel
 //     at NL = 1 over one layer's un-stacked weights and [L, B, E] caches
 //
@@ -35,9 +36,10 @@
 //     on (order-preserving float bits << 32) | (0xFFFFFFFF - index): the
 //     largest logit wins and, among equal logits, the lowest index (first-win,
 //     like the reference's running argmax).
-//   * Products are written by hand with fp32 accumulation (no cuBLAS). Making
-//     them fast (wgmma, TMA, CUDA graphs over the per-token loop) is later
-//     work.
+//   * Products are written by hand with fp32 accumulation on the CUDA cores
+//     (no cuBLAS): at the serving batch a step is a chain of matrix-vector
+//     products bound by weight bytes. The standalone generator + argmax, which
+//     runs at B > 64, has a tensor-core kernel of its own (gen_argmax.cu).
 //
 // Rounding points follow the reference exactly: x in the compute dtype
 // between layers; q, products and the residual stream into each LayerNorm in
@@ -66,45 +68,6 @@ __global__ void __launch_bounds__(NTHREADS, 2) decode_step_kernel(StepArgs a) {
 }
 
 // ---------------------------------------------------------------------------
-// standalone final norm + generator + argmax
-// ---------------------------------------------------------------------------
-
-#define GEN_TILES_PER_BLOCK 8
-
-// grid (ceil(column tiles / GEN_TILES_PER_BLOCK), batch tiles); each block
-// normalises its BT rows once and sweeps its column tiles.
-template <typename T>
-__global__ void __launch_bounds__(NTHREADS)
-gen_argmax_kernel(const T* x, const float* ns, const float* nb, const T* wg,
-                  const float* bg, u64* keys, int B, int E, int V) {
-  extern __shared__ float smem[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* xs = smem;
-  float* red = smem + BT * E;
-  const int b = blockIdx.y * BT + warp;
-  if (b < B) {
-    warp_layernorm<T, T>(x + (size_t)b * E, E, ns, nb, false, xs + warp * E, nullptr);
-  } else {
-    for (int k = lane; k < E; k += 32) xs[warp * E + k] = 0.f;
-  }
-  __syncthreads();
-  const int n_ct = (V + TN - 1) / TN;
-  const int ct0 = blockIdx.x * GEN_TILES_PER_BLOCK;
-  for (int ct = ct0; ct < min(ct0 + GEN_TILES_PER_BLOCK, n_ct); ++ct) {
-    float v = matvec_tile<T>(xs, E, wg, V, ct, red);
-    const int n = ct * TN + lane;
-    const bool ok = b < B && n < V;
-    u64 key = warp_max_u64(ok ? argmax_key(v + bg[n], n) : 0ull);
-    if (lane == 0 && b < B) atomicMax(keys + b, key);
-  }
-}
-
-__global__ void keys_to_tokens_kernel(const u64* keys, int* tok, int B) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b < B) tok[b] = key_index(keys[b]);
-}
-
-// ---------------------------------------------------------------------------
 // host entry points (plain C, bound with ctypes)
 // ---------------------------------------------------------------------------
 
@@ -124,34 +87,6 @@ int vct_decode_step(int dtype, void* const* t, int B, int E, int H, int F, int N
   const size_t smem = step_smem_bytes(E, F);
   return (int)(dtype == 1 ? launch_cooperative(decode_step_kernel<__nv_bfloat16>, a, smem, st)
                           : launch_cooperative(decode_step_kernel<float>, a, smem, st));
-}
-
-// keys must hold zeros on entry (the wrapper allocates them that way).
-int vct_gen_argmax(int dtype, const void* x, const void* ns, const void* nb, const void* wg,
-                   const void* bg, void* keys, void* tok, int B, int E, int V, void* stream) {
-  if (E % 8 || V % 8) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const size_t smem = sizeof(float) * ((size_t)BT * E + (size_t)NWARPS * BT * TN);
-  const int n_ct = (V + TN - 1) / TN;
-  dim3 grid((n_ct + GEN_TILES_PER_BLOCK - 1) / GEN_TILES_PER_BLOCK, (B + BT - 1) / BT);
-  cudaError_t err;
-  if (dtype == 1) {
-    auto k = gen_argmax_kernel<__nv_bfloat16>;
-    if ((err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)))
-      return (int)err;
-    k<<<grid, NTHREADS, smem, st>>>((const __nv_bfloat16*)x, (const float*)ns,
-                                    (const float*)nb, (const __nv_bfloat16*)wg,
-                                    (const float*)bg, (u64*)keys, B, E, V);
-  } else {
-    auto k = gen_argmax_kernel<float>;
-    if ((err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)))
-      return (int)err;
-    k<<<grid, NTHREADS, smem, st>>>((const float*)x, (const float*)ns, (const float*)nb,
-                                    (const float*)wg, (const float*)bg, (u64*)keys, B, E, V);
-  }
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  keys_to_tokens_kernel<<<(B + 255) / 256, 256, 0, st>>>((const u64*)keys, (int*)tok, B);
-  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

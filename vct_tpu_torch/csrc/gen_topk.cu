@@ -18,7 +18,7 @@
 // across its sequential vocab tiles; Hopper blocks run in no order, so the
 // reduction has two phases:
 //   1. gen_topk_partial, grid (column blocks, 8-row batch tiles): the loader
-//      and the product of gen_argmax_kernel (LayerNorm with fp32 statistics
+//      and the product of gen_argmax_fma_kernel (LayerNorm with fp32 statistics
 //      kept in fp32, fp32 logits). A block keeps the logits of its 8 rows x
 //      256 columns in shared memory; each warp then takes its row's k best
 //      by k passes of a warp argmax on 64-bit keys (value bits, inverted

@@ -86,8 +86,10 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(lib_path))
     lib.vct_decode_step.argtypes = [_I, _P] + [_I] * 11 + [_P]
     lib.vct_decode_step.restype = _I
-    lib.vct_gen_argmax.argtypes = [_I] + [_P] * 7 + [_I] * 3 + [_P]
+    lib.vct_gen_argmax.argtypes = [_I] + [_P] * 8 + [_I] * 4 + [_P]
     lib.vct_gen_argmax.restype = _I
+    lib.vct_gen_argmax_plan.argtypes = [_I] * 5 + [_IP]
+    lib.vct_gen_argmax_plan.restype = _I
     lib.vct_decode_multi.argtypes = [_I, _P] + [_I] * 18 + [_P]
     lib.vct_decode_multi.restype = _I
     lib.vct_gen_topk_blocks.argtypes = [_I]
@@ -102,8 +104,10 @@ def load_library() -> ctypes.CDLL:
     lib.vct_sce_clipped_stats.restype = _I
     lib.vct_sce_backward.argtypes = [_I] + [_P] * 11 + [_I] * 3 + [_P]
     lib.vct_sce_backward.restype = _I
-    lib.vct_attn_forward.argtypes = [_I] + [_P] * 7 + [_I] * 5 + [_IP, _F, _F, _P]
+    lib.vct_attn_forward.argtypes = [_I] + [_P] * 7 + [_I] * 5 + [_IP, _F, _F, _I, _P]
     lib.vct_attn_forward.restype = _I
+    lib.vct_attn_forward_plan.argtypes = [_I] * 5 + [_IP]
+    lib.vct_attn_forward_plan.restype = _I
     lib.vct_attn_backward.argtypes = [_I] + [_P] * 11 + [_I] * 5 + [_IP, _F, _F, _P]
     lib.vct_attn_backward.restype = _I
     return lib

@@ -6,6 +6,8 @@ from __future__ import annotations
 
 import torch
 
+SMEM_LIMIT = 232448  # bytes of shared memory one block may have on an H100 (csrc/mma_common.cuh)
+
 
 def on_cuda(x: torch.Tensor, name: str) -> bool:
     """False for a CPU tensor (the plain version runs), True for a CUDA

@@ -30,7 +30,10 @@ accumulation), the float32 kernel rounds nothing.
 
 What bounds the kernels on an H100: bytes (q, k, v, o, the bias, the 1-byte
 mask) against 4 * Tq * Tk * D operations per (batch, head) cell forward; see
-``csrc/attention.cu`` for the design.
+``csrc/attention.cu`` for the design. The forward has two routes
+(``attention_forward_plan``): bfloat16 keeps a query tile's logits on chip and
+computes Q.K^T once while they fit a block's shared memory; float32, and
+bfloat16 past that limit, run two passes over the key tiles.
 
 Dispatch: a wrapper given CPU tensors runs the ``*_reference`` version; given
 CUDA tensors it launches the CUDA kernel (``csrc/attention.cu``) or raises.
@@ -43,12 +46,12 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from vct_tpu_torch.ops._checks import SMEM_LIMIT, raise_on, stream
 from vct_tpu_torch.ops._checks import on_cuda as _on_cuda
-from vct_tpu_torch.ops._checks import raise_on, stream
 
 NEG_INF = -1e30
 MAX_D = 128
@@ -144,6 +147,53 @@ def _check(q, k, v, bias, keep, rate: float):
     return b, h, tq, tk, d
 
 
+class ForwardPlan(NamedTuple):
+    """How ``csrc/attention.cu`` launches a forward, field for field what
+    ``vct_attn_forward_plan`` reports. ``route`` 1 keeps the float32 logits of
+    a query tile in shared memory and computes Q.K^T once; ``route`` 0 is the
+    two-pass kernel."""
+    route: int
+    tile_q: int
+    tile_k: int
+    stages: int
+    smem_bytes: int
+    threads: int
+
+
+def _round128(n: int) -> int:
+    return -(-n // 128) * 128
+
+
+def _onchip_bytes(tk: int, d: int, has_keep: bool) -> int:
+    """64 rows of Tk float32 logits (Tk rounded up to whole 64-key tiles), two
+    ring stages of 64 x (d + 8) bfloat16 and, with a keep mask, two 64 x 80
+    byte tiles."""
+    return 64 * -(-tk // 64) * 64 * 4 + 2 * (64 * (d + 8) * 2 + (64 * 80 if has_keep else 0))
+
+
+def attention_forward_plan(tk: int, d: int, dtype, has_keep: bool, route: int = -1
+                           ) -> ForwardPlan:
+    """The launch plan of the forward for Tk keys of width ``d``, as the C
+    launcher forms it: a description for tests and readers, not on the launch
+    path. The shape rule (``route`` -1): bfloat16 takes the on-chip route
+    while its shared memory fits ``SMEM_LIMIT`` (Tk up to 768 at d = 96, 704
+    with a keep mask); float32, and bfloat16 past that, take the two-pass
+    route. 0 or 1 asks for that route; 1 raises where it does not fit."""
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"dtype {dtype}; the kernels take float32 or bfloat16")
+    if tk < 1 or d % 16 or not 16 <= d <= MAX_D:
+        raise ValueError(f"no kernel for Tk={tk}, head width {d}")
+    fits = dtype == torch.bfloat16 and _onchip_bytes(tk, d, has_keep) <= SMEM_LIMIT
+    if route not in (-1, 0, 1) or (route == 1 and not fits):
+        raise ValueError(f"route {route} for Tk={tk}, d={d}, {dtype}")
+    if route == 1 or (route < 0 and fits):
+        return ForwardPlan(1, 64, 64, 2, _onchip_bytes(tk, d, has_keep), 256)
+    tile, pad, size = (64, 8, 2) if dtype == torch.bfloat16 else (32, 4, 4)
+    smem = (2 * _round128(tile * (d + pad) * size) + _round128(tile * (tile + 4) * 4)
+            + _round128(tile * (tile + pad) * size) + _round128(tile * (d + 4) * 4))
+    return ForwardPlan(0, tile, tile, 1, smem, 256)
+
+
 def _strided(t: torch.Tensor) -> torch.Tensor:
     """``t`` as the kernels can read it: unit stride on D, every other stride
     and the start on a 16-byte boundary, offsets within 31 bits; else a
@@ -179,7 +229,10 @@ def _strides(*tensors) -> list:
     return out
 
 
-def _launch_forward(q, k, v, bias, keep, rate: float, want_stats: bool):
+def _launch_forward(q, k, v, bias, keep, rate: float, want_stats: bool, _route: int = -1):
+    """``_route`` -1 leaves the choice to the launcher's rule on the shape, as
+    every caller in the package does; only checks set it, to time or test one
+    route (0 two passes, 1 logits on chip) where the rule takes the other."""
     from vct_tpu_torch.ops._build import load_library
 
     b, h, tq, tk, d = _check(q, k, v, bias, keep, rate)
@@ -195,7 +248,7 @@ def _launch_forward(q, k, v, bias, keep, rate: float, want_stats: bool):
             _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr,
             None if keep is None else keep.data_ptr(), out.data_ptr(),
             None if stats is None else stats.data_ptr(), b, h, tq, tk, d, strides,
-            _scale(q), 1.0 - rate, stream(dev))
+            _scale(q), 1.0 - rate, _route, stream(dev))
     raise_on(err, "vct_attn_forward")
     del bias_view
     return out, stats

@@ -29,19 +29,21 @@ in place; the same tensors are returned.
 
 Dispatch: a wrapper given CPU tensors runs the ``*_reference`` version; given
 CUDA tensors it launches the CUDA kernel (``csrc/decode_step.cu``,
-``csrc/gen_topk.cu``, ``csrc/decode_multi.cu``) or raises.
+``csrc/gen_argmax.cu``, ``csrc/gen_topk.cu``, ``csrc/decode_multi.cu``) or
+raises.
 Each wrapper counts its kernel launches in ``<wrapper>.launches``.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from vct_tpu_torch.ops._checks import expect as _expect
+from vct_tpu_torch.ops._checks import SMEM_LIMIT
 from vct_tpu_torch.ops._checks import on_cuda as _on_cuda
 from vct_tpu_torch.ops._checks import raise_on as _raise_on
 from vct_tpu_torch.ops._checks import stream as _stream
@@ -388,11 +390,70 @@ def fused_whole_step(x, k_cache, v_cache, ck, cv, mem_bias, weights, idx: int, *
     return tok, k_cache, v_cache
 
 
-def fused_norm_generator_argmax(x, norm_scale, norm_bias, wg, bg) -> torch.Tensor:
-    """LayerNorm -> vocab projection -> argmax (first index wins ties) ->
-    token ids [B] int32; pad columns of ``wg`` need a ``NEG_INF`` bias."""
-    if not _on_cuda(x, "fused_norm_generator_argmax"):
-        return fused_norm_generator_argmax_reference(x, norm_scale, norm_bias, wg, bg)
+def split_hi_lo(yn: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """float32 ``yn`` as two bfloat16 parts, ``hi = bf16(yn)`` and ``lo =
+    bf16(yn - hi)``: ``hi + lo`` keeps about 16 mantissa bits of ``yn``, so
+    ``hi @ w + lo @ w`` with float32 accumulation stands for the reference's
+    float32 ``yn @ w`` on bfloat16 tensor cores. The tensor-core route of
+    ``csrc/gen_argmax.cu`` splits the LayerNorm output this way."""
+    hi = yn.to(torch.bfloat16)
+    return hi, (yn - hi.float()).to(torch.bfloat16)
+
+
+class GenArgmaxPlan(NamedTuple):
+    """How ``csrc/gen_argmax.cu`` launches a call, field for field what
+    ``vct_gen_argmax_plan`` reports. ``route`` 1 is the tensor-core route
+    (bfloat16): tiles of ``rows`` batch rows against slabs of ``cols`` vocab
+    columns, K in steps of ``kstep`` through ``stages`` ring stages, scratch
+    of ``b_pad`` rows per part. ``route`` 0 is the CUDA-core route (float32):
+    units of ``rows`` x ``cols``, ``n_tiles`` groups of 8 column tiles."""
+    route: int
+    rows: int
+    cols: int
+    kstep: int
+    stages: int
+    smem_bytes: int
+    m_tiles: int
+    n_tiles: int
+    b_pad: int
+
+
+def gen_argmax_plan(b: int, e: int, v: int, dtype, route: int = -1) -> GenArgmaxPlan:
+    """The launch plan of ``fused_norm_generator_argmax`` for x [b, e] and wg
+    [e, v] of ``dtype``, as the C launcher forms it: a description for tests
+    and readers, not on the launch path. ``route`` -1 picks by the dtype
+    (bfloat16 -> tensor cores, float32 -> CUDA cores); 0 or 1 asks for that
+    route. Raises on what the kernels do not take."""
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"dtype {dtype}; kernels take float32 or bfloat16")
+    if b < 1 or e < 8 or v < 8 or e % 8 or v % 8:
+        raise ValueError(f"B={b}, widths {e}, {v}: B >= 1 and widths that are multiples of 8 "
+                         f"(16-byte weight loads)")
+    if route not in (-1, 0, 1) or (route == 1 and dtype != torch.bfloat16):
+        raise ValueError(f"route {route} for {dtype}")
+    if route < 0:
+        route = 1 if dtype == torch.bfloat16 else 0
+    if route == 1:
+        rows, cols, kstep, stages = (64 if b <= 64 else 128), 256, 64, 3
+        # 1 KB to reach a 1024-byte boundary; per stage the hi and the lo rows
+        # (128 bytes each) and the weight tile (pitch cols + 8); 8 warps' keys
+        smem = 1024 + stages * (2 * rows * 128 + kstep * (cols + 8) * 2) + 8 * rows * 8
+        m_tiles = -(-b // rows)
+        plan = GenArgmaxPlan(1, rows, cols, kstep, stages, smem, m_tiles, -(-v // cols),
+                             m_tiles * rows)
+    else:
+        plan = GenArgmaxPlan(0, 8, 32, 0, 0, 4 * (8 * e + 8 * 8 * 32), -(-b // 8),
+                             -(-(-(-v // 32)) // 8), 0)
+    if plan.smem_bytes > SMEM_LIMIT:
+        raise ValueError(f"width {e} needs {plan.smem_bytes} bytes of shared memory, above "
+                         f"{SMEM_LIMIT}")
+    return plan
+
+
+def _launch_gen_argmax(x, norm_scale, norm_bias, wg, bg, _route: int = -1) -> torch.Tensor:
+    """``_route`` -1 leaves the choice to the launcher's rule on the dtype, as
+    every caller in the package does; only checks set it, to time or test the
+    CUDA-core kernel (0) on bfloat16 inputs."""
     from vct_tpu_torch.ops._build import load_library
 
     if x.dtype not in _DTYPE_CODE:
@@ -407,14 +468,33 @@ def fused_norm_generator_argmax(x, norm_scale, norm_bias, wg, bg) -> torch.Tenso
     _expect(norm_bias, "norm_bias", (e,), torch.float32, dev)
     _expect(wg, "wg", (e, v), x.dtype, dev)
     _expect(bg, "bg", (v,), torch.float32, dev)
-    keys = torch.zeros((b,), dtype=torch.int64, device=dev)  # below every real key
+    tensor_cores = x.dtype == torch.bfloat16 and _route != 0
+    # 64-bit argmax keys (0 is below every real key) and a count of finished
+    # blocks; the tensor-core route zeroes them in its prologue
+    keys = (torch.empty if tensor_cores else torch.zeros)((b + 1,), dtype=torch.int64, device=dev)
     tok = torch.empty((b,), dtype=torch.int32, device=dev)
+    # the LayerNorm output's two bfloat16 parts, written by the kernel's
+    # prologue: whole batch tiles of 64 rows up to B = 64, of 128 above
+    rows = 64 if b <= 64 else 128
+    parts = (torch.empty((2, -(-b // rows) * rows, e), dtype=torch.bfloat16, device=dev)
+             if tensor_cores else None)
     lib = load_library()
     with torch.cuda.device(dev):
         err = lib.vct_gen_argmax(_DTYPE_CODE[x.dtype], x.data_ptr(), norm_scale.data_ptr(),
                                  norm_bias.data_ptr(), wg.data_ptr(), bg.data_ptr(),
-                                 keys.data_ptr(), tok.data_ptr(), b, e, v, _stream(dev))
+                                 keys.data_ptr(), tok.data_ptr(),
+                                 None if parts is None else parts.data_ptr(), b, e, v,
+                                 _route, _stream(dev))
     _raise_on(err, "gen_argmax kernel")
+    return tok
+
+
+def fused_norm_generator_argmax(x, norm_scale, norm_bias, wg, bg) -> torch.Tensor:
+    """LayerNorm -> vocab projection -> argmax (first index wins ties) ->
+    token ids [B] int32; pad columns of ``wg`` need a ``NEG_INF`` bias."""
+    if not _on_cuda(x, "fused_norm_generator_argmax"):
+        return fused_norm_generator_argmax_reference(x, norm_scale, norm_bias, wg, bg)
+    tok = _launch_gen_argmax(x, norm_scale, norm_bias, wg, bg)
     fused_norm_generator_argmax.launches += 1
     return tok
 
