@@ -31,11 +31,17 @@ Phases, each of which must pass:
   5. b128     greedy_generate_fused at B=128 (fused_layers_step +
               fused_norm_generator_argmax) against the module path
   6. loss-kernels  the three fused-loss kernels against their plain versions
-              at N=1984, E=768, V=30522 in bfloat16 (and float32 at N=300):
-              SCE and CE-only, a ragged last row tile, labels in the last
-              partial vocab tile, rows of zero weight; the four loss parts
-              and every gradient through the autograd function against the
-              chunked route
+              at N=1984, E=768, V=30522 in bfloat16 (and float32 at N=300),
+              on the generator as the fused loss passes it (cast, not
+              padded): SCE and CE-only, a ragged last row tile, labels in the
+              last partial vocab tile, rows of zero weight; the four loss
+              parts and every gradient through the autograd function against
+              the chunked route; the bfloat16 statistics kernels (the
+              tensor-core kernel) at N = 256, 1000, 1984 and 4096, V = 1111,
+              3000 and 30522 bare and 30522 padded, E = 768 and 896, against
+              their plain versions and the kernel they replaced, labels
+              outside [0, V), the same bits from two calls, and their launch
+              plan (sce_stats_plan) against the C launcher's
   7. train    a synthetic MSVD-shaped dataset (features, annotations, the
               30522-entry vocab) and configs/msvd.json with only paths and
               the epoch count changed, through vct_tpu_torch.cli.train's
@@ -70,8 +76,9 @@ Phases, each of which must pass:
  11. timings  kernel, plain and library-call times with each kernel's bound,
               ms per token of both decode paths at B=1, 32 and 128,
               captions/s of the server phase, the loss routes at N=1984 and
-              N=7936, ms per train step with the fused loss on and off, ms
-              per caption at B=1 of the per-token loop, u=2, u=4 and the
+              N=7936, the generator's padded copy against the bare cast, ms
+              per train step with the fused loss on and off, ms per caption
+              at B=1 of the per-token loop, u=2, u=4 and the
               sequence kernel, beam-4 against greedy captions/s at eval
               batch 64 with beam's parts apart
 
@@ -114,9 +121,10 @@ Phases, each of which must pass:
 Times: every row of the ``kernels`` line names its ``timer``. ``cuda_events``
 is ``cuda_time``, CUDA events around a Python loop of calls. ``graph_replay``
 is ``device_time`` (the calls captured into a CUDA graph and replayed: the
-device alone), used for the generator + argmax kernel, the attention forward
-and their library calls, because their wrappers' host code outlasts the
-kernels; ``eager_ms`` is the loop's reading of the same call.
+device alone), used for the generator + argmax kernel, the attention forward,
+the two loss statistics kernels (at N=1984 and, in ``*_n4096``, N=4096) and
+their library calls, because their wrappers' host code outlasts the kernels;
+``eager_ms`` is the loop's reading of the same call.
 ``previous_same_run_ms`` is the kernel that a redesign replaced, timed in this
 run on the same inputs by the same timer. ``cold_weight_ms`` replays the
 generator kernel on two copies of the weight in turn (94 MB against 50 MB of
@@ -1558,7 +1566,10 @@ GRAD_REL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 
 def loss_inputs(dev, dt, n, seed, e=LOSS_E, v=LOSS_V):
     """Seeded loss inputs at the generator's shape: some labels in the last,
-    partial vocab tile, some pad labels, rows 8..16 with zero weights."""
+    partial vocab tile, some pad labels, rows 8..16 with zero weights. ``w``
+    and ``b`` are the generator as the fused loss hands it to the kernels
+    (cast, not padded); ``w_pad`` and ``b_pad`` the same padded to a multiple
+    of 512 columns with zero rows and a NEG_INF bias."""
     from vct_tpu_torch.ops import loss_kernels as lk
 
     g = torch.Generator().manual_seed(seed)
@@ -1573,9 +1584,10 @@ def loss_inputs(dev, dt, n, seed, e=LOSS_E, v=LOSS_V):
     rect = (torch.rand((n,), generator=g) > 0.2).float().to(dev)
     keep[8:16] = 0.0
     rect[8:16] = 0.0
-    w, b = lk.pad_generator(wg, bg, dt)
+    w_pad, b_pad = lk.pad_generator(wg, bg, dt)
     return {"x": x, "wg": wg, "bg": bg, "labels": labels, "keep": keep, "rect": rect,
-            "x_dt": x.to(dt).contiguous(), "w": w, "b": b,
+            "x_dt": x.to(dt).contiguous(), "w": wg.to(dt).contiguous(),
+            "b": bg.to(dt).contiguous(), "w_pad": w_pad, "b_pad": b_pad,
             "lab32": labels.to(torch.int32).contiguous()}
 
 
@@ -1683,13 +1695,84 @@ def check_loss_kernels(dev):
                 rel_err(f"linear_sce_parts {name} rce={with_rce} {label}", outs[0][1][i],
                         outs[1][1][i], GRAD_REL[dt])
         say(f"  ok linear_sce_parts {name}: SCE and CE-only, both routes")
+    for name, err in check_stats_kernels(dev).items():
+        errs[name] = max(errs[name], err)
     say(f"  max abs differences {errs}; sce_backward_tiles {bwd}")
     return errs, bwd
 
 
+# (N, E, V, padded): the kernel route's window (256 .. 4096), ragged row
+# tiles, ragged vocabularies and the padded generator of earlier versions
+STATS_SHAPES = [(256, 768, 1111, False), (1000, 896, 3000, False), (1984, 768, LOSS_V, False),
+                (4096, 768, LOSS_V, False), (1984, 768, LOSS_V, True), (4096, 896, 3000, False),
+                (1000, 768, LOSS_V, False)]
+
+
+def check_stats_kernels(dev):
+    """The bfloat16 statistics kernels (the tensor-core kernel, route -1)
+    against their plain versions and against the kernel they replaced (route
+    0) at STATS_SHAPES, with labels in the last partial vocab tile and
+    outside [0, V); two calls give the same bits; ``sce_stats_plan`` against
+    the C launcher's plan."""
+    from vct_tpu_torch.ops import loss_kernels as lk
+
+    dt = torch.bfloat16
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for n, e, v, dtype in itertools.product((1, 31, 256, 1984, 4096, 7936), (128, 768, 896, 1664),
+                                            (30522, 1111), (torch.bfloat16, torch.float32)):
+        for route in ((-1, 0, 1) if dtype == torch.bfloat16 else (-1, 0)):
+            got = library_plan("vct_sce_stats_plan", lk._DTYPE_CODE[dtype], n, e, v, route, sms,
+                               n=9)
+            if got != tuple(lk.sce_stats_plan(n, e, v, dtype, route, sms)):
+                fail(f"sce_stats_plan({n}, {e}, {v}, {dtype}, {route}) disagrees with the "
+                     f"launcher: {got}")
+    errs = {"softmax_stats": 0.0, "clipped_prob_stats": 0.0}
+    for n, e, v, padded in STATS_SHAPES:
+        a = loss_inputs(dev, dt, n, seed=n + e + v, e=e, v=v)
+        x, w, b = a["x_dt"], a["w_pad" if padded else "w"], a["b_pad" if padded else "b"]
+        lab = a["lab32"].clone()
+        lab[6:9] = torch.tensor([-1, v, v + 700], dtype=torch.int32, device=dev)
+        name = f"N={n} E={e} V={v}{' padded' if padded else ''}"
+        with no_plain_on_cuda(f"stats kernels {name}", lk):
+            m, s, zt = lk.softmax_stats(x, w, b, lab)
+            again = lk.softmax_stats(x, w, b, lab)
+            old = lk._launch_softmax_stats(x, w, b, lab, _route=0)
+        m_r, s_r, zt_r = lk.softmax_stats_reference(x, w, b, lab)
+        lse = m_r + torch.log(s_r)
+        with no_plain_on_cuda(f"stats kernels {name}", lk):
+            sa, cnt = lk.clipped_prob_stats(x, w, b, lse)
+            sa2, cnt2 = lk.clipped_prob_stats(x, w, b, lse)
+            sa_o, cnt_o = lk._launch_clipped_prob_stats(x, w, b, lse, _route=0)
+        sa_r, cnt_r = lk.clipped_prob_stats_reference(x, w, b, lse)
+        torch.cuda.synchronize()
+        if not all(torch.equal(p, q) for p, q in zip((m, s, zt, sa, cnt), (*again, sa2, cnt2))):
+            fail(f"stats kernels {name}: two calls gave different bits")
+        if not padded and float(zt[6:9].abs().max()) != 0.0:
+            fail(f"softmax_stats {name}: a label outside [0, V) gave zt {zt[6:9].tolist()}")
+        for label, got in (("", (m, s, zt, sa, cnt)), (" replaced kernel", (*old, sa_o, cnt_o))):
+            err_s = max(max_err(f"softmax_stats{label} {name} lse", got[0] + torch.log(got[1]),
+                                lse, STAT_ATOL[dt]),
+                        max_err(f"softmax_stats{label} {name} zt", got[2], zt_r, ZT_ATOL[dt]))
+            if float((got[2] - zt_r).abs().mean()) > STAT_ATOL[dt]:
+                fail(f"softmax_stats{label} {name}: mean zt difference above {STAT_ATOL[dt]}")
+            err_c = max_err(f"clipped_prob_stats{label} {name} sa", got[3], sa_r, STAT_ATOL[dt])
+            max_err(f"clipped_prob_stats{label} {name} cnt", got[4], cnt_r, 8.0)
+            if not label:
+                errs["softmax_stats"] = max(errs["softmax_stats"], err_s)
+                errs["clipped_prob_stats"] = max(errs["clipped_prob_stats"], err_c)
+                report = f"lse and zt {err_s:.2e}, sa {err_c:.2e}"
+        say(f"  ok stats kernels {name}: {report} from the plain versions; same bits twice; "
+            f"the replaced kernel within the same bounds")
+    return errs
+
+
 def time_loss_kernels(dev, card):
     """name -> {ms, plain_ms, bound_ms, bound_by, library_ms} at the train
-    step's shape, and the routes of linear_sce_parts at N=1984 and N=7936."""
+    step's shape, and the routes of linear_sce_parts at N=1984 and N=7936.
+    The two statistics kernels, the kernel they replaced (route 0) and their
+    library calls are timed by graph replay at N=1984 and N=4096; the
+    backward by CUDA events. The generator's padded copy against the bare
+    cast, by graph replay."""
     import torch.nn.functional as F
 
     from vct_tpu_torch.models.losses import sce_loss_parts
@@ -1700,7 +1783,8 @@ def time_loss_kernels(dev, card):
     a = loss_inputs(dev, dt, LOSS_N, seed=7)
     x, w, b, lab = a["x_dt"], a["w"], a["b"], a["lab32"]
     n, e = x.shape
-    v_pad = w.shape[0]
+    v = w.shape[0]
+    v_pad = lk._round_up(v, lk.BLOCK_V)   # the columns of dz and of the dbg partials
     m, s, zt = lk.softmax_stats(x, w, b, lab)
     lse = (m + torch.log(s)).contiguous()
     sa, _ = lk.clipped_prob_stats(x, w, b, lse)
@@ -1709,18 +1793,9 @@ def time_loss_kernels(dev, card):
         g, g, a["keep"], a["rect"], lse, zt, sa, True))
     bargs = (x, w, b, lse, u, cc, lt, lab)
     long_lab = a["labels"]
-    one_pass = 2.0 * n * e * v_pad
-    fwd_bytes = nbytes(x, w, b, lab) + 3 * 4 * n
+    one_pass = 2.0 * n * e * v
     bwd_bytes = nbytes(x, w, b, lab) + 4 * 4 * n + 4 * n * e + 2 * n * v_pad \
         + 4 * v_pad * ((n + lk.ROW_TILE[dt] - 1) // lk.ROW_TILE[dt])
-
-    def lib_stats():  # the materialised logits, then lse - zt
-        return F.cross_entropy(F.linear(x, w, b).float(), long_lab, reduction="none")
-
-    def lib_clip():
-        p = torch.softmax(F.linear(x, w, b).float(), dim=-1)
-        above = p > 1e-7
-        return torch.where(above, p, 0.0).sum(-1), above.sum(-1)
 
     leaves = [a[k].clone().requires_grad_() for k in ("x", "wg", "bg")]
 
@@ -1746,26 +1821,78 @@ def time_loss_kernels(dev, card):
         dz_dt = dz.to(dt)
         return fl._matmul_f32(dz_dt, w), dz_dt, dz.sum(0)
 
-    for name, kernel, plain, lib, bnd in (
-            ("softmax_stats", lambda: lk.softmax_stats(x, w, b, lab),
-             lambda: lk.softmax_stats_reference(x, w, b, lab), lib_stats,
-             bound_ms(fwd_bytes, one_pass, dt)),
-            ("clipped_prob_stats", lambda: lk.clipped_prob_stats(x, w, b, lse),
-             lambda: lk.clipped_prob_stats_reference(x, w, b, lse), lib_clip,
-             bound_ms(fwd_bytes, one_pass, dt)),
-            ("sce_backward_tiles", lambda: lk.sce_backward_tiles(*bargs),
-             lambda: lk.sce_backward_tiles_reference(*bargs), lib_backward,
-             bound_ms(bwd_bytes, 2 * one_pass, dt))):
-        out[name] = {"ms": cuda_time(kernel, iters=10), "plain_ms": cuda_time(plain, iters=3),
-                     "bound_ms": bnd[0], "bound_by": bnd[1],
-                     "library_ms": cuda_time(lib, iters=10)}
+    # the statistics kernels by graph replay, in turns (kernel, replaced
+    # kernel, library call, then the other way round), at the MSVD step's N
+    # and the long step's
+    for rows in (LOSS_N, 4096):
+        ar = a if rows == LOSS_N else loss_inputs(dev, dt, rows, seed=8)
+        xr, wr, br, labr, lab_r = ar["x_dt"], ar["w"], ar["b"], ar["lab32"], ar["labels"]
+        mr, sr, _ = lk.softmax_stats(xr, wr, br, labr)
+        lse_r = (mr + torch.log(sr)).contiguous()
+
+        def lib_clip(xr=xr, wr=wr, br=br):   # the materialised logits, softmax, masked sums
+            p = torch.softmax(F.linear(xr, wr, br).float(), dim=-1)
+            above = p > 1e-7
+            return torch.where(above, p, 0.0).sum(-1), above.sum(-1)
+
+        calls = {
+            "softmax_stats": {
+                "kernel": lambda: lk.softmax_stats(xr, wr, br, labr),
+                "previous": lambda: lk._launch_softmax_stats(xr, wr, br, labr, _route=0),
+                # the materialised logits, then lse - zt
+                "library": lambda: F.cross_entropy(F.linear(xr, wr, br).float(), lab_r,
+                                                   reduction="none")},
+            "clipped_prob_stats": {
+                "kernel": lambda: lk.clipped_prob_stats(xr, wr, br, lse_r),
+                "previous": lambda: lk._launch_clipped_prob_stats(xr, wr, br, lse_r, _route=0),
+                "library": lib_clip}}
+        bnd = bound_ms(nbytes(xr, wr, br, labr) + 3 * 4 * rows, 2.0 * rows * e * wr.shape[0], dt)
+        sfx = "" if rows == LOSS_N else f"_n{rows}"
+        for name, fns in calls.items():
+            t = {k: [] for k in fns}
+            for order in (list(fns), list(fns)[::-1]):
+                for which in order:
+                    t[which].append(device_time(fns[which], iters=10))
+            row = out.setdefault(name, {"timer": "graph_replay"})
+            row.update({f"ms{sfx}": min(t["kernel"]),
+                        f"previous_same_run_ms{sfx}": min(t["previous"]),
+                        f"library_ms{sfx}": min(t["library"]),
+                        f"bound_ms{sfx}": bnd[0], f"bound_by{sfx}": bnd[1]})
+            if rows == LOSS_N:
+                row["eager_ms"] = cuda_time(fns["kernel"], iters=10)
+    out["softmax_stats"]["plain_ms"] = cuda_time(
+        lambda: lk.softmax_stats_reference(x, w, b, lab), iters=3)
+    out["clipped_prob_stats"]["plain_ms"] = cuda_time(
+        lambda: lk.clipped_prob_stats_reference(x, w, b, lse), iters=3)
+    bnd = bound_ms(bwd_bytes, 2 * one_pass, dt)
+    out["sce_backward_tiles"] = {
+        "ms": cuda_time(lambda: lk.sce_backward_tiles(*bargs), iters=10),
+        "plain_ms": cuda_time(lambda: lk.sce_backward_tiles_reference(*bargs), iters=3),
+        "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": cuda_time(lib_backward, iters=10)}
     for name, t in out.items():
-        say(f"  {name}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+        was = "" if "previous_same_run_ms" not in t else (
+            f" (replaced kernel {t['previous_same_run_ms']:.4f}; N=4096: kernel "
+            f"{t['ms_n4096']:.4f}, replaced {t['previous_same_run_ms_n4096']:.4f}, library "
+            f"{t['library_ms_n4096']:.4f}, bound {t['bound_ms_n4096']:.4f}; host loop "
+            f"{t['eager_ms']:.4f})")
+        say(f"  {name}: kernel {t['ms']:.4f} ms{was}, plain {t['plain_ms']:.4f} ms, bound "
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}), library {t['library_ms']:.4f} ms "
             f"[{card}]")
+    # what the fused loss's forward did to the generator before the kernels
+    # masked the ragged tile themselves, against what it does now
+    gen_t = {"pad": [], "cast": []}
+    gen_calls = {"pad": lambda: lk.pad_generator(a["wg"], a["bg"], dt),
+                 "cast": lambda: (a["wg"].to(dt).contiguous(), a["bg"].to(dt).contiguous())}
+    for order in (("pad", "cast"), ("cast", "pad")):
+        for which in order:
+            gen_t[which].append(device_time(gen_calls[which], iters=10))
+    say(f"  generator [{a['wg'].shape[0]}, {e}] float32 -> bf16: padded copy "
+        f"{min(gen_t['pad']):.4f} ms, bare cast {min(gen_t['cast']):.4f} ms (graph replay) "
+        f"[{card}]")
     say(f"  materialised route (F.linear -> sce_loss_parts) N={n}: forward {mat_fwd:.4f} ms, "
         f"forward+backward {mat_both:.4f} ms [{card}]")
-    report = {"loss_materialised_fwd_ms": mat_fwd, "loss_materialised_fwd_bwd_ms": mat_both}
+    report = {"loss_materialised_fwd_ms": mat_fwd, "loss_materialised_fwd_bwd_ms": mat_both,
+              "generator_pad_ms": min(gen_t["pad"]), "generator_cast_ms": min(gen_t["cast"])}
     # the function under linear_sce_parts with the route given, so that N=7936,
     # outside the dispatch window, can be read on the kernel route too
     for rows in (LOSS_N, 4 * LOSS_N):

@@ -366,16 +366,18 @@ def test_sequence_decode_kernel(cuda, dt, b):
 LN, LE, LV = 300, 128, 1111
 
 
-def _loss_inputs(dev, dt, n=LN, seed=0, zero_rows=True, e=LE):
+def _loss_inputs(dev, dt, n=LN, seed=0, zero_rows=True, e=LE, v=LV, padded=True):
+    """``padded``: the generator padded to a multiple of 512 rows by
+    ``pad_generator``; else as the fused loss passes it (cast only)."""
     from vct_tpu_torch.ops import loss_kernels as lk
 
     g = torch.Generator().manual_seed(seed)
     x = torch.randn((n, e), generator=g).to(dev, dt)
-    wg = (torch.randn((LV, e), generator=g) / e ** 0.5).to(dev)
-    bg = (torch.randn((LV,), generator=g) * 0.1).to(dev)
-    w, b = lk.pad_generator(wg, bg, dt)
-    labels = torch.randint(0, LV, (n,), generator=g).to(dev, torch.int32)
-    labels[:4] = LV - 1   # the last, partial vocab tile
+    wg = (torch.randn((v, e), generator=g) / e ** 0.5).to(dev)
+    bg = (torch.randn((v,), generator=g) * 0.1).to(dev)
+    w, b = lk.pad_generator(wg, bg, dt) if padded else (wg.to(dt), bg.to(dt))
+    labels = torch.randint(0, v, (n,), generator=g).to(dev, torch.int32)
+    labels[:4] = v - 1   # the last, partial vocab tile
     labels[4:8] = 0
     rows = {k: torch.rand((n,), generator=g).to(dev) for k in ("u", "cc", "lt")}
     if zero_rows:
@@ -467,6 +469,78 @@ def test_linear_sce_parts_kernel_route_matches_chunked_route(cuda, dt, with_rce)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,e", [(LN, LE), (33, LE), (LN, 896)])
+def test_loss_backward_kernel_on_the_bare_generator(cuda, dt, n, e):
+    """The generator as the fused loss passes it (V = 1111 rows): the same
+    results, bit for bit, as on its padded copy, and zeros past V."""
+    lk, x, w, b, labels, rows = _loss_inputs(cuda, dt, n=n, seed=70 + n, e=e, padded=False)
+    w_pad, b_pad = lk.pad_generator(w, b, dt)
+    m, s, _ = lk.softmax_stats_reference(x, w, b, labels)
+    lse = m + torch.log(s)
+    vecs = (lse, rows["u"], rows["cc"], rows["lt"], labels)
+    bare = lk.sce_backward_tiles(x, w, b, *vecs)
+    padded = lk.sce_backward_tiles(x, w_pad, b_pad, *vecs)
+    torch.cuda.synchronize()
+    assert bare[1].shape == (n, 1536) and bare[2].shape[1] == 1536
+    for a, p in zip(bare, padded):
+        assert torch.equal(a, p)
+    assert float(bare[1][:, LV:].float().abs().max()) == 0.0
+
+
+STATS_N = [256, 1000, 1984, 4096]
+STATS_V = [(1111, False), (3000, False), (30522, False), (30522, True)]  # True: padded to 30720
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e", [768, 896])
+@pytest.mark.parametrize("v,padded", STATS_V)
+@pytest.mark.parametrize("n", STATS_N)
+def test_stats_kernels_against_plain_and_replaced_kernel(cuda, n, v, padded, e):
+    """The bfloat16 statistics kernels (the tensor-core kernel) against their
+    plain versions and against the kernel they replaced (route 0), with
+    labels in the last partial vocab tile and outside [0, V); two calls give
+    the same bits. Tolerances of ``chip_smoke.py`` (STAT_ATOL, ZT_ATOL)."""
+    dt = torch.bfloat16
+    lk, x, w, b, labels, _ = _loss_inputs(cuda, dt, n=n, seed=n + v, e=e, v=v, padded=padded)
+    labels[4:7] = torch.tensor([-1, v, v + 700], dtype=torch.int32, device=cuda)
+    m, s, zt = lk.softmax_stats(x, w, b, labels)
+    again = lk.softmax_stats(x, w, b, labels)
+    m_o, s_o, zt_o = lk._launch_softmax_stats(x, w, b, labels, _route=0)
+    m_r, s_r, zt_r = lk.softmax_stats_reference(x, w, b, labels)
+    lse = m_r + torch.log(s_r)
+    sa, cnt = lk.clipped_prob_stats(x, w, b, lse)
+    sa2, cnt2 = lk.clipped_prob_stats(x, w, b, lse)
+    sa_o, cnt_o = lk._launch_clipped_prob_stats(x, w, b, lse, _route=0)
+    sa_r, cnt_r = lk.clipped_prob_stats_reference(x, w, b, lse)
+    torch.cuda.synchronize()
+    for a, a2 in zip((m, s, zt, sa, cnt), (*again, sa2, cnt2)):
+        assert torch.equal(a, a2)
+    if not padded:
+        assert float(zt[4:7].abs().max()) == 0.0
+    for got in ((m, s, zt, sa, cnt), (m_o, s_o, zt_o, sa_o, cnt_o)):
+        assert float((got[0] + torch.log(got[1]) - lse).abs().max()) <= 2e-3
+        assert float((got[2] - zt_r).abs().max()) <= 0.04
+        assert float((got[2] - zt_r).abs().mean()) <= 2e-3
+        assert float((got[3] - sa_r).abs().max()) <= 2e-3
+        assert float((got[4] - cnt_r).abs().max()) <= 8.0
+
+
+@pytest.mark.cuda
+def test_stats_plan_matches_the_launcher(cuda):
+    from vct_tpu_torch.ops import loss_kernels as lk
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for dt in (torch.float32, torch.bfloat16):
+        for n in (1, 31, 256, 1984, 4096, 7936):
+            for e in (128, 768, 896, 1664):
+                for v in (1111, 30522, 30720):
+                    for route in ((-1, 0, 1) if dt == torch.bfloat16 else (-1, 0)):
+                        assert lk.sce_stats_plan(n, e, v, dt, route, sms) == _plan_from_library(
+                            "vct_sce_stats_plan", lk._DTYPE_CODE[dt], n, e, v, route, sms, n=9)
+
+
+@pytest.mark.cuda
 def test_loss_wrappers_reject_bad_layouts(cuda):
     lk, x, w, b, labels, _ = _loss_inputs(cuda, torch.bfloat16)
     from vct_tpu_torch.ops._build import load_library
@@ -475,8 +549,10 @@ def test_loss_wrappers_reject_bad_layouts(cuda):
     assert load_library().vct_sce_block_rows(0) == lk.ROW_TILE[torch.float32]
     with pytest.raises(TypeError):
         lk.softmax_stats(x, w, b, labels.long())
-    with pytest.raises(ValueError, match="multiple of"):
-        lk.softmax_stats(x, w[:-1].contiguous(), b[:-1].contiguous(), labels)
+    with pytest.raises(ValueError, match="expected"):   # a bias of another length
+        lk.softmax_stats(x, w[:-1].contiguous(), b, labels)
+    with pytest.raises(RuntimeError):   # float32 has no tensor-core route: the launcher refuses
+        lk._launch_softmax_stats(x.float(), w.float(), b.float(), labels, _route=1)
     with pytest.raises(ValueError, match="is on cpu"):
         lk.clipped_prob_stats(x, w, b.cpu(), torch.zeros(LN, device=cuda))
     wide = torch.zeros((LN, lk.MAX_E + 128), dtype=torch.bfloat16, device=cuda)

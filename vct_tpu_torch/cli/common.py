@@ -6,14 +6,38 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-from typing import Dict
+import warnings
+from typing import Dict, List
 
 import torch
 
-from vct_tpu_torch.config import Config, load_config  # noqa: F401  (re-export for CLIs)
+from vct_tpu_torch import config as _config
+from vct_tpu_torch.config import Config
 from vct_tpu_torch.text.tokenizer import make_tokenizer
 from vct_tpu_torch.convert import load_state_dict_into, load_torch_state_dict
 from vct_tpu_torch.models.mmt4caption import DTYPES, MMT4Caption
+
+
+# Fields of the reference's ``tpu`` section that the port reads nowhere: each
+# tunes a TPU-side schedule the port leaves out (``vct_tpu/decode.py:283``,
+# ``vct_tpu/models/mmt4caption.py:71,114``).
+IGNORED_TPU_OPTIONS = ("fast_numerics", "fused_loss_stash", "pallas_partition_kernels")
+
+
+def ignored_options(cfg: Config) -> List[str]:
+    """The ``tpu.*`` options that ``cfg`` turns on and the port ignores."""
+    return [f"tpu.{name}" for name in IGNORED_TPU_OPTIONS if getattr(cfg.tpu, name)]
+
+
+def load_config(path: str) -> Config:
+    """The config at ``path`` (reference JSONs load verbatim), with one
+    warning that names the options it turns on which the port ignores."""
+    cfg = _config.load_config(path)
+    ignored = ignored_options(cfg)
+    if ignored:
+        warnings.warn(f"{path}: {', '.join(ignored)} set to true; the PyTorch port ignores "
+                      f"{'it' if len(ignored) == 1 else 'them'}", UserWarning, stacklevel=2)
+    return cfg
 
 
 def add_device_args(parser: argparse.ArgumentParser) -> None:

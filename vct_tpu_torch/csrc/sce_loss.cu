@@ -13,27 +13,66 @@
 // of bytes); the backward one does two such products and writes the 122 MB
 // dz.
 //
-// Design: one block owns a tile of BM rows and walks the vocab in ascending
-// tiles of 512 columns, which takes the place of the TPU grid's sequential
-// vocab axis. x's row tile stays in shared memory for the whole walk; the
-// weight tile streams through a two-stage cp.async ring; the per-row
-// accumulators (m, s, zt / sa, cnt) live in registers of the warp that owns
-// the row, and dx lives in tensor-core accumulator fragments across the walk.
-// A model wider than 768 gets its dx in column slabs of 768, each with a vocab
-// walk of its own that recomputes the logits; dz and the dbg partials are
-// written by the first walk only.
-// The product is the kernel's own: nvcuda::wmma 16x16x16 bf16 tiles with fp32
-// accumulation, or a shared-memory FMA tile for float32. The TPU kernel's
-// two-slab MXU/VPU pipeline, the weight passed twice, the 8-sublane dbg rows
-// and [N, 1] column vectors are gone. wgmma, TMA and a row tile per SM that
-// fills all 132 SMs are later work.
+// Two designs:
 //
-// Layout: x [N, E] row-major; the generator weight in PyTorch's own [V_pad, E]
+//   bfloat16 statistics (both forward kernels) -> stats_wgmma_kernel<MODE>
+//   then stats_merge_kernel<MODE>:
+//   * The vocab is split across blocks. A tile is (row tile of ST_BM = 128
+//     rows, slab of ST_BN = 256 vocab columns); one persistent block per SM
+//     walks the tiles blockIdx.x, blockIdx.x + gridDim.x, ... in slab-major
+//     order, so the blocks in flight share a few slabs of the weight in L2
+//     and the weight crosses HBM about once. Every SM has work at every N
+//     the kernel route takes (N=256: 2 x 120 tiles; N=1984: 16 x 120), and a
+//     weight byte crosses into shared memory once per 128 rows, not once
+//     per 32 as in stats_kernel.
+//   * The product is wgmma.m64n256k16 with both operands in shared memory:
+//     x [N, E] and the weight [V, E] are both K-major as they lie, written
+//     by cp.async in 16-byte pieces (zero fill for rows past N and weight
+//     rows past V) in the 128-byte swizzle, K in steps of 64 through a ring
+//     of ST_STAGES stages that runs across tile boundaries. Each warpgroup
+//     owns 64 rows of the tile and keeps their 64 x 256 float32 accumulators
+//     in registers. The loop waits for the products of the step before last
+//     only, but ptxas inserts a wait for the last one too (its note C7517);
+//     an explicit wait for both, without that note, timed the same.
+//   * The epilogue stays in registers: each accumulator is rounded to
+//     bfloat16 and the bias added in bfloat16 (the reference's rounding
+//     point), two columns at a time; the slab's bias waits in shared memory,
+//     staged while the tile's first products run. A column past V has a
+//     zero weight row and a NEG_INF bias, so its p is exactly 0 with no
+//     mask, as on a padded generator. Each row's statistics over the slab
+//     (MODE 0: max, the sum rescaled to it, the label logit; MODE 1: sa and
+//     cnt of p > 1e-7) are reduced over the four lanes that hold the row.
+//     One float32 partial per (row, slab) goes to a scratch buffer; the
+//     label logit is written once, by the lane that holds it.
+//   * stats_merge_kernel folds each row's partials in ascending slab order
+//     (the online rescale for MODE 0, plain sums for MODE 1). No float
+//     atomics: the same bits on every run.
+//
+//   float32 statistics, and the backward in either dtype -> stats_kernel<T,
+//   MODE> and backward_kernel<T>: one block owns a tile of BM rows and walks
+//   the vocab in ascending tiles of 512 columns, which takes the place of the
+//   TPU grid's sequential vocab axis. x's row tile stays in shared memory for
+//   the whole walk; the weight tile streams through a two-stage cp.async
+//   ring; the per-row accumulators (m, s, zt / sa, cnt) live in registers of
+//   the warp that owns the row, and dx lives in tensor-core accumulator
+//   fragments across the walk. A model wider than 768 gets its dx in column
+//   slabs of 768, each with a vocab walk of its own that recomputes the
+//   logits; dz and the dbg partials are written by the first walk only. The
+//   product is nvcuda::wmma 16x16x16 bf16 tiles with fp32 accumulation, or a
+//   shared-memory FMA tile for float32. The bfloat16 stats_kernel stays
+//   reachable (route 0) so that checks can time it against its replacement.
+//
+// Layout: x [N, E] row-major; the generator weight in PyTorch's own [V, E]
 // layout (row v holds column v of the product's right-hand side), so the
 // 47 MB parameter is never transposed: the logits product reads it as a
-// col-major B operand, the dx product as a row-major one. V_pad is a
-// multiple of 512; pad rows are zero and carry a -1e30 bias. Rows past N are
-// masked inside the kernels (no padded copy of x).
+// col-major B operand, the dx product as a row-major one. V is any count of
+// rows: the kernels mask the ragged last vocab tile themselves (weight rows
+// past V load as zeros, bias columns past V read as NEG_INF), so a pad
+// column contributes exactly 0, as the zero rows and NEG_INF bias of a padded
+// generator did. dz and the dbg partials have V_pad = round_up(V, 512)
+// columns. Rows past N are masked inside the kernels (no padded copy of x).
+// A label outside [0, V) has no logit: zt is 0 and no dz element subtracts
+// the label term.
 //
 // Rounding points (vct_tpu/ops/pallas_loss.py:86-91): the logits tile is the
 // fp32-accumulated product rounded to the compute dtype, then the bias is
@@ -48,7 +87,7 @@
 #include <mma.h>
 #include <stdint.h>
 
-#include <type_traits>
+#include "mma_common.cuh"
 
 namespace {
 
@@ -64,7 +103,7 @@ constexpr int SLAB_E = 768;
 constexpr int MAX_DX_FRAGS = SLAB_E / 128;  // bf16: column fragments per warp
 constexpr int MAX_DX_COLS = SLAB_E / 256;   // float32: columns t + 256 j
 constexpr float EPS = 1e-7f;
-constexpr int SMEM_LIMIT = 232448;
+constexpr float NEG_INF = -1e30f;  // the bias of a column past V
 
 template <typename T> struct Cfg;
 template <> struct Cfg<bf16> {
@@ -87,7 +126,9 @@ struct Params {
   float* o1;  // pass 1: s     pass 2: cnt   backward: dbg partials
   float* o2;  // pass 1: zt
   void* dz;
-  int n, e, v_pad;
+  int n, e;
+  int v;      // rows of the weight and entries of the bias
+  int v_pad;  // v rounded up to TILE_V: the columns of dz and of the dbg partials
 };
 
 // ---- shared-memory plan (elements of T unless said) ------------------------
@@ -118,15 +159,6 @@ template <typename T> __host__ __device__ inline size_t smem_bytes(int e, bool b
 
 // ---- small helpers ----------------------------------------------------------
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N> __device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
 template <typename T> __device__ __forceinline__ T from_f(float v);
@@ -137,6 +169,11 @@ template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) { return __flo
 __device__ __forceinline__ float round_add(float acc, float bias) { return acc + bias; }
 __device__ __forceinline__ bf16 round_add(float acc, bf16 bias) {
   return __float2bfloat16(__bfloat162float(__float2bfloat16(acc)) + __bfloat162float(bias));
+}
+
+// the bias of column col; NEG_INF past the last of the v columns
+template <typename T> __device__ __forceinline__ T bias_at(const T* bias, int col, int v) {
+  return col < v ? bias[col] : from_f<T>(NEG_INF);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -161,42 +198,47 @@ __device__ void load_x_tile(T* xs, const T* x, int n, int e, int row0) {
     const int row = idx / segs, seg = idx - row * segs;
     T* dst = xs + row * xld<T>(e) + seg * PER;
     if (row0 + row < n)
-      cp_async16(dst, x + (size_t)(row0 + row) * e + seg * PER);
+      cp_async16(dst, x + (size_t)(row0 + row) * e + seg * PER, true);
     else
       *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
   }
-  cp_commit();
-  cp_wait<0>();
+  cp_async_commit();
+  cp_async_wait<0>();
   __syncthreads();
 }
 
-// w[v0 .. v0+512, k0 .. k0+KC) -> dst[512][wld]
+// w[v0 .. v0+512, k0 .. k0+KC) -> dst[512][wld]; rows past v become zeros
 template <typename T>
-__device__ __forceinline__ void load_w_chunk(T* dst, const T* w, int e, int v0, int k0) {
+__device__ __forceinline__ void load_w_chunk(T* dst, const T* w, int e, int v, int v0, int k0) {
   constexpr int PER = 16 / sizeof(T), SEGS = Cfg<T>::KC / PER;
   for (int idx = threadIdx.x; idx < TILE_V * SEGS; idx += THREADS) {
     const int row = idx / SEGS, seg = idx - row * SEGS;
-    cp_async16(dst + row * wld<T>() + seg * PER, w + (size_t)(v0 + row) * e + k0 + seg * PER);
+    const bool ok = v0 + row < v;
+    cp_async16(dst + row * wld<T>() + seg * PER,
+               w + (ok ? (size_t)(v0 + row) * e + k0 + seg * PER : 0), ok);
   }
-  cp_commit();
+  cp_async_commit();
 }
 
-// w[r0 .. r0+KC2, e0 .. e0+es) -> dst[KC2][sld]
+// w[r0 .. r0+KC2, e0 .. e0+es) -> dst[KC2][sld]; rows past v become zeros
 template <typename T>
-__device__ __forceinline__ void load_w_rows(T* dst, const T* w, int e, int r0, int e0, int es) {
+__device__ __forceinline__ void load_w_rows(T* dst, const T* w, int e, int v, int r0, int e0,
+                                            int es) {
   constexpr int PER = 16 / sizeof(T);
   const int segs = es / PER;
   for (int idx = threadIdx.x; idx < Cfg<T>::KC2 * segs; idx += THREADS) {
     const int row = idx / segs, seg = idx - row * segs;
-    cp_async16(dst + row * sld<T>(e) + seg * PER, w + (size_t)(r0 + row) * e + e0 + seg * PER);
+    const bool ok = r0 + row < v;
+    cp_async16(dst + row * sld<T>(e) + seg * PER,
+               w + (ok ? (size_t)(r0 + row) * e + e0 + seg * PER : 0), ok);
   }
-  cp_commit();
+  cp_async_commit();
 }
 
 // ---- the logits tile: zs[BM][512] = round(xs . w_tile^T) + bias, in T --------
 
 __device__ void logits_tile(const bf16* xs, bf16* ring, int stage, bf16* zs, float* patch,
-                            const bf16* w, const bf16* bias, int e, int v0) {
+                            const bf16* w, const bf16* bias, int e, int v, int v0) {
   using C = Cfg<bf16>;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int XLD = xld<bf16>(e);
@@ -208,13 +250,13 @@ __device__ void logits_tile(const bf16* xs, bf16* ring, int stage, bf16* zs, flo
     for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
 
   const int nch = e / C::KC;
-  load_w_chunk<bf16>(ring, w, e, v0, 0);
+  load_w_chunk<bf16>(ring, w, e, v, v0, 0);
   for (int ch = 0; ch < nch; ++ch) {
     if (ch + 1 < nch) {
-      load_w_chunk<bf16>(ring + ((ch + 1) & 1) * stage, w, e, v0, (ch + 1) * C::KC);
-      cp_wait<1>();
+      load_w_chunk<bf16>(ring + ((ch + 1) & 1) * stage, w, e, v, v0, (ch + 1) * C::KC);
+      cp_async_wait<1>();
     } else {
-      cp_wait<0>();
+      cp_async_wait<0>();
     }
     __syncthreads();
     const bf16* ws = ring + (ch & 1) * stage;
@@ -244,7 +286,7 @@ __device__ void logits_tile(const bf16* xs, bf16* ring, int stage, bf16* zs, flo
 #pragma unroll
       for (int q = 0; q < 8; ++q) {
         const int idx = lane + 32 * q, rr = idx >> 4, col = warp * 64 + j * 16 + (idx & 15);
-        zs[(i * 16 + rr) * ZLD + col] = round_add(pw[idx], bias[v0 + col]);
+        zs[(i * 16 + rr) * ZLD + col] = round_add(pw[idx], bias_at(bias, v0 + col, v));
       }
       __syncwarp();
     }
@@ -252,7 +294,7 @@ __device__ void logits_tile(const bf16* xs, bf16* ring, int stage, bf16* zs, flo
 }
 
 __device__ void logits_tile(const float* xs, float* ring, int stage, float* zs, float* /*patch*/,
-                            const float* w, const float* bias, int e, int v0) {
+                            const float* w, const float* bias, int e, int v, int v0) {
   using C = Cfg<float>;
   const int t = threadIdx.x;
   const int XLD = xld<float>(e);
@@ -262,13 +304,13 @@ __device__ void logits_tile(const float* xs, float* ring, int stage, float* zs, 
   for (int r = 0; r < C::BM; ++r) acc[r][0] = acc[r][1] = 0.0f;
 
   const int nch = e / C::KC;
-  load_w_chunk<float>(ring, w, e, v0, 0);
+  load_w_chunk<float>(ring, w, e, v, v0, 0);
   for (int ch = 0; ch < nch; ++ch) {
     if (ch + 1 < nch) {
-      load_w_chunk<float>(ring + ((ch + 1) & 1) * stage, w, e, v0, (ch + 1) * C::KC);
-      cp_wait<1>();
+      load_w_chunk<float>(ring + ((ch + 1) & 1) * stage, w, e, v, v0, (ch + 1) * C::KC);
+      cp_async_wait<1>();
     } else {
-      cp_wait<0>();
+      cp_async_wait<0>();
     }
     __syncthreads();
     const float* ws = ring + (ch & 1) * stage;
@@ -286,8 +328,8 @@ __device__ void logits_tile(const float* xs, float* ring, int stage, float* zs, 
   }
 #pragma unroll
   for (int r = 0; r < C::BM; ++r) {
-    zs[r * ZLD + t] = round_add(acc[r][0], bias[v0 + t]);
-    zs[r * ZLD + t + 256] = round_add(acc[r][1], bias[v0 + t + 256]);
+    zs[r * ZLD + t] = round_add(acc[r][0], bias_at(bias, v0 + t, v));
+    zs[r * ZLD + t + 256] = round_add(acc[r][1], bias_at(bias, v0 + t + 256, v));
   }
   __syncthreads();
 }
@@ -306,21 +348,21 @@ template <> struct DxAcc<bf16> {
       for (int j = 0; j < MAX_DX_FRAGS; ++j) wmma::fill_fragment(f[i][j], 0.0f);
   }
 
-  __device__ void add_tile(const bf16* zs, bf16* ring, int stage, const bf16* w, int e, int v0,
-                           int e0, int es) {
+  __device__ void add_tile(const bf16* zs, bf16* ring, int stage, const bf16* w, int e, int v,
+                           int v0, int e0, int es) {
     using C = Cfg<bf16>;
     const int warp = threadIdx.x >> 5;
     const int SLD = sld<bf16>(e), nf = es / 128, col0 = warp * (es / 8);
     constexpr int ZLD = zld<bf16>();
     constexpr int nch = TILE_V / C::KC2;
-    load_w_rows<bf16>(ring, w, e, v0, e0, es);
+    load_w_rows<bf16>(ring, w, e, v, v0, e0, es);
     for (int ch = 0; ch < nch; ++ch) {
       if (ch + 1 < nch) {
-        load_w_rows<bf16>(ring + ((ch + 1) & 1) * stage, w, e, v0 + (ch + 1) * C::KC2, e0,
-                            es);
-        cp_wait<1>();
+        load_w_rows<bf16>(ring + ((ch + 1) & 1) * stage, w, e, v, v0 + (ch + 1) * C::KC2, e0,
+                          es);
+        cp_async_wait<1>();
       } else {
-        cp_wait<0>();
+        cp_async_wait<0>();
       }
       __syncthreads();
       const bf16* ws = ring + (ch & 1) * stage;
@@ -374,20 +416,20 @@ template <> struct DxAcc<float> {
   }
 
   __device__ void add_tile(const float* zs, float* ring, int stage, const float* w, int e,
-                           int v0, int e0, int es) {
+                           int v, int v0, int e0, int es) {
     using C = Cfg<float>;
     const int t = threadIdx.x;
     const int SLD = sld<float>(e);
     constexpr int ZLD = zld<float>();
     constexpr int nch = TILE_V / C::KC2;
-    load_w_rows<float>(ring, w, e, v0, e0, es);
+    load_w_rows<float>(ring, w, e, v, v0, e0, es);
     for (int ch = 0; ch < nch; ++ch) {
       if (ch + 1 < nch) {
-        load_w_rows<float>(ring + ((ch + 1) & 1) * stage, w, e, v0 + (ch + 1) * C::KC2, e0,
-                             es);
-        cp_wait<1>();
+        load_w_rows<float>(ring + ((ch + 1) & 1) * stage, w, e, v, v0 + (ch + 1) * C::KC2, e0,
+                           es);
+        cp_async_wait<1>();
       } else {
-        cp_wait<0>();
+        cp_async_wait<0>();
       }
       __syncthreads();
       const float* ws = ring + (ch & 1) * stage;
@@ -464,12 +506,13 @@ __global__ void __launch_bounds__(THREADS, 1) stats_kernel(Params p) {
     a0[q] = MODE == 0 ? -INFINITY : 0.0f;
     a1[q] = 0.0f;
     a2[q] = 0.0f;
-    lab[q] = (MODE == 0 && row < p.n) ? p.labels[row] : -1;
+    const int l = (MODE == 0 && row < p.n) ? p.labels[row] : -1;
+    lab[q] = (l >= 0 && l < p.v) ? l : -1;  // a label outside [0, v) has no logit
     lse[q] = (MODE == 1 && row < p.n) ? p.lse[row] : 0.0f;
   }
 
   for (int v0 = 0; v0 < p.v_pad; v0 += TILE_V) {
-    logits_tile(sm.xs, sm.ring, sm.stage, sm.zs, sm.patch, w, bias, p.e, v0);
+    logits_tile(sm.xs, sm.ring, sm.stage, sm.zs, sm.patch, w, bias, p.e, p.v, v0);
 #pragma unroll
     for (int q = 0; q < RPW; ++q) {
       const T* zr = sm.zs + (warp + WARPS * q) * ZLD;
@@ -545,7 +588,8 @@ __global__ void __launch_bounds__(THREADS, 1) backward_kernel(Params p) {
     u_s[t] = live ? p.u[row0 + t] : 0.0f;
     cc_s[t] = live ? p.cc[row0 + t] : 0.0f;
     lt_s[t] = live ? p.lt[row0 + t] : 0.0f;
-    lab_s[t] = live ? p.labels[row0 + t] : -1;
+    const int l = live ? p.labels[row0 + t] : -1;
+    lab_s[t] = (l >= 0 && l < p.v) ? l : -1;
   }
   load_x_tile<T>(sm.xs, static_cast<const T*>(p.x), p.n, p.e, row0);
 
@@ -556,7 +600,7 @@ __global__ void __launch_bounds__(THREADS, 1) backward_kernel(Params p) {
     const bool first = e0 == 0;
     dx.zero();
     for (int v0 = 0; v0 < p.v_pad; v0 += TILE_V) {
-      logits_tile(sm.xs, sm.ring, sm.stage, sm.zs, sm.patch, w, bias, p.e, v0);
+      logits_tile(sm.xs, sm.ring, sm.stage, sm.zs, sm.patch, w, bias, p.e, p.v, v0);
       // dz in place over the logits tile: one thread per column walks the rows,
       // so the column sum of the un-rounded dz has a fixed order
 #pragma unroll
@@ -579,10 +623,337 @@ __global__ void __launch_bounds__(THREADS, 1) backward_kernel(Params p) {
         if (first) p.o1[(size_t)blockIdx.x * p.v_pad + gcol] = colsum;
       }
       __syncthreads();
-      dx.add_tile(sm.zs, sm.ring, sm.stage, w, p.e, v0, e0, es);
+      dx.add_tile(sm.zs, sm.ring, sm.stage, w, p.e, p.v, v0, e0, es);
     }
     dx.store(p.o0, sm.patch, p.n, p.e, row0, e0, es);
   }
+}
+
+// ---- the tensor-core statistics kernel (bfloat16) --------------------------------
+
+constexpr int ST_THREADS = 256;   // two warpgroups: rows 0-63 and 64-127 of a row tile
+constexpr int ST_BM = 128;        // rows of a row tile
+constexpr int ST_BN = 256;        // vocab columns of a slab: the N of wgmma.m64n256k16
+constexpr int ST_BK = 64;         // K step: one 128-byte swizzled row of each operand
+constexpr int ST_STAGES = 4;      // ring stages: two steps of copies and one product in flight
+constexpr int ST_X_BYTES = ST_BM * 128;
+constexpr int ST_STAGE = ST_X_BYTES + ST_BN * 128;
+// 1 KB to reach a 1024-byte boundary, the ring, and two slabs of bias
+constexpr int ST_SMEM = 1024 + ST_STAGES * ST_STAGE + 2 * ST_BN * 2;
+static_assert(ST_THREADS == ST_BN, "one thread stages one bias entry of a slab");
+constexpr int MERGE_THREADS = 128;
+
+// Ties registers to this point of the program: after a wgmma wait, no read of
+// the accumulators may be scheduled above it.
+template <int N> __device__ __forceinline__ void pin_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// Walks (tile, K step) in that nesting; the loader and the consumer each keep one.
+struct StCursor {
+  int tile, ks;
+  __device__ __forceinline__ void advance(int ksteps, int stride) {
+    if (++ks == ksteps) {
+      ks = 0;
+      tile += stride;
+    }
+  }
+};
+
+// parts: float32 [2][slabs][n]. MODE 0: (slab max, slab sum rescaled to it),
+// and zt[row] for a label inside the slab; MODE 1: (sa, cnt) of the slab.
+template <int MODE>
+__global__ void __launch_bounds__(ST_THREADS, 1)
+stats_wgmma_kernel(const bf16* x, const bf16* w, const bf16* bias, const int* labels,
+                   const float* lse, float* parts, float* zt, int n, int e, int v,
+                   int row_tiles, int n_tiles) {
+  extern __shared__ unsigned char smem_raw[];
+  // the swizzled tiles want a 1024-byte boundary
+  unsigned char* ring = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  // the bias of the slab of this block's tile i at bias_s[(i % 2) * ST_BN]
+  bf16* bias_s = reinterpret_cast<bf16*>(ring + ST_STAGES * ST_STAGE);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wg = warp >> 2, w4 = warp & 3, g = lane >> 2, q = lane & 3;
+  const int ksteps = e / ST_BK;
+  const int slabs = n_tiles / row_tiles;
+  const int my_tiles = (n_tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  const int total = my_tiles * ksteps;
+
+  // x rows [rt * 128, +128) and weight rows [slab * 256, +256), columns
+  // [k0, k0 + 64): piece c of row r lands at piece c ^ (r % 8)
+  auto fetch = [&](const StCursor& c, int stage) {
+    unsigned char* st = ring + stage * ST_STAGE;
+    const int slab = c.tile / row_tiles, rt = c.tile - slab * row_tiles;
+    const int k0 = c.ks * ST_BK;
+#pragma unroll
+    for (int i = 0; i < ST_BM * 8 / ST_THREADS; ++i) {
+      const int chunk = tid + i * ST_THREADS, r = chunk >> 3, kc = chunk & 7;
+      const int row = rt * ST_BM + r;
+      const bool ok = row < n;
+      cp_async16(st + r * 128 + ((kc ^ (r & 7)) << 4),
+                 x + (ok ? (size_t)row * e + k0 + kc * 8 : 0), ok);
+    }
+    unsigned char* ws = st + ST_X_BYTES;
+#pragma unroll
+    for (int i = 0; i < ST_BN * 8 / ST_THREADS; ++i) {
+      const int chunk = tid + i * ST_THREADS, r = chunk >> 3, kc = chunk & 7;
+      const int col = slab * ST_BN + r;
+      const bool ok = col < v;
+      cp_async16(ws + r * 128 + ((kc ^ (r & 7)) << 4),
+                 w + (ok ? (size_t)col * e + k0 + kc * 8 : 0), ok);
+    }
+  };
+
+  float acc[128];   // rows 16 w4 + g + 8 h of the warpgroup's 64, columns 8 j + 2 q + c
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+
+  StCursor ld = {(int)blockIdx.x, 0}, cs = {(int)blockIdx.x, 0};
+  for (int s = 0; s < ST_STAGES - 2; ++s) {
+    if (s < total) {
+      fetch(ld, s);
+      ld.advance(ksteps, gridDim.x);
+    }
+    cp_async_commit();
+  }
+
+  int lab[2] = {-1, -1};
+  float lse_r[2] = {0.f, 0.f};
+  int mine = 0;   // tiles this block has finished
+  for (int s = 0; s < total; ++s) {
+    cp_async_wait<ST_STAGES - 3>();   // step s has landed
+    fence_async_shared();             // and the tensor cores may read it
+    __syncthreads();                  // every warpgroup's products of step s - 2 are done
+    if (s + ST_STAGES - 2 < total) {  // into the stage of step s - 2
+      fetch(ld, (s + ST_STAGES - 2) % ST_STAGES);
+      ld.advance(ksteps, gridDim.x);
+    }
+    cp_async_commit();
+
+    const int slab = cs.tile / row_tiles, rt = cs.tile - slab * row_tiles;
+    const int row0 = rt * ST_BM + wg * 64 + w4 * 16 + g;   // and row0 + 8
+    const unsigned char* st = ring + (s % ST_STAGES) * ST_STAGE;
+    const uint64_t a_desc = wgmma_desc_sw128(st + wg * 64 * 128);
+    const uint64_t b_desc = wgmma_desc_sw128(st + ST_X_BYTES);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < ST_BK / 16; ++kk)   // a new tile starts from zero
+      wgmma_m64n256k16_ss(acc, a_desc + 2 * kk, b_desc + 2 * kk, (cs.ks > 0 || kk > 0) ? 1 : 0);
+    wgmma_commit();
+    if (cs.ks == 0) {
+      // while the products run: the slab's bias into shared memory (read
+      // after the next barrier; NEG_INF past v, where the weight rows are
+      // zeros, so those columns' p is exactly 0 and no mask is needed) and
+      // the rows' label or lse
+      const int col = slab * ST_BN + tid;
+      bias_s[(mine & 1) * ST_BN + tid] = col < v ? bias[col] : __float2bfloat16(NEG_INF);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + 8 * h;
+        if (MODE == 0) {
+          const int l = row < n ? labels[row] : -1;
+          lab[h] = (l >= 0 && l < v) ? l - slab * ST_BN - 2 * q : -1;   // 8 j + c in this lane
+        } else {
+          lse_r[h] = row < n ? lse[row] : 0.f;
+        }
+      }
+    }
+    wgmma_wait<1>();   // the products of step s - 1 are done
+
+    if (cs.ks == ksteps - 1) {
+      wgmma_wait<0>();
+      pin_regs(acc);
+      // epilogue of (row tile rt, slab): acc[4 j + 2 h + c] is row row0 + 8 h,
+      // column 8 j + 2 q + c of the slab; the four lanes of a quad hold a
+      // row's 256. Two neighbouring columns are rounded and get their bias
+      // as one bfloat16 pair: the bfloat16 sum of two bfloat16 values rounds
+      // as the float32 sum rounded to bfloat16 does (round_add).
+      const __nv_bfloat162* bias2 =
+          reinterpret_cast<const __nv_bfloat162*>(bias_s + (mine & 1) * ST_BN + 2 * q);
+      float red0[2], red1[2];
+      if (MODE == 0) {
+        red0[0] = red0[1] = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < ST_BN / 8; ++j) {
+          const __nv_bfloat162 b2 = bias2[4 * j];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float2 z = __bfloat1622float2(
+                __hadd2(__floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]), b2));
+            acc[4 * j + 2 * h] = z.x;
+            acc[4 * j + 2 * h + 1] = z.y;
+            red0[h] = fmaxf(red0[h], fmaxf(z.x, z.y));
+            if (lab[h] == 8 * j) zt[row0 + 8 * h] = z.x;   // the one lane that holds it
+            if (lab[h] == 8 * j + 1) zt[row0 + 8 * h] = z.y;
+          }
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          red0[h] = fmaxf(red0[h], __shfl_xor_sync(0xffffffffu, red0[h], 1));
+          red0[h] = fmaxf(red0[h], __shfl_xor_sync(0xffffffffu, red0[h], 2));
+          red1[h] = 0.f;
+        }
+#pragma unroll
+        for (int j = 0; j < ST_BN / 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int c = 0; c < 2; ++c) red1[h] += expf(acc[4 * j + 2 * h + c] - red0[h]);
+      } else {
+        red0[0] = red0[1] = red1[0] = red1[1] = 0.f;
+#pragma unroll
+        for (int j = 0; j < ST_BN / 8; ++j) {
+          const __nv_bfloat162 b2 = bias2[4 * j];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float2 z = __bfloat1622float2(
+                __hadd2(__floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]), b2));
+            const float p0 = expf(z.x - lse_r[h]), p1 = expf(z.y - lse_r[h]);
+            if (p0 > EPS) {
+              red0[h] += p0;
+              red1[h] += 1.0f;
+            }
+            if (p1 > EPS) {
+              red0[h] += p1;
+              red1[h] += 1.0f;
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        red1[h] += __shfl_xor_sync(0xffffffffu, red1[h], 1);
+        red1[h] += __shfl_xor_sync(0xffffffffu, red1[h], 2);
+        if (MODE == 1) {
+          red0[h] += __shfl_xor_sync(0xffffffffu, red0[h], 1);
+          red0[h] += __shfl_xor_sync(0xffffffffu, red0[h], 2);
+        }
+        const int row = row0 + 8 * h;
+        if (q == 0 && row < n) {
+          parts[(size_t)slab * n + row] = red0[h];
+          parts[((size_t)slabs + slab) * n + row] = red1[h];
+        }
+      }
+      ++mine;
+    }
+    cs.advance(ksteps, gridDim.x);
+  }
+  cp_async_wait<0>();
+}
+
+// One thread per row folds the slab partials in ascending slab order: MODE 0
+// the online rescale into (m, s) and zt = 0 for a label outside [0, v);
+// MODE 1 plain sums into (sa, cnt).
+template <int MODE>
+__global__ void __launch_bounds__(MERGE_THREADS)
+stats_merge_kernel(const float* parts, const int* labels, float* o0, float* o1, float* zt, int n,
+                   int v, int slabs) {
+  const int row = blockIdx.x * MERGE_THREADS + threadIdx.x;
+  if (row >= n) return;
+  constexpr int BATCH = 16;   // loads in flight per thread
+  const float* p0 = parts + row;
+  const float* p1 = parts + (size_t)slabs * n + row;
+  float a0 = MODE == 0 ? -INFINITY : 0.f, a1 = 0.f;
+  for (int j0 = 0; j0 < slabs; j0 += BATCH) {
+    float b0[BATCH], b1[BATCH];
+#pragma unroll
+    for (int i = 0; i < BATCH; ++i) {
+      const bool ok = j0 + i < slabs;
+      b0[i] = ok ? p0[(size_t)(j0 + i) * n] : 0.f;
+      b1[i] = ok ? p1[(size_t)(j0 + i) * n] : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < BATCH; ++i) {
+      if (j0 + i < slabs) {
+        if (MODE == 0) {
+          const float m_new = fmaxf(a0, b0[i]);
+          a1 = a1 * expf(a0 - m_new) + b1[i] * expf(b0[i] - m_new);
+          a0 = m_new;
+        } else {
+          a0 += b0[i];
+          a1 += b1[i];
+        }
+      }
+    }
+  }
+  o0[row] = a0;
+  o1[row] = a1;
+  if (MODE == 0) {
+    const int l = labels[row];
+    if (l < 0 || l >= v) zt[row] = 0.f;   // else the lane that held it wrote it
+  }
+}
+
+// ---- launch plans ----------------------------------------------------------------
+// {route, rows of a row tile, vocab columns of a tile, K step, ring stages,
+// dynamic shared memory, row tiles, vocab slabs, blocks}. Route 1 is the
+// tensor-core kernel (bfloat16 only), route 0 stats_kernel (one block per
+// row tile walks the whole vocab: 1 slab of TILE_V columns at a time).
+// Route -1, what the package's wrappers pass, takes route 1 for bfloat16 and
+// route 0 for float32. Every width the wrappers admit (multiples of 128 up to
+// 1664) fits route 1, which streams x as it streams the weight, so no shape
+// of bfloat16 goes to route 0 by the rule.
+
+struct StatsPlan {
+  int route, bm, bn, bk, stages, smem, row_tiles, slabs, grid;
+};
+
+bool stats_plan(int dtype, int n, int e, int v, int route, int sms, StatsPlan* out) {
+  if (n < 1 || e < 128 || e % 128 || v < 1 || sms < 1 || route < -1 || route > 1 ||
+      (route == 1 && dtype != 1))
+    return false;
+  StatsPlan p;
+  p.route = route < 0 ? (dtype == 1 ? 1 : 0) : route;
+  if (p.route == 1) {
+    p.bm = ST_BM; p.bn = ST_BN; p.bk = ST_BK; p.stages = ST_STAGES; p.smem = ST_SMEM;
+    p.row_tiles = (n + ST_BM - 1) / ST_BM;
+    p.slabs = (v + ST_BN - 1) / ST_BN;
+    const int tiles = p.row_tiles * p.slabs;
+    p.grid = tiles < sms ? tiles : sms;
+  } else {
+    const bool b16 = dtype == 1;
+    p.bm = b16 ? Cfg<bf16>::BM : Cfg<float>::BM;
+    p.bn = TILE_V;
+    p.bk = b16 ? Cfg<bf16>::KC : Cfg<float>::KC;
+    p.stages = 2;
+    p.smem = (int)(b16 ? smem_bytes<bf16>(e, false) : smem_bytes<float>(e, false));
+    p.row_tiles = (n + p.bm - 1) / p.bm;
+    p.slabs = 1;
+    p.grid = p.row_tiles;
+  }
+  *out = p;
+  return p.smem <= SMEM_LIMIT;
+}
+
+// the SM count of the current device, and the kernels' shared-memory
+// attribute set once per device
+int sm_count() {
+  static int count[64] = {};
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (dev < 64 && count[dev]) return count[dev];
+  if (cudaFuncSetAttribute(stats_wgmma_kernel<0>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           ST_SMEM) != cudaSuccess ||
+      cudaFuncSetAttribute(stats_wgmma_kernel<1>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           ST_SMEM) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 0;
+  if (dev < 64) count[dev] = sms;
+  return sms;
+}
+
+template <int MODE>
+int launch_stats_wgmma(const StatsPlan& pl, const Params& p, float* parts, cudaStream_t st) {
+  if (!parts) return (int)cudaErrorInvalidValue;
+  stats_wgmma_kernel<MODE><<<pl.grid, ST_THREADS, pl.smem, st>>>(
+      (const bf16*)p.x, (const bf16*)p.w, (const bf16*)p.b, p.labels, p.lse, parts, p.o2, p.n,
+      p.e, p.v, pl.row_tiles, pl.row_tiles * pl.slabs);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  stats_merge_kernel<MODE><<<(p.n + MERGE_THREADS - 1) / MERGE_THREADS, MERGE_THREADS, 0, st>>>(
+      parts, p.labels, p.o0, p.o1, p.o2, p.n, p.v, pl.slabs);
+  return (int)cudaGetLastError();
 }
 
 template <typename T> int launch(int mode, const Params& p, cudaStream_t st) {
@@ -612,53 +983,86 @@ template <typename T> int launch(int mode, const Params& p, cudaStream_t st) {
 }
 
 int dispatch(int dtype, int mode, const Params& p, void* stream) {
-  if (p.n <= 0 || p.e <= 0 || p.e % 128 || p.v_pad <= 0 || p.v_pad % TILE_V)
-    return (int)cudaErrorInvalidValue;
+  if (p.n <= 0 || p.e <= 0 || p.e % 128 || p.v <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   return dtype == 1 ? launch<bf16>(mode, p, st) : launch<float>(mode, p, st);
+}
+
+// the two statistics kernels: route 1 by the plan, else stats_kernel
+int dispatch_stats(int dtype, int mode, const Params& p, float* parts, int route,
+                   void* stream) {
+  const int sms = sm_count();
+  StatsPlan pl;
+  if (!sms || !stats_plan(dtype, p.n, p.e, p.v, route, sms, &pl))
+    return (int)cudaErrorInvalidValue;
+  if (pl.route == 0) return dispatch(dtype, mode, p, stream);
+  cudaStream_t st = (cudaStream_t)stream;
+  return mode == 0 ? launch_stats_wgmma<0>(pl, p, parts, st)
+                   : launch_stats_wgmma<1>(pl, p, parts, st);
+}
+
+Params base_params(const void* x, const void* w, const void* b, int n, int e, int v) {
+  Params p = {};
+  p.x = x; p.w = w; p.b = b;
+  p.n = n; p.e = e; p.v = v; p.v_pad = (v + TILE_V - 1) / TILE_V * TILE_V;
+  return p;
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. x [n, e], w [v_pad, e], b [v_pad] in that
-// dtype; labels int32 [n]; every other vector float32 [n].
+// dtype: 0 = float32, 1 = bfloat16. x [n, e], w [v, e], b [v] in that dtype
+// (v any count of rows; a generator padded with zero rows and a -1e30 bias
+// gives the same statistics); labels int32 [n]; every other vector float32
+// [n]. route: -1 = by the plan's rule (bfloat16 -> the tensor-core kernel,
+// float32 -> stats_kernel), which is what the package's wrappers always
+// pass; 0 = stats_kernel in either dtype, for checks that time the kernel
+// the tensor-core one replaced; 1 = the tensor-core kernel (bfloat16 only).
 
-// rows per block, which is also the row count one dbg partial covers
+// rows per block of the backward, which is also the row count one dbg
+// partial covers
 int vct_sce_block_rows(int dtype) { return dtype == 1 ? Cfg<bf16>::BM : Cfg<float>::BM; }
 
+// out: 9 ints, see StatsPlan; sms: the device's SM count (the grid's cap)
+int vct_sce_stats_plan(int dtype, int n, int e, int v, int route, int sms, int* out) {
+  StatsPlan p;
+  if (!stats_plan(dtype, n, e, v, route, sms, &p)) return (int)cudaErrorInvalidValue;
+  const int vals[9] = {p.route, p.bm, p.bn, p.bk, p.stages, p.smem, p.row_tiles, p.slabs,
+                       p.grid};
+  for (int i = 0; i < 9; ++i) out[i] = vals[i];
+  return 0;
+}
+
+// parts: float32 scratch [2, ceil(v / 256), n] for the tensor-core kernel
+// (NULL on route 0)
 int vct_sce_softmax_stats(int dtype, const void* x, const void* w, const void* b,
-                          const void* labels, void* m, void* s, void* zt, int n, int e,
-                          int v_pad, void* stream) {
-  Params p = {};
-  p.x = x; p.w = w; p.b = b; p.labels = (const int*)labels;
+                          const void* labels, void* m, void* s, void* zt, void* parts, int n,
+                          int e, int v, int route, void* stream) {
+  Params p = base_params(x, w, b, n, e, v);
+  p.labels = (const int*)labels;
   p.o0 = (float*)m; p.o1 = (float*)s; p.o2 = (float*)zt;
-  p.n = n; p.e = e; p.v_pad = v_pad;
-  return dispatch(dtype, 0, p, stream);
+  return dispatch_stats(dtype, 0, p, (float*)parts, route, stream);
 }
 
 int vct_sce_clipped_stats(int dtype, const void* x, const void* w, const void* b,
-                          const void* lse, void* sa, void* cnt, int n, int e, int v_pad,
-                          void* stream) {
-  Params p = {};
-  p.x = x; p.w = w; p.b = b; p.lse = (const float*)lse;
+                          const void* lse, void* sa, void* cnt, void* parts, int n, int e, int v,
+                          int route, void* stream) {
+  Params p = base_params(x, w, b, n, e, v);
+  p.lse = (const float*)lse;
   p.o0 = (float*)sa; p.o1 = (float*)cnt;
-  p.n = n; p.e = e; p.v_pad = v_pad;
-  return dispatch(dtype, 1, p, stream);
+  return dispatch_stats(dtype, 1, p, (float*)parts, route, stream);
 }
 
 // dx float32 [n, e]; dz [n, v_pad] in the compute dtype; dbg_parts float32
-// [ceil(n / block_rows), v_pad]
+// [ceil(n / block_rows), v_pad]; v_pad = round_up(v, 512)
 int vct_sce_backward(int dtype, const void* x, const void* w, const void* b, const void* lse,
                      const void* u, const void* cc, const void* lt, const void* labels,
-                     void* dx, void* dz, void* dbg_parts, int n, int e, int v_pad,
-                     void* stream) {
-  Params p = {};
-  p.x = x; p.w = w; p.b = b; p.lse = (const float*)lse; p.u = (const float*)u;
+                     void* dx, void* dz, void* dbg_parts, int n, int e, int v, void* stream) {
+  Params p = base_params(x, w, b, n, e, v);
+  p.lse = (const float*)lse; p.u = (const float*)u;
   p.cc = (const float*)cc; p.lt = (const float*)lt; p.labels = (const int*)labels;
   p.o0 = (float*)dx; p.o1 = (float*)dbg_parts; p.dz = dz;
-  p.n = n; p.e = e; p.v_pad = v_pad;
   return dispatch(dtype, 2, p, stream);
 }
 

@@ -98,9 +98,11 @@ def load_library() -> ctypes.CDLL:
     lib.vct_gen_topk.restype = _I
     lib.vct_sce_block_rows.argtypes = [_I]
     lib.vct_sce_block_rows.restype = _I
-    lib.vct_sce_softmax_stats.argtypes = [_I] + [_P] * 7 + [_I] * 3 + [_P]
+    lib.vct_sce_stats_plan.argtypes = [_I] * 6 + [_IP]
+    lib.vct_sce_stats_plan.restype = _I
+    lib.vct_sce_softmax_stats.argtypes = [_I] + [_P] * 8 + [_I] * 4 + [_P]
     lib.vct_sce_softmax_stats.restype = _I
-    lib.vct_sce_clipped_stats.argtypes = [_I] + [_P] * 6 + [_I] * 3 + [_P]
+    lib.vct_sce_clipped_stats.argtypes = [_I] + [_P] * 7 + [_I] * 4 + [_P]
     lib.vct_sce_clipped_stats.restype = _I
     lib.vct_sce_backward.argtypes = [_I] + [_P] * 11 + [_I] * 3 + [_P]
     lib.vct_sce_backward.restype = _I

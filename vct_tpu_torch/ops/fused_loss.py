@@ -18,9 +18,10 @@ Both share the epilogues ``_ce_parts`` / ``_rce_parts`` and the backward
 coefficients, and agree to float-summation order.
 
 Layout: ``wg`` is the generator parameter in PyTorch's layout [V, E] (the
-reference passes [E, V]); neither route transposes or copies it whole in
-float32. The reference's ``stash`` option, its mesh wrappers and its VMEM
-block-size rules are not ported.
+reference passes [E, V]); neither route transposes or pads it, or copies it
+whole in float32 (the kernel route casts it to the compute dtype). The
+reference's ``stash`` option, its mesh wrappers and its VMEM block-size rules
+are not ported.
 """
 
 from __future__ import annotations
@@ -113,7 +114,9 @@ class _LinearSCE(torch.autograd.Function):
         m_rce = m_rce.float()
         sa = torch.zeros((n,), device=x.device)
         if kernels:
-            w_dt, b_dt = loss_kernels.pad_generator(wg, bg, dtype)
+            # the kernels mask the ragged last vocab tile: the generator goes as it is
+            w_dt = wg.detach().to(dtype).contiguous()
+            b_dt = bg.detach().to(dtype).contiguous()
             m, s, zt = loss_kernels.softmax_stats(x_dt, w_dt, b_dt, lab)
             lse = m + torch.log(s)
             if with_rce:

@@ -14,37 +14,48 @@ Port of ``vct_tpu/ops/pallas_loss.py``:
   of the un-rounded ``dz`` for the bias gradient.
 
 Layout (the port's own, not the reference's): ``x`` [N, E] in the compute
-dtype; the generator weight ``w`` [V_pad, E] — PyTorch's own ``[out, in]``
-layout, so the parameter is cast and padded but never transposed — and ``b``
-[V_pad], both in the compute dtype, with V_pad a multiple of ``BLOCK_V`` whose
-pad rows are zero and carry a ``NEG_INF`` bias (``pad_generator`` builds
-them); ``labels`` [N] int32; every per-row vector [N] float32. Rows are not
-padded: the kernels mask the ragged last row tile themselves.
+dtype; the generator weight ``w`` [V, E] — PyTorch's own ``[out, in]``
+layout, so the parameter is cast but never transposed or padded — and ``b``
+[V], both in the compute dtype; ``labels`` [N] int32; every per-row vector
+[N] float32. V is any count of rows: the kernels and the plain versions mask
+the ragged last vocab tile themselves (weight rows past V read as zeros, bias
+entries past V as ``NEG_INF``), so a generator padded by ``pad_generator``
+gives the same results as the bare one. ``dz`` and the ``dbg`` partials have
+``round_up(V, BLOCK_V)`` columns. A label outside [0, V) has no logit (``zt``
+0, no label term in ``dz``). Rows are not padded: the kernels mask the ragged
+last row tile themselves.
 
 The logits tile is the float32-accumulated product rounded to the compute
 dtype with the bias added in that dtype; all statistics are float32.
 
 Dispatch: a wrapper given CPU tensors runs the ``*_reference`` version; given
 CUDA tensors it launches the CUDA kernel (``csrc/sce_loss.cu``) or raises.
-Each wrapper counts its kernel launches in ``<wrapper>.launches``.
+Each wrapper counts its kernel launches in ``<wrapper>.launches``. In
+bfloat16 the two statistics wrappers launch the tensor-core kernel, which
+splits the vocab across blocks in slabs of ``SLAB_V`` columns and merges the
+slabs' partials in a second, small kernel; ``sce_stats_plan`` describes how
+the C launcher lays a call out.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from vct_tpu_torch.ops._checks import SMEM_LIMIT
 from vct_tpu_torch.ops._checks import expect as _expect
 from vct_tpu_torch.ops._checks import on_cuda as _on_cuda
 from vct_tpu_torch.ops._checks import raise_on, stream
 
 NEG_INF = -1e30
 EPS = 1e-7
-BLOCK_V = 512   # vocab tile: fixes the order of every float reduction
-MAX_E = 1664    # widest row tile of x that fits a block's shared memory
+BLOCK_V = 512   # vocab tile of the plain versions and the backward: fixes the order of its sums
+SLAB_V = 256    # vocab columns of a slab of the tensor-core statistics kernel (ST_BN)
+MAX_E = 1664    # widest row tile of x that fits a block's shared memory (backward, float32)
 ROW_TILE = {torch.bfloat16: 32, torch.float32: 16}  # Cfg<T>::BM in csrc/sce_loss.cu
+H100_SMS = 132
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -54,9 +65,11 @@ def _round_up(x: int, m: int) -> int:
 
 def pad_generator(wg: torch.Tensor, bg: torch.Tensor, dtype: torch.dtype
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The generator parameters (``wg`` [V, E], ``bg`` [V]) as the kernels take
-    them: compute dtype, vocab padded to a multiple of ``BLOCK_V`` with zero
-    rows and a ``NEG_INF`` bias, so a pad column's probability is exactly 0."""
+    """The generator parameters (``wg`` [V, E], ``bg`` [V]) in the compute
+    dtype with the vocab padded to a multiple of ``BLOCK_V`` by zero rows and
+    a ``NEG_INF`` bias, so a pad column's probability is exactly 0. The
+    kernels no longer need it (they mask the ragged last tile); the tests use
+    it to show that both forms give the same results."""
     v, e = wg.shape
     v_pad = _round_up(v, BLOCK_V)
     w = torch.zeros((v_pad, e), dtype=dtype, device=wg.device)
@@ -71,11 +84,29 @@ def pad_generator(wg: torch.Tensor, bg: torch.Tensor, dtype: torch.dtype
 # ---------------------------------------------------------------------------
 
 
+def _tile(w, b, start: int):
+    """Rows [start, start + BLOCK_V) of the generator as the kernels load
+    them: a short last tile is filled up with zero rows and a ``NEG_INF``
+    bias."""
+    wt, bt = w[start:start + BLOCK_V], b[start:start + BLOCK_V]
+    short = BLOCK_V - wt.shape[0]
+    if short:
+        wt = F.pad(wt, (0, 0, 0, short))
+        bt = F.pad(bt, (0, short), value=NEG_INF)
+    return wt, bt
+
+
 def _tile_logits(x, w, b, start: int) -> torch.Tensor:
     """One vocab tile's logits -> [N, BLOCK_V] float32 holding compute-dtype
     values: float32 products and accumulation, rounded, bias added in dtype."""
-    z32 = x.float() @ w[start:start + BLOCK_V].float().t()
-    return (z32.to(x.dtype) + b[start:start + BLOCK_V]).float()
+    wt, bt = _tile(w, b, start)
+    z32 = x.float() @ wt.float().t()
+    return (z32.to(x.dtype) + bt).float()
+
+
+def _valid_labels(labels, v: int):
+    """Labels outside [0, V) become -1, which no column matches."""
+    return torch.where((labels >= 0) & (labels < v), labels, -1)
 
 
 def softmax_stats_reference(x, w, b, labels):
@@ -85,6 +116,7 @@ def softmax_stats_reference(x, w, b, labels):
     s = torch.zeros((n,), device=dev)
     zt = torch.zeros((n,), device=dev)
     cols = torch.arange(BLOCK_V, device=dev)
+    labels = _valid_labels(labels, w.shape[0])
     for start in range(0, w.shape[0], BLOCK_V):
         z = _tile_logits(x, w, b, start)
         m_new = torch.maximum(m, z.max(dim=-1).values)
@@ -109,7 +141,7 @@ def clipped_prob_stats_reference(x, w, b, lse):
 
 def sce_backward_tiles_reference(x, w, b, lse, u, cc, lab_term, labels):
     n, e = x.shape
-    v_pad = w.shape[0]
+    v_pad = _round_up(w.shape[0], BLOCK_V)
     dev, dt = x.device, x.dtype
     tile = ROW_TILE[dt]
     n_tiles = (n + tile - 1) // tile
@@ -117,6 +149,7 @@ def sce_backward_tiles_reference(x, w, b, lse, u, cc, lab_term, labels):
     dz_out = torch.empty((n, v_pad), dtype=dt, device=dev)
     dbg_parts = torch.empty((n_tiles, v_pad), device=dev)
     cols = torch.arange(BLOCK_V, device=dev)
+    labels = _valid_labels(labels, w.shape[0])
     for start in range(0, v_pad, BLOCK_V):
         p = torch.exp(_tile_logits(x, w, b, start) - lse[:, None])
         dz = p * (u[:, None] + cc[:, None] * (p > EPS).float())
@@ -126,8 +159,77 @@ def sce_backward_tiles_reference(x, w, b, lse, u, cc, lab_term, labels):
         dz_out[:, start:start + BLOCK_V] = dz_dt
         padded = F.pad(dz, (0, 0, 0, n_tiles * tile - n))
         dbg_parts[:, start:start + BLOCK_V] = padded.view(n_tiles, tile, BLOCK_V).sum(dim=1)
-        dx = dx + dz_dt.float() @ w[start:start + BLOCK_V].float()
+        dx = dx + dz_dt.float() @ _tile(w, b, start)[0].float()
     return dx, dz_out, dbg_parts
+
+
+# ---------------------------------------------------------------------------
+# the launch plan of the two statistics kernels
+# ---------------------------------------------------------------------------
+
+
+class StatsPlan(NamedTuple):
+    """How ``csrc/sce_loss.cu`` launches ``softmax_stats`` or
+    ``clipped_prob_stats``, field for field what ``vct_sce_stats_plan``
+    reports. ``route`` 1 is the tensor-core kernel (bfloat16): tiles of
+    ``rows`` x ``cols`` (a row tile against a vocab slab), K in steps of
+    ``kstep`` through ``stages`` ring stages, ``row_tiles`` x ``slabs`` tiles
+    over ``grid`` persistent blocks. ``route`` 0 is ``stats_kernel``: one
+    block of ``rows`` rows per row tile walks the vocab in tiles of ``cols``
+    (``slabs`` 1, ``grid`` = ``row_tiles``)."""
+    route: int
+    rows: int
+    cols: int
+    kstep: int
+    stages: int
+    smem_bytes: int
+    row_tiles: int
+    slabs: int
+    grid: int
+
+
+def _stats_kernel_smem(e: int, dtype) -> int:
+    """``smem_bytes<T>(e, false)``: x's row tile, the logits tile, two
+    weight stages, eight warps' fragment patches and the per-row scalars."""
+    rows, kc, pad, size = (32, 32, 8, 2) if dtype == torch.bfloat16 else (16, 16, 4, 4)
+    return (rows * (e + pad) * size + rows * (BLOCK_V + pad) * size
+            + 2 * BLOCK_V * (kc + pad) * size + 8 * 256 * 4 + 5 * rows * 4)
+
+
+def sce_stats_plan(n: int, e: int, v: int, dtype, route: int = -1,
+                   sms: int = H100_SMS) -> StatsPlan:
+    """The launch plan of the statistics kernels for x [n, e] against a
+    generator of ``v`` rows, on a card of ``sms`` SMs, as the C launcher
+    forms it: a description for tests and readers, not on the launch path.
+    The rule (``route`` -1): bfloat16 takes the tensor-core kernel at every
+    width the wrappers admit (it streams x through its ring as it streams the
+    weight, so no width is too wide for it); float32 takes ``stats_kernel``.
+    0 or 1 asks for that route. Raises on what the kernels do not take."""
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"dtype {dtype}; kernels take float32 or bfloat16")
+    if n < 1 or e < 128 or e % 128 or v < 1 or sms < 1:
+        raise ValueError(f"N={n}, width {e}, vocab {v}: N >= 1, a width that is a multiple "
+                         f"of 128, a vocab >= 1")
+    if route not in (-1, 0, 1) or (route == 1 and dtype != torch.bfloat16):
+        raise ValueError(f"route {route} for {dtype}")
+    if route < 0:
+        route = 1 if dtype == torch.bfloat16 else 0
+    if route == 1:
+        rows, cols, kstep, stages = 128, SLAB_V, 64, 4
+        # 1 KB to reach a 1024-byte boundary; per stage the x rows and the
+        # weight rows of one K step, 128 swizzled bytes each; two slabs of bias
+        smem = 1024 + stages * (rows + cols) * 128 + 2 * cols * 2
+        row_tiles, slabs = -(-n // rows), -(-v // cols)
+        plan = StatsPlan(1, rows, cols, kstep, stages, smem, row_tiles, slabs,
+                         min(row_tiles * slabs, sms))
+    else:
+        rows = ROW_TILE[dtype]
+        plan = StatsPlan(0, rows, BLOCK_V, 32 if dtype == torch.bfloat16 else 16, 2,
+                         _stats_kernel_smem(e, dtype), -(-n // rows), 1, -(-n // rows))
+    if plan.smem_bytes > SMEM_LIMIT:
+        raise ValueError(f"width {e} needs {plan.smem_bytes} bytes of shared memory, above "
+                         f"{SMEM_LIMIT}")
+    return plan
 
 
 # ---------------------------------------------------------------------------
@@ -136,29 +238,29 @@ def sce_backward_tiles_reference(x, w, b, lse, u, cc, lab_term, labels):
 
 
 def _check_common(x, w, b, rows):
-    """Shapes and types shared by the three kernels -> (n, e, v_pad);
+    """Shapes and types shared by the three kernels -> (n, e, v);
     ``rows`` maps a name to an [N] vector and its dtype."""
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"x has dtype {x.dtype}; kernels take float32 or bfloat16")
     n, e = x.shape
-    v_pad = w.shape[0]
+    v = w.shape[0]
     if e % 128 or e > MAX_E:
         raise ValueError(f"width {e} must be a multiple of 128 and at most {MAX_E} (the "
                          f"kernels keep a row tile of x in shared memory)")
-    if v_pad % BLOCK_V:
-        raise ValueError(f"padded vocab {v_pad} must be a multiple of {BLOCK_V}")
-    if n < 1:
-        raise ValueError("no rows")
+    if n < 1 or v < 1:
+        raise ValueError(f"no rows (N={n}, vocab {v})")
     dev = x.device
     _expect(x, "x", (n, e), x.dtype, dev)
-    _expect(w, "w", (v_pad, e), x.dtype, dev)
-    _expect(b, "b", (v_pad,), x.dtype, dev)
+    _expect(w, "w", (v, e), x.dtype, dev)
+    _expect(b, "b", (v,), x.dtype, dev)
     for name, (t, dtype) in rows.items():
         _expect(t, name, (n,), dtype, dev)
-    return n, e, v_pad
+    return n, e, v
 
 
-def _launch(fn_name: str, x, *args):
+def _launch(fn_name: str, x, tensors, ints):
+    """``fn_name``(dtype, x, *tensors, n, e, *ints, stream); a tensor may be
+    None (a null pointer)."""
     from vct_tpu_torch.ops._build import load_library
 
     lib = load_library()
@@ -166,9 +268,37 @@ def _launch(fn_name: str, x, *args):
     dev = x.device
     with torch.cuda.device(dev):
         err = getattr(lib, fn_name)(
-            _DTYPE_CODE[x.dtype], x.data_ptr(), *(t.data_ptr() for t in args[:-1]),
-            n, e, args[-1], stream(dev))
+            _DTYPE_CODE[x.dtype], x.data_ptr(),
+            *(None if t is None else t.data_ptr() for t in tensors), n, e, *ints, stream(dev))
     raise_on(err, fn_name)
+
+
+def _stats_scratch(x, v: int, route: int) -> Optional[torch.Tensor]:
+    """The slab partials of the tensor-core kernel, float32 [2, slabs, N];
+    None where ``stats_kernel`` runs (float32, or route 0)."""
+    if x.dtype != torch.bfloat16 or route == 0:
+        return None
+    return torch.empty((2, -(-v // SLAB_V), x.shape[0]), dtype=torch.float32, device=x.device)
+
+
+def _launch_softmax_stats(x, w, b, labels, _route: int = -1):
+    """``_route`` -1 leaves the choice to the launcher's rule, as every
+    caller in the package does; only checks set it, to time or test
+    ``stats_kernel`` (0) on bfloat16 inputs."""
+    n, _, v = _check_common(x, w, b, {"labels": (labels, torch.int32)})
+    m, s, zt = (torch.empty((n,), dtype=torch.float32, device=x.device) for _ in range(3))
+    _launch("vct_sce_softmax_stats", x, (w, b, labels, m, s, zt, _stats_scratch(x, v, _route)),
+            (v, _route))
+    return m, s, zt
+
+
+def _launch_clipped_prob_stats(x, w, b, lse, _route: int = -1):
+    """``_route`` as in ``_launch_softmax_stats``."""
+    n, _, v = _check_common(x, w, b, {"lse": (lse, torch.float32)})
+    sa, cnt = (torch.empty((n,), dtype=torch.float32, device=x.device) for _ in range(2))
+    _launch("vct_sce_clipped_stats", x, (w, b, lse, sa, cnt, _stats_scratch(x, v, _route)),
+            (v, _route))
+    return sa, cnt
 
 
 # ---------------------------------------------------------------------------
@@ -177,50 +307,46 @@ def _launch(fn_name: str, x, *args):
 
 
 def softmax_stats(x, w, b, labels) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """-> (m, s, zt), each [N] float32. A label outside [0, V_pad) gives
+    """-> (m, s, zt), each [N] float32. A label outside [0, V) gives
     ``zt`` = 0."""
     if not _on_cuda(x, "softmax_stats"):
         return softmax_stats_reference(x, w, b, labels)
-    n, _, v_pad = _check_common(x, w, b, {"labels": (labels, torch.int32)})
-    m, s, zt = (torch.empty((n,), dtype=torch.float32, device=x.device) for _ in range(3))
-    _launch("vct_sce_softmax_stats", x, w, b, labels, m, s, zt, v_pad)
+    out = _launch_softmax_stats(x, w, b, labels)
     softmax_stats.launches += 1
-    return m, s, zt
+    return out
 
 
 def clipped_prob_stats(x, w, b, lse) -> Tuple[torch.Tensor, torch.Tensor]:
-    """-> (sa, cnt), each [N] float32. Pad columns never count as above; the
-    caller adds the floor of the below-set with the true vocab size."""
+    """-> (sa, cnt), each [N] float32. Columns past V never count as above;
+    the caller adds the floor of the below-set with the true vocab size."""
     if not _on_cuda(x, "clipped_prob_stats"):
         return clipped_prob_stats_reference(x, w, b, lse)
-    n, _, v_pad = _check_common(x, w, b, {"lse": (lse, torch.float32)})
-    sa, cnt = (torch.empty((n,), dtype=torch.float32, device=x.device) for _ in range(2))
-    _launch("vct_sce_clipped_stats", x, w, b, lse, sa, cnt, v_pad)
+    out = _launch_clipped_prob_stats(x, w, b, lse)
     clipped_prob_stats.launches += 1
-    return sa, cnt
+    return out
 
 
 def sce_backward_tiles(x, w, b, lse, u, cc, lab_term, labels
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """-> (dx [N, E] float32, dz [N, V_pad] compute dtype, dbg_parts
-    [ceil(N / ROW_TILE), V_pad] float32). A width above 768 is served in
-    column slabs of ``dx``, each with its own walk over the vocab.
-    ``dwg = dz^T @ x`` is left to one
-    matrix product outside the kernel, as in the reference, and
+    [ceil(N / ROW_TILE), V_pad] float32), V_pad = round_up(V, BLOCK_V); the
+    columns past V are zeros. A width above 768 is served in column slabs of
+    ``dx``, each with its own walk over the vocab. ``dwg = dz^T @ x`` is left
+    to one matrix product outside the kernel, as in the reference, and
     ``dbg = dbg_parts.sum(0)``."""
     if not _on_cuda(x, "sce_backward_tiles"):
         return sce_backward_tiles_reference(x, w, b, lse, u, cc, lab_term, labels)
     f32 = torch.float32
-    n, e, v_pad = _check_common(x, w, b, {
+    n, e, v = _check_common(x, w, b, {
         "lse": (lse, f32), "u": (u, f32), "cc": (cc, f32), "lab_term": (lab_term, f32),
         "labels": (labels, torch.int32)})
     tile = ROW_TILE[x.dtype]
+    v_pad = _round_up(v, BLOCK_V)
     dev = x.device
     dx = torch.empty((n, e), dtype=f32, device=dev)
     dz = torch.empty((n, v_pad), dtype=x.dtype, device=dev)
     dbg_parts = torch.empty(((n + tile - 1) // tile, v_pad), dtype=f32, device=dev)
-    _launch("vct_sce_backward", x, w, b, lse, u, cc, lab_term, labels, dx, dz, dbg_parts,
-            v_pad)
+    _launch("vct_sce_backward", x, (w, b, lse, u, cc, lab_term, labels, dx, dz, dbg_parts), (v,))
     sce_backward_tiles.launches += 1
     return dx, dz, dbg_parts
 
