@@ -11,6 +11,8 @@ CUDA card.
     python3 chip_smoke.py --profile-decode build, then a torch.profiler
                                            reading of one caption at B=1 in
                                            each greedy mode
+    python3 chip_smoke.py --profile-beam   build, then a torch.profiler
+                                           reading of a beam-4 eval batch of 64
 
 Phases, each of which must pass:
   1. device   the card's name and power limit (nvidia-smi); no card -> exit 1
@@ -54,7 +56,10 @@ Phases, each of which must pass:
   8. beam-kernels  the four kernels of the eval slice against their plain
               versions in bfloat16 at the MSVD widths: the top-k kernel at
               256 beam rows with k=4 (and crafted ties across column blocks,
-              the same bits from run to run, and the widest k it carries),
+              the same bits from run to run, and the widest k it carries;
+              then its tensor-core route at B = 1, 65, 128, 200, 256 and k =
+              1, 4, 32 on a ragged vocab against the plain version and the
+              kernel it replaced, with ties across slabs),
               fused_layer_step at B=32,
               fused_multi_step at u=2 and 4 over several windows with the
               window poison, fused_sequence_decode at B=1 and 32 with end
@@ -94,7 +99,11 @@ Phases, each of which must pass:
               its shape rule (logits on chip, two passes) at Tk = 100, 255 and
               257 with and without bias and keep mask, the two routes'
               statistics against each other, and Tk = 800, past the on-chip
-              limit, through the wrappers
+              limit, through the wrappers; the bfloat16 backward's on-chip
+              route at ragged shapes (Tk up to its limit of 320), every bias
+              kind, a fully masked row, keep mask on and off, against the
+              plain version and the pair it replaced, and its plan at the
+              boundaries
  13. long-train  the long-video recipe (configs/msvd.json with
               tpu.max_frames 255, tpu.max_caption_len 129 and batch 32;
               videos of 100-400 frames, captions of 40-140 words) through
@@ -113,7 +122,8 @@ Phases, each of which must pass:
               caption loss and gradients on the kernel route against the math
               route; an MME encode with biGRU aggregation against the CPU
  16. attn-timings  for each long-recipe shape the kernels' forward and
-              backward ms, the bound, the plain version, the math path and
+              backward ms (and the kernels they replaced), the bound, the
+              plain version, the math path and
               F.scaled_dot_product_attention with the same mask (timed only,
               the port never calls it); ms per long train step with the
               attention kernels on and off
@@ -121,10 +131,15 @@ Phases, each of which must pass:
 Times: every row of the ``kernels`` line names its ``timer``. ``cuda_events``
 is ``cuda_time``, CUDA events around a Python loop of calls. ``graph_replay``
 is ``device_time`` (the calls captured into a CUDA graph and replayed: the
-device alone), used for the generator + argmax kernel, the attention forward,
-the two loss statistics kernels (at N=1984 and, in ``*_n4096``, N=4096) and
-their library calls, because their wrappers' host code outlasts the kernels;
-``eager_ms`` is the loop's reading of the same call.
+device alone), used for the generator + argmax kernel, the top-k kernel, the
+attention forward and (``backward_timer``) backward, the two loss statistics
+kernels (at N=1984 and, in ``*_n4096``, N=4096) and their library calls,
+because their wrappers' host code outlasts the kernels or, for the backward,
+because autograd's host loop is no clock of its kernels; ``eager_ms`` is the
+loop's reading of the same call (for the backward, forward + backward minus
+forward). SDPA's backward (``backward_library_ms``) is the ATen backward op
+it dispatched to: its autograd node called on the saved tensors of one
+forward, captured like the rest.
 ``previous_same_run_ms`` is the kernel that a redesign replaced, timed in this
 run on the same inputs by the same timer. ``cold_weight_ms`` replays the
 generator kernel on two copies of the weight in turn (94 MB against 50 MB of
@@ -205,6 +220,9 @@ RECORDED_PREVIOUS_MS = {
                         "decoder_cross": 0.1550},
     "fused_attention_trainable": {"encoder_self": 0.3445, "decoder_self": 0.1657,
                                   "decoder_cross": 0.1834},
+    "fused_attention_trainable_backward": {"encoder_self": 1.3829, "decoder_self": 0.6538,
+                                           "decoder_cross": 0.7419},
+    "fused_norm_generator_topk": 0.8690,
 }
 BEAM_ROWS, BEAM_K = 256, 4   # eval batch 64 x beam 4
 LOSS_REPLACES = {
@@ -818,6 +836,60 @@ def check_topk(fw, heads, tm):
              f"apart (limit {NEAR_TIE_SAME})")
     say(f"  ok {name}: values and lse within {TOPK_ATOL}, {int(differ.sum())} ids differ "
         f"at near-ties")
+    return max(err, check_topk_routes(fw, x, logits))
+
+
+def check_topk_routes(fw, x, logits):
+    """The tensor-core route (the wrapper's, bf16) at B=1, 65, 128, 200, 256
+    and k=1, 4, 32 on a ragged vocab (30528 columns: a last slab of 64)
+    against the plain version and the replaced kernel (route 0); ties across
+    slabs -> the largest values difference."""
+    from vct_tpu_torch.ops import decode_kernels as dk
+
+    v = -(-fw["vocab"] // 8) * 8
+    if v % 256 == 0:
+        fail(f"check_topk_routes: vocab {v} is a whole number of slabs, not ragged")
+    wg, bg = fw["wg"][:, :v].contiguous(), fw["bg"][:v].contiguous()
+    err = 0.0
+    for b in ARGMAX_BATCHES:
+        if dk.gen_topk_plan(b, x.shape[1], v, 4, wg.dtype).route != 1:
+            fail(f"top-k: the plan for B={b} is not the tensor-core route")
+        for k in (1, BEAM_K, dk.TOPK_MAX):
+            args = (x[:b].contiguous(), fw["norm_s"], fw["norm_b"], wg, bg)
+            got = dk.fused_norm_generator_topk(*args, k=k)
+            again = dk.fused_norm_generator_topk(*args, k=k)
+            old = dk._launch_gen_topk(*args, k, _route=0)
+            want = dk.fused_norm_generator_topk_reference(*args, k=k)
+            torch.cuda.synchronize()
+            name = f"fused_norm_generator_topk B={b} k={k} V={v}"
+            if not all(torch.equal(a, c) for a, c in zip(got, again)):
+                fail(f"{name}: two runs on the same inputs gave different bits")
+            for label, ref in (("plain version", want), ("replaced kernel", old)):
+                err = max(err, max_err(f"{name} values against the {label}", got[0], ref[0],
+                                       TOPK_ATOL),
+                          max_err(f"{name} lse against the {label}", got[2], ref[2], TOPK_ATOL))
+                differ = got[1] != ref[1]
+                gap = (torch.gather(logits[:b, :v], 1, ref[1].long())
+                       - torch.gather(logits[:b, :v], 1, got[1].long())).abs()
+                if bool(differ.any()) and float(gap[differ].max()) >= NEAR_TIE_SAME:
+                    fail(f"{name}: ids differ from the {label} where the plain logits are "
+                         f"{float(gap[differ].max())} apart (limit {NEAR_TIE_SAME})")
+            if int(got[1].max()) >= fw["vocab"] or int(got[1].min()) < 0:
+                fail(f"{name}: an id outside the vocab")
+    # one weight column at both sides of a slab boundary and in the ragged last slab
+    cols = [255, 256, 9000, v - 10]
+    wt, bt = wg.clone(), bg.clone()
+    for c in cols[1:]:
+        wt[:, c] = wt[:, cols[0]]
+    bt[cols] = 1e3
+    vals, ids, _ = dk.fused_norm_generator_topk(x[:65].contiguous(), fw["norm_s"], fw["norm_b"],
+                                                wt, bt, k=BEAM_K)
+    torch.cuda.synchronize()
+    if ids.cpu().tolist() != [cols] * 65 or not bool((vals == vals[:, :1]).all()):
+        fail(f"top-k tensor-core route: tied columns {cols} came out as {ids[0].tolist()}")
+    say(f"  ok the tensor-core top-k at B={ARGMAX_BATCHES}, k=1, {BEAM_K}, {dk.TOPK_MAX}, V={v}: "
+        f"against the plain version and the replaced kernel, same bits twice, ties across "
+        f"slabs; max values/lse difference {err:.3g}")
     return err
 
 
@@ -1395,15 +1467,33 @@ def time_beam_kernels(model, fw, heads, tm, card):
 
     bnd = bound_ms(nbytes(*gargs) + BEAM_ROWS * (8 * BEAM_K + 4),
                    2.0 * BEAM_ROWS * fw["wg"].numel(), dt)
+    wide = (x[:64].contiguous(),) + gargs[1:]  # the widest k the kernel carries
+    # device times (graph replay) of the kernel, the one it replaced and the
+    # library route, in turns: kernel, previous, library, library, previous, kernel
+    runs = {"kernel": lambda: dk.fused_norm_generator_topk(*gargs, k=BEAM_K),
+            "previous": lambda: dk._launch_gen_topk(*gargs, BEAM_K, _route=0),
+            "library": library_topk}
+    dev_ms = {key: device_time(fn) for key, fn in runs.items()}
+    for key, fn in reversed(runs.items()):
+        dev_ms[key] = min(dev_ms[key], device_time(fn))
     out["fused_norm_generator_topk"] = {
-        "ms": cuda_time(lambda: dk.fused_norm_generator_topk(*gargs, k=BEAM_K)),
+        "timer": "graph_replay", "ms": dev_ms["kernel"],
+        "eager_ms": cuda_time(runs["kernel"]),
+        "previous_same_run_ms": dev_ms["previous"],
         "plain_ms": cuda_time(lambda: dk.fused_norm_generator_topk_reference(*gargs, k=BEAM_K),
                               iters=5),
-        "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": cuda_time(library_topk)}
-    wide = (x[:64].contiguous(),) + gargs[1:]  # the widest k the kernel carries
-    wide_ms = cuda_time(lambda: dk.fused_norm_generator_topk(*wide, k=dk.TOPK_MAX))
-    say(f"  fused_norm_generator_topk at 64 rows, k={dk.TOPK_MAX}: kernel {wide_ms:.4f} ms "
-        f"[{card}]")
+        "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": dev_ms["library"],
+        "library_eager_ms": cuda_time(library_topk),
+        "ms_b64_k32": device_time(lambda: dk.fused_norm_generator_topk(*wide, k=dk.TOPK_MAX)),
+        "previous_same_run_ms_b64_k32": device_time(
+            lambda: dk._launch_gen_topk(*wide, dk.TOPK_MAX, _route=0))}
+    t = out["fused_norm_generator_topk"]
+    say(f"  fused_norm_generator_topk at {BEAM_ROWS} rows, k={BEAM_K} [{card}]: kernel "
+        f"{t['ms']:.4f} ms (replaced kernel {t['previous_same_run_ms']:.4f}, recorded earlier "
+        f"{RECORDED_PREVIOUS_MS['fused_norm_generator_topk']:.4f}; host loop "
+        f"{t['eager_ms']:.4f}), library {t['library_ms']:.4f} (host loop "
+        f"{t['library_eager_ms']:.4f}), bound {t['bound_ms']:.4f}; 64 rows, k={dk.TOPK_MAX}: "
+        f"kernel {t['ms_b64_k32']:.4f}, replaced kernel {t['previous_same_run_ms_b64_k32']:.4f}")
 
     a = step_inputs(fw, 32, 12, tm, gen=8000)
     w1 = {k: v[1] for k, v in fw["stacked"].items()}
@@ -2090,13 +2180,32 @@ def time_train_steps(repo, root, vocab, dev, card):
     return report
 
 
+def device_rows(fn, calls):
+    """torch.profiler over ``calls`` calls of ``fn`` -> ([(kernel, device ms
+    per call, launches per call)], host ms per call under the profiler). User
+    annotations and the optimizer's and profiler's own ranges are left out:
+    their device time is their kernels'."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / calls
+    rows = [(e.key, e.device_time_total / 1e3 / calls, e.count / calls)
+            for e in prof.key_averages()
+            if e.device_time_total > 0 and str(e.device_type).endswith("CUDA")
+            and not getattr(e, "is_user_annotation", False)
+            and not e.key.startswith(("Optimizer.", "ProfilerStep"))]
+    return rows, wall
+
+
 def profile_train(tr, card):
     """Where a train step of the Trainer ``tr`` goes: ms per step without
     the profiler, then torch.profiler over 10 steps for the device's busy
     time by kernel. The idle share sets the busy time against the unprofiled
     step, since the profiler slows the host several times over."""
-    from torch.profiler import ProfilerActivity, profile
-
     batch = first_batch(tr)
     for _ in range(3):
         tr.train_step(tr.state, batch)
@@ -2106,22 +2215,38 @@ def profile_train(tr, card):
         tr.train_step(tr.state, batch)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 100
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(10):
-            tr.train_step(tr.state, batch)
-        torch.cuda.synchronize()
-    profiled_ms = (time.perf_counter() - t0) * 100
-    rows = [(e.key, e.device_time_total / 1e4, e.count / 10) for e in prof.key_averages()
-            if e.device_time_total > 0 and str(e.device_type).endswith("CUDA")
-            and not getattr(e, "is_user_annotation", False)
-            and not e.key.startswith(("Optimizer.", "ProfilerStep"))]
+    rows, profiled_ms = device_rows(lambda: tr.train_step(tr.state, batch), 10)
     busy = sum(r[1] for r in rows)
     say(f"profile of 10 train steps [{card}]: {step_ms:.2f} ms/step unprofiled "
         f"({profiled_ms:.1f} under the profiler), device busy {busy:.2f} ms/step, idle share "
         f"{1 - busy / step_ms:.2f}, {sum(r[2] for r in rows):.0f} kernels/step")
+    bwd = sum(r[1] for r in rows if "bwd_d" in r[0])  # the attention backward's kernels
+    say(f"  attention backward kernels {bwd:.3f} ms/step, {bwd / busy:.3f} of the busy time")
     for key, ms, count in sorted(rows, key=lambda r: -r[1])[:14]:
         say(f"  {ms:8.3f} ms/step  {count:6.1f}/step  {key[:100]}")
+
+
+def profile_beam(model, fw, card):
+    """Where a beam-4 eval batch of 64 goes (29 tokens, the encoder
+    included): ms per batch without the profiler, then torch.profiler over 3
+    batches for the device's busy time per batch and per token by kernel."""
+    from vct_tpu_torch.decode_fast import beam_generate_fused
+
+    feats, masks = eval_inputs(BATCH, fw["wg"].device, SEED + 71)
+    with torch.no_grad():
+        def fn():
+            return beam_generate_fused(model, feats, masks, beam_size=BEAM_K, max_len=30,
+                                       start_id=101, end_id=-1, fw=fw)
+
+        ms = host_time(fn)
+        rows, _ = device_rows(fn, 3)
+    busy = sum(r[1] for r in rows)
+    say(f"profile of a beam-{BEAM_K} eval batch of {BATCH} [{card}]: {ms:.2f} ms unprofiled "
+        f"({BATCH / ms * 1000:.1f} captions/s), device busy {busy:.3f} ms per batch, "
+        f"{busy / 29:.4f} ms per beam token, idle share {1 - busy / ms:.2f}, "
+        f"{sum(r[2] for r in rows):.0f} kernels per batch")
+    for key, k_ms, count in sorted(rows, key=lambda r: -r[1])[:10]:
+        say(f"  {k_ms:8.3f} ms/batch  {count:6.1f}/batch  {key[:90]}")
 
 
 def profile_decode(model, fw, card):
@@ -2129,8 +2254,6 @@ def profile_decode(model, fw, card):
     caption without the profiler, then torch.profiler over 3 captions for the
     device's busy time by kernel. The idle share sets the busy time against
     the unprofiled caption, since the profiler slows the host."""
-    from torch.profiler import ProfilerActivity, profile
-
     from vct_tpu_torch.decode_fast import greedy_generate_fused
 
     feats, masks = eval_inputs(1, fw["wg"].device, SEED + 70)
@@ -2143,14 +2266,7 @@ def profile_decode(model, fw, card):
                 return greedy_generate_fused(model, feats, masks, **mode, **kw)
 
             ms = host_time(fn, reps=5)
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                for _ in range(3):
-                    fn()
-                torch.cuda.synchronize()
-            rows = [(e.key, e.device_time_total / 3e3, e.count / 3)
-                    for e in prof.key_averages()
-                    if e.device_time_total > 0 and str(e.device_type).endswith("CUDA")
-                    and not getattr(e, "is_user_annotation", False)]
+            rows, _ = device_rows(fn, 3)
             busy = sum(r[1] for r in rows)
             say(f"profile of a B=1 caption, {label} [{card}]: {ms:.3f} ms unprofiled, device "
                 f"busy {busy:.3f} ms, idle share {1 - busy / ms:.2f}, "
@@ -2284,6 +2400,7 @@ def check_attention_kernels(dev):
     routes = check_attention_routes(dev)
     errs["fused_attention"] = max(errs["fused_attention"], routes)
     errs["fused_attention_trainable"] = max(errs["fused_attention_trainable"], routes)
+    worst_bwd = max(worst_bwd, check_attention_backward_routes(dev))
     for bad, why in ((torch.zeros((1, 128, 2, 100), device=dev), "head width 100"),
                      (torch.zeros((1, 128, 2, 256), device=dev), "head width 256"),
                      (torch.zeros((1, 128, 2, 64), device=dev, dtype=torch.float16), "float16")):
@@ -2351,6 +2468,74 @@ def check_attention_routes(dev):
         fail(f"attention: the on-chip route took Tk={tk}, past its shared memory")
     say(f"  ok both forward routes at Tk=100, 255, 257 (bias, keep mask, same bits twice, "
         f"statistics), Tk={tk} by the shape rule; max abs difference {worst:.4g}")
+    return worst
+
+
+# (B, Tq, Tk, H, D) of the bfloat16 backward's route check: ragged in both
+# lengths, the three widths, Tk at the route's limit (320 at D = 96)
+BWD_ROUTE_SHAPES = [(2, 31, 13, 2, 96), (2, 13, 13, 8, 96), (2, 100, 100, 2, 96),
+                    (1, 37, 200, 2, 128), (2, 70, 255, 2, 16), (1, 65, 320, 2, 96)]
+
+
+def check_attention_backward_routes(dev):
+    """The bfloat16 backward on the route with its products in registers (1)
+    at ragged shapes, every bias kind (none, a [B,1,1,Tk] padding bias, a
+    [B,1,T,T] causal one, a full [B,H,Tq,Tk] one with a fully masked row),
+    keep mask on and off, against the plain version and against the pair it
+    replaced (route 0), under ATTN_GRAD_REL; the same bits from two runs; the
+    plan against the launcher at its boundary -> the largest gradient
+    difference. Also printed, each as a share of the largest plain gradient:
+    the new route against the plain version, the replaced pair (which divides
+    per element where the new route multiplies by a reciprocal, as the plain
+    version divides) against the plain version, and new against replaced."""
+    from vct_tpu_torch.ops import attention_kernels as ak
+
+    dt, worst, n = torch.bfloat16, 0.0, 0
+    share = {"new": 0.0, "replaced": 0.0, "new_vs_replaced": 0.0}
+    for b, tq, tk, h, d in BWD_ROUTE_SHAPES:
+        for kind in (None, "padding", "rows", "full"):
+            if kind == "rows" and tq != tk:
+                continue
+            for rate in (0.0, 0.3):
+                q, k, v, do, bias, keep = attn_inputs(dev, dt, b, tq, tk, h, d,
+                                                      None if kind == "full" else kind, rate,
+                                                      seed=400 + tq + tk)
+                if kind == "full":
+                    g = torch.Generator().manual_seed(tq)
+                    bias = torch.randn((b, h, tq, tk), generator=g).to(dev)
+                    bias[0, h - 1, tq // 2] = ak.NEG_INF  # a fully masked row
+                _, stats = ak._launch_forward(q, k, v, bias, keep, rate, True)
+                new = ak._launch_backward(q, k, v, bias, keep, rate, do, stats, 1)
+                again = ak._launch_backward(q, k, v, bias, keep, rate, do, stats, 1)
+                old = ak._launch_backward(q, k, v, bias, keep, rate, do, stats, 0)
+                want = ak.fused_attention_backward_reference(q, k, v, bias, keep, rate, do)
+                torch.cuda.synchronize()
+                name = f"attention backward {b}x{tq}x{tk}x{h}x{d} bias {kind} rate {rate}"
+                for label, got, prev, ref, rep in zip(("dq", "dk", "dv"), new, old, want, again):
+                    worst = max(worst, abs_and_rel(f"{name} {label}", got, ref,
+                                                   ATTN_GRAD_REL[dt])[0])
+                    abs_and_rel(f"{name} {label} against the replaced kernels", got, prev,
+                                ATTN_GRAD_REL[dt])
+                    if not torch.equal(got, rep):
+                        fail(f"{name} {label}: two runs gave different bits")
+                    top = max(float(ref.float().abs().max()), 1e-30)
+                    for key, a, c in (("new", got, ref), ("replaced", prev, ref),
+                                      ("new_vs_replaced", got, prev)):
+                        share[key] = max(share[key],
+                                         float((a.float() - c.float()).abs().max()) / top)
+                n += 1
+    for tk, route, rows in ((320, 1, 64), (321, 0, 64)):
+        plan = library_plan("vct_attn_backward_plan", 1, tk, LONG_D, 1, -1, n=7)
+        if plan[:2] != (route, rows) or plan != tuple(
+                ak.attention_backward_plan(tk, LONG_D, dt, True)):
+            fail(f"attention backward: the launcher plans {plan} for Tk={tk}, expected route "
+                 f"{route} with {rows}-row tiles and the Python mirror's plan")
+    say(f"  ok the bfloat16 backward's on-chip route in {n} cases (shapes {BWD_ROUTE_SHAPES}, "
+        f"four bias kinds, keep mask on and off) against the plain version and the replaced "
+        f"kernels, same bits twice, its plan at Tk=320 / 321; max abs gradient "
+        f"difference {worst:.4g}; as a share of the largest gradient: new against plain "
+        f"{share['new']:.4g}, replaced against plain {share['replaced']:.4g}, new against "
+        f"replaced {share['new_vs_replaced']:.4g} (limit {ATTN_GRAD_REL[dt]})")
     return worst
 
 
@@ -2756,14 +2941,33 @@ def time_attention(dev, card):
             "backward_bound_ms": bwd_bound[0],
             "backward_bound_by": bwd_bound[1],
         }
-        # the backward by difference of host-loop times (it is long enough
-        # for the device to be what the loop waits for)
+        # the backward by difference of host-loop times (eager: what an
+        # autograd loop waits for)
         both = cuda_time(with_backward(kernel_train, do))
-        t["backward_ms"] = both - t["forward_eager_ms"]
+        t["backward_eager_ms"] = both - t["forward_eager_ms"]
         t["backward_math_ms"] = cuda_time(with_backward(math_train, do), iters=5) \
             - t["forward_math_ms"]
-        t["backward_library_ms"] = cuda_time(with_backward(lib_train, do.transpose(1, 2))) \
-            - t["forward_library_eager_ms"]
+        t["backward_library_eager_ms"] = cuda_time(
+            with_backward(lib_train, do.transpose(1, 2))) - t["forward_library_eager_ms"]
+        # Device times (graph replay) of the backward kernels on the forward's
+        # saved statistics, the pair they replaced (route 0), and the
+        # library's backward: the ATen backward op SDPA dispatched to (its
+        # autograd node, called on the saved tensors of one forward; autograd's
+        # engine cannot be captured here). Kernel, previous, library, library,
+        # previous, kernel.
+        _, stats = ak._launch_forward(q, k, v, bias, keep, 0.3, True)
+        lib_node = lib_train().grad_fn
+        do_t = do.transpose(1, 2)
+        runs = {"backward": lambda: ak._launch_backward(q, k, v, bias, keep, 0.3, do, stats),
+                "backward_previous": lambda: ak._launch_backward(q, k, v, bias, keep, 0.3, do,
+                                                                 stats, 0),
+                "backward_library": lambda: lib_node(do_t)}
+        bwd_ms = {key: device_time(fn) for key, fn in runs.items()}
+        for key, fn in reversed(runs.items()):
+            bwd_ms[key] = min(bwd_ms[key], device_time(fn))
+        t["backward_ms"] = bwd_ms["backward"]
+        t["backward_previous_same_run_ms"] = bwd_ms["backward_previous"]
+        t["backward_library_ms"] = bwd_ms["backward_library"]
         per_shape[name] = t
         say(f"  attention {name} (B={b}, H={h}, Tq={tq}, Tk={tk}, D={d}, bf16) [{card}]:")
         say(f"    inference: kernel {t['inference_ms']:.4f} ms (previous kernel "
@@ -2780,10 +2984,13 @@ def time_attention(dev, card):
             f"{t['forward_bound_ms']:.4f} ({t['bound_by']}), plain {t['forward_plain_ms']:.4f}, "
             f"math path {t['forward_math_ms']:.4f}, library {t['forward_library_ms']:.4f} "
             f"(host loop {t['forward_library_eager_ms']:.4f})")
-        say(f"    backward: kernel {t['backward_ms']:.4f} ms, bound "
-            f"{t['backward_bound_ms']:.4f} ({t['backward_bound_by']}), plain "
-            f"{t['backward_plain_ms']:.4f}, math path {t['backward_math_ms']:.4f}, library "
-            f"{t['backward_library_ms']:.4f}")
+        say(f"    backward: kernel {t['backward_ms']:.4f} ms (replaced kernels "
+            f"{t['backward_previous_same_run_ms']:.4f}, recorded earlier "
+            f"{RECORDED_PREVIOUS_MS['fused_attention_trainable_backward'][name]:.4f}; host loop "
+            f"{t['backward_eager_ms']:.4f}), bound {t['backward_bound_ms']:.4f} "
+            f"({t['backward_bound_by']}), plain {t['backward_plain_ms']:.4f}, math path "
+            f"{t['backward_math_ms']:.4f}, library {t['backward_library_ms']:.4f} "
+            f"({type(lib_node).__name__}; host loop {t['backward_library_eager_ms']:.4f})")
         for key, val in t.items():
             if key.endswith("_ms"):
                 report[f"attention_{name}_{key}"] = val
@@ -2801,17 +3008,23 @@ def time_attention(dev, card):
             "by_shape": {n: {key: per_shape[n]["inference_" + key] for key in
                              ("ms", "previous_same_run_ms", "bound_ms", "library_ms")} for n in per_shape}},
         "fused_attention_trainable": {
-            "timer": "graph_replay", "backward_timer": "cuda_events",
+            "timer": "graph_replay", "backward_timer": "graph_replay",
             "ms": enc["forward_ms"], "eager_ms": enc["forward_eager_ms"],
             "previous_same_run_ms": enc["forward_previous_same_run_ms"],
             "plain_ms": enc["forward_plain_ms"],
             "bound_ms": enc["forward_bound_ms"], "bound_by": enc["bound_by"],
             "library_ms": enc["forward_library_ms"], "math_path_ms": enc["forward_math_ms"],
-            "backward_ms": enc["backward_ms"], "backward_plain_ms": enc["backward_plain_ms"],
+            "backward_ms": enc["backward_ms"], "backward_eager_ms": enc["backward_eager_ms"],
+            "backward_previous_same_run_ms": enc["backward_previous_same_run_ms"],
+            "backward_plain_ms": enc["backward_plain_ms"],
             "backward_bound_ms": enc["backward_bound_ms"],
+            "backward_bound_by": enc["backward_bound_by"],
             "backward_library_ms": enc["backward_library_ms"],
             "by_shape": {n: {key: per_shape[n]["forward_" + key] for key in
-                             ("ms", "previous_same_run_ms", "bound_ms", "library_ms")} for n in per_shape}},
+                             ("ms", "previous_same_run_ms", "bound_ms", "library_ms")} for n in per_shape},
+            "backward_by_shape": {n: {key: per_shape[n]["backward_" + key] for key in
+                                      ("ms", "previous_same_run_ms", "bound_ms", "library_ms")}
+                                  for n in per_shape}},
     }
     return kernels, report
 
@@ -2898,6 +3111,9 @@ def main() -> int:
         heads, tm = fw["heads"], cfg.tpu.max_frames + 1
         if "--profile-decode" in sys.argv[1:]:
             profile_decode(model, fw, card)
+            return 0
+        if "--profile-beam" in sys.argv[1:]:
+            profile_beam(model, fw, card)
             return 0
         say(f"model: configs/msvd.json, {n_params} parameters and buffers, vocab "
             f"{model.config.vocab_size} (padded {fw['wg'].shape[1]}), {cfg.tpu.dtype}")

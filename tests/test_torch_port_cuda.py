@@ -163,16 +163,17 @@ def test_wrapper_rejects_bad_layouts(cuda):
 # ---------------------------------------------------------------------------
 
 
-def _assert_topk(got, want, x, fw, dt):
+def _assert_topk(got, want, x, fw, dt, vocab=V):
     """Values and logsumexp within the dtype's tolerance; ids equal except
-    where the plain logits of the two ids are within ``NEAR_TIE``."""
+    where the plain logits of the two ids are within ``NEAR_TIE``; every id
+    below ``vocab``."""
     (v_k, i_k, lse_k), (v_r, i_r, lse_r) = got, want
     torch.testing.assert_close(v_k, v_r, **TOL[dt])
     torch.testing.assert_close(lse_k, lse_r, **TOL[dt])
     logits = dk._ln(x, fw["norm_s"], fw["norm_b"]) @ fw["wg"].float() + fw["bg"]
     gap = (torch.gather(logits, 1, i_r.long()) - torch.gather(logits, 1, i_k.long())).abs()
     assert bool((gap[i_k != i_r] < NEAR_TIE).all()), (i_k, i_r)
-    assert int(i_k.max()) < V and int(i_k.min()) >= 0
+    assert int(i_k.max()) < vocab and int(i_k.min()) >= 0
 
 
 @pytest.mark.cuda
@@ -821,3 +822,123 @@ def test_attention_forward_plan_matches_the_launcher_and_its_boundary(cuda):
            torch.bfloat16)
     with pytest.raises(RuntimeError):
         ak._launch_forward(q, k, v, bias, keep, 0.3, True, 1)
+
+
+# ---------------------------------------------------------------------------
+# the backward with its products in registers (csrc/attention.cu,
+# bwd_dq_onchip_kernel + bwd_dkv_onchip_kernel) and the tensor-core top-k
+# (csrc/gen_topk.cu on gen_wgmma.cuh)
+# ---------------------------------------------------------------------------
+
+BWD_SHAPES = [  # (B, Tq, Tk, H, D): ragged in both lengths, the widths, Tk at the route's limit
+    (2, 100, 100, 2, 96), (1, 70, 255, 3, 96), (2, 33, 257, 2, 16), (1, 129, 64, 2, 128),
+    (1, 65, 320, 1, 96), (2, 128, 128, 2, 96)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias_kind", [None, "padding", "rows", "full"])
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_attention_backward_routes(cuda, bias_kind, shape):
+    """The bfloat16 backward on the new route (1) against the plain version
+    and against the kernels it replaced (route 0), with and without a keep
+    mask; ``full`` has a fully masked row; two runs, one set of bits."""
+    if bias_kind == "rows" and shape[1] != shape[2]:
+        pytest.skip("square biases need Tq == Tk")
+    dt = torch.bfloat16
+    assert ak.attention_backward_plan(shape[2], shape[4], dt, True).route == 1
+    for rate in (0.0, 0.3):
+        q, k, v, bias, keep, do = _attn_inputs(cuda, dt, shape, bias_kind, rate, seed=7)
+        _, stats = ak._launch_forward(q, k, v, bias, keep, rate, True)
+        new = ak._launch_backward(q, k, v, bias, keep, rate, do, stats, 1)
+        again = ak._launch_backward(q, k, v, bias, keep, rate, do, stats, 1)
+        old = ak._launch_backward(q, k, v, bias, keep, rate, do, stats, 0)
+        want = ak.fused_attention_backward_reference(q, k, v, bias, keep, rate, do)
+        torch.cuda.synchronize()
+        for got, prev, ref, rep in zip(new, old, want, again):
+            _close(got, ref, dt, grad=True)
+            _close(got, prev, dt, grad=True)
+            assert torch.equal(got, rep)
+
+
+@pytest.mark.cuda
+def test_attention_backward_plan_matches_the_launcher_and_its_boundary(cuda):
+    for dt in (torch.float32, torch.bfloat16):
+        for d in (16, 96, 128):
+            for tk in (1, 100, 256, 320, 321, 576, 640, 641, 704, 705, 1500):
+                for has_keep in (False, True):
+                    plan = ak.attention_backward_plan(tk, d, dt, has_keep)
+                    assert plan == _plan_from_library(
+                        "vct_attn_backward_plan", ak._DTYPE_CODE[dt], tk, d, int(has_keep), -1,
+                        n=7), (dt, d, tk, has_keep)
+    assert ak.attention_backward_plan(320, 96, torch.bfloat16, True)[:2] == (1, 64)
+    assert ak.attention_backward_plan(321, 96, torch.bfloat16, True).route == 0
+    # past the limit the wrapper runs the replaced pair, and asking for the
+    # new route there makes the launcher refuse before any launch
+    shape = (1, 70, 321, 2, 96)
+    q, k, v, bias, keep, do = _attn_inputs(cuda, torch.bfloat16, shape, "padding", 0.3, seed=2)
+    _, stats = ak._launch_forward(q, k, v, bias, keep, 0.3, True)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ak.fused_attention_trainable(*leaves, bias, keep, 0.3).backward(do)
+    want = ak.fused_attention_backward_reference(q, k, v, bias, keep, 0.3, do)
+    for got, ref in zip((t.grad for t in leaves), want):
+        _close(got, ref, torch.bfloat16, grad=True)
+    with pytest.raises(RuntimeError):
+        ak._launch_backward(q, k, v, bias, keep, 0.3, do, stats, 1)
+    with pytest.raises(RuntimeError):  # float32 has no on-chip route
+        q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
+        _, st32 = ak._launch_forward(q32, k32, v32, bias, keep, 0.3, True)
+        ak._launch_backward(q32, k32, v32, bias, keep, 0.3, do32, st32, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 65, 128, 200, 256])
+@pytest.mark.parametrize("k", [1, 4, dk.TOPK_MAX])
+def test_generator_topk_routes(cuda, b, k):
+    """bfloat16 on the tensor-core route at every batch tile size against the
+    plain version and the replaced kernel (route 0): vocab 1000 padded to
+    1096 (not a multiple of the 256-column slab), width 136 (not a multiple
+    of the 64-wide K step); the same bits twice."""
+    dt, e, v, v_pad = torch.bfloat16, 136, 1000, 1096
+    args = _gen_inputs(cuda, dt, b, e, v, v_pad, seed=b + k)
+    plan = dk.gen_topk_plan(b, e, v_pad, k, dt)
+    assert plan.route == 1
+    assert plan == _plan_from_library("vct_gen_topk_plan", 1, b, e, v_pad, k, -1, n=9)
+    fw = {"norm_s": args[1], "norm_b": args[2], "wg": args[3], "bg": args[4]}
+    launches = dk.fused_norm_generator_topk.launches
+    got = dk.fused_norm_generator_topk(*args, k=k)
+    again = dk.fused_norm_generator_topk(*args, k=k)
+    old = dk._launch_gen_topk(*args, k, _route=0)
+    want = dk.fused_norm_generator_topk_reference(*args, k=k)
+    torch.cuda.synchronize()
+    assert dk.fused_norm_generator_topk.launches == launches + 2
+    for ref in (want, old):
+        _assert_topk(got, ref, args[0], fw, dt, vocab=v)
+    for a, c in zip(got, again):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [3, 130])
+def test_generator_topk_ties_across_slabs_on_the_tensor_core_route(cuda, b):
+    """Columns 100, 255, 256 and 900 (three slabs of 256 columns, and the two
+    sides of a slab boundary) carry one weight column and lead the vocab:
+    they come out in ascending order with equal values."""
+    x, ns, nb, wg, bg = _gen_inputs(cuda, torch.bfloat16, b, 128, 1000, 1024, seed=11)
+    cols = [100, 255, 256, 900]
+    for c in cols[1:]:
+        wg[:, c] = wg[:, cols[0]]
+    bg[cols] = 1e3
+    v, i, _ = dk.fused_norm_generator_topk(x, ns, nb, wg, bg, k=4)
+    assert i.cpu().tolist() == [cols] * b
+    assert bool((v == v[:, :1]).all())
+
+
+@pytest.mark.cuda
+def test_topk_plan_matches_the_launcher(cuda):
+    for dt in (torch.float32, torch.bfloat16):
+        for b in (1, 64, 65, 256):
+            for e, v in ((136, 1096), (768, 30720)):
+                for k in (1, 4, 32):
+                    for route in ((-1, 0, 1) if dt == torch.bfloat16 else (-1, 0)):
+                        assert dk.gen_topk_plan(b, e, v, k, dt, route) == _plan_from_library(
+                            "vct_gen_topk_plan", dk._DTYPE_CODE[dt], b, e, v, k, route, n=9)

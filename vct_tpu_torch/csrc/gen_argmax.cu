@@ -14,8 +14,9 @@
 //
 // Two routes, chosen by the weights' dtype in the host launcher:
 //
-//   bfloat16 -> the tensor-core route (gen_norm_split_kernel, then
-//   gen_argmax_wgmma_kernel):
+//   bfloat16 -> the tensor-core route (gen_wgmma.cuh: gen_norm_split_kernel,
+//   then gen_wgmma_kernel with ArgmaxEpi as its epilogue; gen_topk.cu runs
+//   the same product with its top-k epilogue):
 //   * LayerNorm once per row, in a prologue of one warp per row, with the
 //     float32 statistics of the reference. yn stays float32 in the reference,
 //     so it is split yn = hi + lo into two bfloat16 parts (hi = bf16(yn), lo =
@@ -59,12 +60,9 @@
 //   tensor-core route existed. float32 has no bf16 tensor-core product that
 //   keeps its mantissa, and only the card tests use it.
 
-#include "decode_common.cuh"
-#include "mma_common.cuh"
+#include "gen_wgmma.cuh"
 
 namespace {
-
-typedef __nv_bfloat16 bf16;
 
 // ---------------------------------------------------------------------------
 // the CUDA-core route
@@ -106,260 +104,95 @@ __global__ void keys_to_tokens_kernel(const u64* keys, int* tok, int B) {
 }
 
 // ---------------------------------------------------------------------------
-// the tensor-core route
+// the tensor-core route: gen_wgmma.cuh's product with the argmax epilogue
 // ---------------------------------------------------------------------------
 
-constexpr int GA_THREADS = 256;     // two warpgroups; each owns 128 columns of the slab
-constexpr int GA_BN = 256;          // vocab columns of a slab
-constexpr int GA_BK = 64;           // K step of the ring: one 128-byte swizzled row of the parts
-constexpr int GA_STAGES = 3;
+struct ArgmaxEpi {
+  u64* keys;   // [B + 1]: the rows' keys, then the count of finished blocks
+  int* tok;
 
-// One warp per row: yn = LayerNorm(x[row]) with float32 statistics, split into
-// hi = bf16(yn) and lo = bf16(yn - hi). parts is [2, b_pad, E]; rows from B to
-// b_pad become zeros.
-__global__ void __launch_bounds__(GA_THREADS)
-gen_norm_split_kernel(const bf16* x, const float* ns, const float* nb, bf16* parts, u64* keys,
-                      int B, int b_pad, int E) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row = blockIdx.x * (GA_THREADS / 32) + warp;
-  if (row >= b_pad) return;
-  if (lane == 0 && row < B) keys[row] = 0ull;           // below every real key
-  if (lane == 0 && row == 0) keys[B] = 0ull;            // the count of finished blocks
-  bf16* hi = parts + (size_t)row * E;
-  bf16* lo = parts + ((size_t)b_pad + row) * E;
-  if (row >= B) {
-    for (int k = lane; k < E; k += 32) hi[k] = lo[k] = __float2bfloat16_rn(0.f);
-    return;
-  }
-  const bf16* src = x + (size_t)row * E;
-  float s = 0.f;
-  for (int k = lane; k < E; k += 32) s += to_f(src[k]);
-  const float mean = warp_sum(s) / (float)E;
-  float q = 0.f;
-  for (int k = lane; k < E; k += 32) {
-    const float d = to_f(src[k]) - mean;
-    q += d * d;
-  }
-  const float rs = rsqrtf(warp_sum(q) / (float)E + LN_EPS);
-  for (int k = lane; k < E; k += 32) {
-    const float y = (to_f(src[k]) - mean) * rs * ns[k] + nb[k];
-    const bf16 h = __float2bfloat16_rn(y);
-    hi[k] = h;
-    lo[k] = __float2bfloat16_rn(y - __bfloat162float(h));
-  }
-}
+  template <int NB> static constexpr int smem_bytes() { return 8 * NB * (int)sizeof(u64); }
 
-// Walks (slab, M tile, K step) in that nesting, one step at a time; the loader
-// and the consumer each keep one.
-struct GaCursor {
-  int tile, mt, ks;
-  __device__ __forceinline__ void advance(int ksteps, int m_tiles, int stride) {
-    if (++ks == ksteps) {
-      ks = 0;
-      if (++mt == m_tiles) {
-        mt = 0;
-        tile += stride;
-      }
-    }
-  }
-};
-
-// The product transposed: logits^T [vocab, batch] = wg^T . yn^T. The vocab is
-// the M side of the tensor cores: a warp reads its 16 vocab columns x 16 k of
-// the [k][n] weight tile with ldmatrix.trans into the register (A) operand,
-// once for the hi and the lo product. The hi and lo parts are the B operand,
-// [batch row][k], K-major as they lie in memory, which the tensor cores read
-// from shared memory in the 128-byte-swizzled layout (cp.async writes piece c
-// of row r at piece c ^ (r % 8)).
-
-constexpr int GW_W_BYTES = GA_BK * (GA_BN + 8) * 2;   // weight tile, pitch 264 elements
-
-__host__ __device__ constexpr int gw_stage_bytes(int nb) { return 2 * nb * 128 + GW_W_BYTES; }
-__host__ __device__ constexpr int gw_smem_bytes(int nb) {
-  return 1024 + GA_STAGES * gw_stage_bytes(nb) + 8 * nb * (int)sizeof(u64);
-}
-
-// NB: batch rows of a tile (the N of the product), 64 or 128
-template <int NB>
-__global__ void __launch_bounds__(GA_THREADS, 1)
-gen_argmax_wgmma_kernel(const bf16* parts, const bf16* wg, const float* bg, u64* keys, int* tok,
-                        int B, int b_pad, int E, int V, int n_tiles, int m_tiles) {
-  constexpr int STAGE = gw_stage_bytes(NB), WLD = GA_BN + 8, NC = GA_BN / 8;
-  constexpr int P_CHUNKS = 2 * NB * 8 / GA_THREADS, W_CHUNKS = GA_BK * NC / GA_THREADS;
-  extern __shared__ unsigned char smem_raw[];
-  // the swizzled tiles want a 1024-byte boundary
-  unsigned char* ring = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  u64* skeys = reinterpret_cast<u64*>(ring + GA_STAGES * STAGE);  // [8 warps][NB]
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wgid = warp >> 2, w4 = warp & 3, g = lane >> 2, q = lane & 3;
-  const int ksteps = (E + GA_BK - 1) / GA_BK;
-  const int my_tiles = (n_tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
-  const int total = my_tiles * m_tiles * ksteps;
-
-  auto fetch = [&](const GaCursor& c, int stage) {
-    unsigned char* st = ring + stage * STAGE;
-    const int k0 = c.ks * GA_BK, n0 = c.tile * GA_BN;
-#pragma unroll
-    for (int i = 0; i < P_CHUNKS; ++i) {
-      const int chunk = tid + i * GA_THREADS;
-      const int kc = chunk & 7, row2 = chunk >> 3;
-      const int half = row2 / NB, row = row2 - half * NB;
-      const int k = k0 + kc * 8;
-      const bool ok = k < E;
-      const bf16* src = parts + ((size_t)half * b_pad + (size_t)c.mt * NB + row) * E + (ok ? k : 0);
-      cp_async16(st + half * (NB * 128) + row * 128 + ((kc ^ (row & 7)) << 4), src, ok);
-    }
-    bf16* ws = reinterpret_cast<bf16*>(st + 2 * NB * 128);
-#pragma unroll
-    for (int i = 0; i < W_CHUNKS; ++i) {
-      const int chunk = tid + i * GA_THREADS;
-      const int kr = chunk / NC, nc = chunk % NC;
-      const int k = k0 + kr, n = n0 + nc * 8;
-      const bool ok = k < E && n < V;
-      cp_async16(ws + kr * WLD + nc * 8, wg + (ok ? (size_t)k * V + n : 0), ok);
-    }
-  };
-
-  float acc[2][NB / 2];   // two m64 tiles of vocab columns x NB batch rows
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int j = 0; j < NB / 2; ++j) acc[mi][j] = 0.f;
-
-  GaCursor ld = {(int)blockIdx.x, 0, 0}, cs = {(int)blockIdx.x, 0, 0};
-  for (int s = 0; s < GA_STAGES - 1; ++s) {
-    if (s < total) {
-      fetch(ld, s);
-      ld.advance(ksteps, m_tiles, gridDim.x);
-    }
-    cp_async_commit();
-  }
-
-  for (int s = 0; s < total; ++s) {
-    cp_async_wait<GA_STAGES - 2>();   // step s has landed
-    fence_async_shared();             // and the tensor cores may read it
-    __syncthreads();                  // every warp's products of step s - 1 are done
-    if (s + GA_STAGES - 1 < total) {
-      fetch(ld, (s + GA_STAGES - 1) % GA_STAGES);
-      ld.advance(ksteps, m_tiles, gridDim.x);
-    }
-    cp_async_commit();
-
-    const unsigned char* st = ring + (s % GA_STAGES) * STAGE;
-    const bf16* ws = reinterpret_cast<const bf16*>(st + 2 * NB * 128);
-    uint32_t afr[2][GA_BK / 16][4];
+  // acc[mi][4 j + r]: vocab column mi * 64 + w4 * 16 + g + 8 * (r / 2) of the
+  // warpgroup's 128, batch row 8 j + 2 q + r % 2. A thread's four columns
+  // ascend with (mi, r / 2).
+  template <int NB>
+  __device__ __forceinline__ void tile(float (&acc)[2][NB / 2], const float* bg, int slab, int mt,
+                                       int B, int V, unsigned char* smem) const {
+    u64* skeys = reinterpret_cast<u64*>(smem);  // [8 warps][NB]
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int wgid = warp >> 2, w4 = warp & 3, g = lane >> 2, q = lane & 3;
+    const int v0 = slab * GA_BN + wgid * 128 + w4 * 16 + g;
+    float bgv[2][2];
+    bool okv[2][2];
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-      for (int kk = 0; kk < GA_BK / 16; ++kk)
-        ldmatrix_x4_trans(afr[mi][kk],
-                          ws + (kk * 16 + (lane >> 4) * 8 + (lane & 7)) * WLD + wgid * 128 +
-                              mi * 64 + w4 * 16 + ((lane >> 3) & 1) * 8);
-    const uint64_t hi_desc = wgmma_desc_sw128(st), lo_desc = wgmma_desc_sw128(st + NB * 128);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < GA_BK / 16; ++kk)
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const int keep = (cs.ks > 0 || kk > 0) ? 1 : 0;   // 0: a new tile starts from zero
-        if constexpr (NB == 128) {
-          wgmma_m64n128k16_rs(acc[mi], afr[mi][kk], hi_desc + 2 * kk, keep);
-          wgmma_m64n128k16_rs(acc[mi], afr[mi][kk], lo_desc + 2 * kk, 1);
-        } else {
-          wgmma_m64n64k16_rs(acc[mi], afr[mi][kk], hi_desc + 2 * kk, keep);
-          wgmma_m64n64k16_rs(acc[mi], afr[mi][kk], lo_desc + 2 * kk, 1);
-        }
+      for (int rr = 0; rr < 2; ++rr) {
+        const int v = v0 + mi * 64 + rr * 8;
+        okv[mi][rr] = v < V;
+        bgv[mi][rr] = okv[mi][rr] ? bg[v] : 0.f;
       }
-    wgmma_commit();
-    wgmma_wait<0>();
-
-    if (cs.ks == ksteps - 1) {
-      // epilogue of (slab cs.tile, batch tile cs.mt). acc[mi][4 j + r]: vocab
-      // column mi * 64 + w4 * 16 + g + 8 * (r / 2) of the warpgroup's 128, batch
-      // row 8 j + 2 q + r % 2. A thread's four columns ascend with (mi, r / 2).
-      const int v0 = cs.tile * GA_BN + wgid * 128 + w4 * 16 + g;
-      float bgv[2][2];
-      bool okv[2][2];
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
+    for (int j = 0; j < NB / 8; ++j)
 #pragma unroll
-        for (int rr = 0; rr < 2; ++rr) {
-          const int v = v0 + mi * 64 + rr * 8;
-          okv[mi][rr] = v < V;
-          bgv[mi][rr] = okv[mi][rr] ? bg[v] : 0.f;
-        }
+      for (int c = 0; c < 2; ++c) {
+        float best = -__int_as_float(0x7f800000);
+        int at = v0;
 #pragma unroll
-      for (int j = 0; j < NB / 8; ++j)
+        for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          float best = -__int_as_float(0x7f800000);
-          int at = v0;
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-            for (int rr = 0; rr < 2; ++rr) {
-              const float v = acc[mi][4 * j + 2 * rr + c] + bgv[mi][rr];
-              if (okv[mi][rr] && v > best) { best = v; at = v0 + mi * 64 + rr * 8; }
-            }
-          u64 key = okv[0][0] ? argmax_key(best, at) : 0ull;
-#pragma unroll
-          for (int o = 4; o < 32; o <<= 1) {   // the eight lanes that share q
-            const u64 other = __shfl_xor_sync(0xffffffffu, key, o);
-            key = other > key ? other : key;
+          for (int rr = 0; rr < 2; ++rr) {
+            const float v = acc[mi][4 * j + 2 * rr + c] + bgv[mi][rr];
+            if (okv[mi][rr] && v > best) { best = v; at = v0 + mi * 64 + rr * 8; }
           }
-          if (g == 0) skeys[warp * NB + 8 * j + 2 * q + c] = key;
-        }
-      __syncthreads();
-      if (tid < NB) {
-        const int row = cs.mt * NB + tid;
-        u64 key = skeys[tid];
+        u64 key = okv[0][0] ? argmax_key(best, at) : 0ull;
 #pragma unroll
-        for (int w = 1; w < 8; ++w) key = skeys[w * NB + tid] > key ? skeys[w * NB + tid] : key;
-        if (row < B && key) atomicMax(keys + row, key);
+        for (int o = 4; o < 32; o <<= 1) {   // the eight lanes that share q
+          const u64 other = __shfl_xor_sync(0xffffffffu, key, o);
+          key = other > key ? other : key;
+        }
+        if (g == 0) skeys[warp * NB + 8 * j + 2 * q + c] = key;
       }
+    __syncthreads();
+    if (tid < NB) {
+      const int row = mt * NB + tid;
+      u64 key = skeys[tid];
+#pragma unroll
+      for (int w = 1; w < 8; ++w) key = skeys[w * NB + tid] > key ? skeys[w * NB + tid] : key;
+      if (row < B && key) atomicMax(keys + row, key);
     }
-    cs.advance(ksteps, m_tiles, gridDim.x);
   }
-  cp_async_wait<0>();
 
   // the block that finishes last turns the keys into tokens
-  __shared__ bool last;
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) last = atomicAdd(keys + B, 1ull) == (u64)gridDim.x - 1;
-  __syncthreads();
-  if (last) {
+  __device__ __forceinline__ void finish(int B, unsigned char*) const {
+    __shared__ bool last;
     __threadfence();
-    for (int b = tid; b < B; b += GA_THREADS) tok[b] = key_index(__ldcg(keys + b));
+    __syncthreads();
+    if (threadIdx.x == 0) last = atomicAdd(keys + B, 1ull) == (u64)gridDim.x - 1;
+    __syncthreads();
+    if (last) {
+      __threadfence();
+      for (int b = threadIdx.x; b < B; b += GA_THREADS) tok[b] = key_index(__ldcg(keys + b));
+    }
   }
-}
-
-// ---------------------------------------------------------------------------
-// the launch plan: {route, rows of an M tile, columns of a slab, K step,
-// stages, dynamic shared memory, M tiles, slabs, padded rows}. Route 1 is the
-// tensor-core route, route 0 the CUDA-core route (whose entries are its unit's
-// rows and columns, no K step or stages, batch tiles, column-tile groups, 0).
-// ---------------------------------------------------------------------------
-
-struct GenPlan {
-  int route, bm, bn, bk, stages, smem, m_tiles, n_tiles, b_pad;
 };
+
+// ---------------------------------------------------------------------------
+// the launch plan (GenPlan in gen_wgmma.cuh). Route 0 is the CUDA-core
+// route, whose entries are its unit's rows and columns, no K step or stages,
+// batch tiles, column-tile groups, 0.
+// ---------------------------------------------------------------------------
 
 // false for what no route takes
 bool gen_plan(int dtype, int B, int E, int V, int route, GenPlan* out) {
   if (B < 1 || E < 8 || V < 8 || E % 8 || V % 8 || route > 1 || (route == 1 && dtype != 1))
     return false;
   GenPlan p;
-  p.route = route < 0 ? (dtype == 1 ? 1 : 0) : route;
-  if (p.route == 1) {
-    p.bm = B <= 64 ? 64 : 128;
-    p.bn = GA_BN; p.bk = GA_BK; p.stages = GA_STAGES;
-    p.smem = gw_smem_bytes(p.bm);
-    p.m_tiles = (B + p.bm - 1) / p.bm;
-    p.n_tiles = (V + GA_BN - 1) / GA_BN;
-    p.b_pad = p.m_tiles * p.bm;
+  if ((route < 0 ? (dtype == 1 ? 1 : 0) : route) == 1) {
+    p = gen_tc_plan<ArgmaxEpi>(B, V);
   } else {
+    p.route = 0;
     p.bm = BT; p.bn = TN; p.bk = 0; p.stages = 0;
     p.smem = (int)sizeof(float) * (BT * E + NWARPS * BT * TN);
     p.m_tiles = (B + BT - 1) / BT;
@@ -380,30 +213,6 @@ cudaError_t launch_fma(const GenPlan& p, const void* x, const void* ns, const vo
   k<<<dim3(p.n_tiles, p.m_tiles), NTHREADS, p.smem, st>>>(
       (const T*)x, (const float*)ns, (const float*)nb, (const T*)wg, (const float*)bg,
       (u64*)keys, B, E, V);
-  return cudaGetLastError();
-}
-
-template <int NB>
-cudaError_t launch_wgmma(const GenPlan& p, const void* parts, const void* wg, const void* bg,
-                         void* keys, void* tok, int B, int E, int V, cudaStream_t st) {
-  auto k = gen_argmax_wgmma_kernel<NB>;
-  static int sm_count[64] = {};
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= 64 || !sm_count[dev]) {
-    err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
-    if (err != cudaSuccess) return err;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-    if (dev < 64) sm_count[dev] = sms;
-  } else {
-    sms = sm_count[dev];
-  }
-  const int grid = p.n_tiles < sms ? p.n_tiles : sms;
-  k<<<grid, GA_THREADS, p.smem, st>>>((const bf16*)parts, (const bf16*)wg, (const float*)bg,
-                                      (u64*)keys, (int*)tok, B, p.b_pad, E, V, p.n_tiles,
-                                      p.m_tiles);
   return cudaGetLastError();
 }
 
@@ -442,14 +251,8 @@ int vct_gen_argmax(int dtype, const void* x, const void* ns, const void* nb, con
   cudaError_t err;
   if (p.route == 1) {
     if (!parts) return (int)cudaErrorInvalidValue;
-    const int rows_per_block = GA_THREADS / 32;
-    gen_norm_split_kernel<<<(p.b_pad + rows_per_block - 1) / rows_per_block, GA_THREADS, 0, st>>>(
-        (const bf16*)x, (const float*)ns, (const float*)nb, (bf16*)parts, (u64*)keys, B, p.b_pad,
-        E);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    err = p.bm == 64 ? launch_wgmma<64>(p, parts, wg, bg, keys, tok, B, E, V, st)
-                     : launch_wgmma<128>(p, parts, wg, bg, keys, tok, B, E, V, st);
-    return (int)err;
+    return (int)launch_gen_tc(p, x, ns, nb, parts, wg, bg, (u64*)keys, B, E, V,
+                              ArgmaxEpi{(u64*)keys, (int*)tok}, st);
   }
   err = dtype == 1 ? launch_fma<bf16>(p, x, ns, nb, wg, bg, keys, B, E, V, st)
                    : launch_fma<float>(p, x, ns, nb, wg, bg, keys, B, E, V, st);

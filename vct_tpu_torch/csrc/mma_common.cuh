@@ -1,6 +1,7 @@
 // Tensor-core and asynchronous-copy primitives shared by the kernels that
-// keep their accumulators in registers (gen_argmax.cu, the on-chip forward of
-// attention.cu, the bfloat16 statistics kernel of sce_loss.cu): cp.async in
+// keep their accumulators in registers (gen_wgmma.cuh, the on-chip forward
+// and backward of attention.cu, the bfloat16 statistics kernel of
+// sce_loss.cu): cp.async in
 // 16-byte pieces with zero fill, ldmatrix (plain and transposed), the
 // m16n8k16 bfloat16 product with float32 accumulation (mma.sync, one warp)
 // and the m64nNk16 one of a warpgroup (wgmma, A from registers or from shared

@@ -94,8 +94,10 @@ def load_library() -> ctypes.CDLL:
     lib.vct_decode_multi.restype = _I
     lib.vct_gen_topk_blocks.argtypes = [_I]
     lib.vct_gen_topk_blocks.restype = _I
-    lib.vct_gen_topk.argtypes = [_I] + [_P] * 11 + [_I] * 4 + [_P]
+    lib.vct_gen_topk.argtypes = [_I] + [_P] * 12 + [_I] * 5 + [_P]
     lib.vct_gen_topk.restype = _I
+    lib.vct_gen_topk_plan.argtypes = [_I] * 6 + [_IP]
+    lib.vct_gen_topk_plan.restype = _I
     lib.vct_sce_block_rows.argtypes = [_I]
     lib.vct_sce_block_rows.restype = _I
     lib.vct_sce_stats_plan.argtypes = [_I] * 6 + [_IP]
@@ -110,6 +112,8 @@ def load_library() -> ctypes.CDLL:
     lib.vct_attn_forward.restype = _I
     lib.vct_attn_forward_plan.argtypes = [_I] * 5 + [_IP]
     lib.vct_attn_forward_plan.restype = _I
-    lib.vct_attn_backward.argtypes = [_I] + [_P] * 11 + [_I] * 5 + [_IP, _F, _F, _P]
+    lib.vct_attn_backward.argtypes = [_I] + [_P] * 11 + [_I] * 5 + [_IP, _F, _F, _I, _P]
     lib.vct_attn_backward.restype = _I
+    lib.vct_attn_backward_plan.argtypes = [_I] * 5 + [_IP]
+    lib.vct_attn_backward_plan.restype = _I
     return lib

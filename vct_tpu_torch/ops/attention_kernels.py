@@ -33,7 +33,10 @@ mask) against 4 * Tq * Tk * D operations per (batch, head) cell forward; see
 ``csrc/attention.cu`` for the design. The forward has two routes
 (``attention_forward_plan``): bfloat16 keeps a query tile's logits on chip and
 computes Q.K^T once while they fit a block's shared memory; float32, and
-bfloat16 past that limit, run two passes over the key tiles.
+bfloat16 past that limit, run two passes over the key tiles. So has the
+backward (``attention_backward_plan``): bfloat16 keeps a query tile's P and dP
+on chip and its products in registers while they fit; float32, and bfloat16
+past that limit, run the pair of kernels with shared-memory accumulators.
 
 Dispatch: a wrapper given CPU tensors runs the ``*_reference`` version; given
 CUDA tensors it launches the CUDA kernel (``csrc/attention.cu``) or raises.
@@ -194,6 +197,59 @@ def attention_forward_plan(tk: int, d: int, dtype, has_keep: bool, route: int = 
     return ForwardPlan(0, tile, tile, 1, smem, 256)
 
 
+class BackwardPlan(NamedTuple):
+    """How ``csrc/attention.cu`` launches a backward, field for field what
+    ``vct_attn_backward_plan`` reports. ``route`` 1: kernel 1 takes
+    ``tile_q`` query rows a block (P and dP on chip, dQ and delta), kernel 2
+    ``tile_k`` keys a block (dK, dV), products in registers; ``route`` 0: the
+    pair with shared-memory accumulators."""
+    route: int
+    tile_q: int
+    tile_k: int
+    stages: int
+    smem_dq: int
+    smem_dkv: int
+    threads: int
+
+
+def _onchip_bwd_bytes(tk: int, d: int, has_keep: bool) -> Tuple[int, int]:
+    """Kernel 1: 64 rows of P and dP over Tk (whole 64-key tiles), float32,
+    and two ring stages of two 64 x (d + 8) bfloat16 tiles plus, with a keep
+    mask, 64 x 80 keep bytes. Kernel 2: the K and V tiles and two
+    stages of the Q and dO tiles, 768 bytes of row statistics and 64 x 80 keep
+    bytes."""
+    tile = 64 * (d + 8) * 2
+    dq = 64 * -(-tk // 64) * 64 * 8 + 2 * (2 * tile + (64 * 80 if has_keep else 0))
+    dkv = 2 * tile + 2 * (2 * tile + 768 + (64 * 80 if has_keep else 0))
+    return dq, dkv
+
+
+def attention_backward_plan(tk: int, d: int, dtype, has_keep: bool, route: int = -1
+                            ) -> BackwardPlan:
+    """The launch plan of the backward for Tk keys of width ``d``, as the C
+    launcher forms it: a description for tests and readers, not on the launch
+    path. The shape rule (``route`` -1): bfloat16 takes the on-chip route with
+    64-row query tiles while kernel 1 fits ``SMEM_LIMIT`` (Tk up to 320 at
+    d = 96); float32, and bfloat16 past that, take the pair with
+    shared-memory accumulators. 0 or 1 asks for that route; 1 raises where it
+    does not fit."""
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"dtype {dtype}; the kernels take float32 or bfloat16")
+    if tk < 1 or d % 16 or not 16 <= d <= MAX_D:
+        raise ValueError(f"no kernel for Tk={tk}, head width {d}")
+    dq, dkv = _onchip_bwd_bytes(tk, d, has_keep)
+    fits = dtype == torch.bfloat16 and max(dq, dkv) <= SMEM_LIMIT
+    if route not in (-1, 0, 1) or (route == 1 and not fits):
+        raise ValueError(f"route {route} for Tk={tk}, d={d}, {dtype}")
+    if route == 1 or (route < 0 and fits):
+        return BackwardPlan(1, 64, 64, 2, dq, dkv, 256)
+    tile, pad, size = (64, 8, 2) if dtype == torch.bfloat16 else (32, 4, 4)
+    data, acc = _round128(tile * (d + pad) * size), _round128(tile * (d + 4) * 4)
+    s, pt = _round128(tile * (tile + 4) * 4), _round128(tile * (tile + pad) * size)
+    return BackwardPlan(0, tile, tile, 1, 4 * data + 2 * s + pt + acc,
+                        4 * data + 2 * s + 2 * pt + 2 * acc, 256)
+
+
 def _strided(t: torch.Tensor) -> torch.Tensor:
     """``t`` as the kernels can read it: unit stride on D, every other stride
     and the start on a 16-byte boundary, offsets within 31 bits; else a
@@ -254,7 +310,11 @@ def _launch_forward(q, k, v, bias, keep, rate: float, want_stats: bool, _route: 
     return out, stats
 
 
-def _launch_backward(q, k, v, bias, keep, rate: float, g, stats):
+def _launch_backward(q, k, v, bias, keep, rate: float, g, stats, _route: int = -1):
+    """``_route`` -1 leaves the choice to the launcher's rule on the shape, as
+    every caller in the package does; only checks set it, to time or test one
+    route (0 shared-memory accumulators, 1 products in registers) where the
+    rule takes the other."""
     from vct_tpu_torch.ops._build import load_library
 
     b, h, tq, tk, d = _check(q, k, v, bias, keep, rate)
@@ -274,7 +334,7 @@ def _launch_backward(q, k, v, bias, keep, rate: float, g, stats):
             _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr,
             None if keep is None else keep.data_ptr(), g.data_ptr(), stats.data_ptr(),
             delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, tq, tk, d,
-            strides, _scale(q), 1.0 - rate, stream(dev))
+            strides, _scale(q), 1.0 - rate, _route, stream(dev))
     raise_on(err, "vct_attn_backward")
     del bias_view
     return dq, dk, dv

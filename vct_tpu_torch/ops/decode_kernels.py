@@ -418,12 +418,21 @@ class GenArgmaxPlan(NamedTuple):
     b_pad: int
 
 
-def gen_argmax_plan(b: int, e: int, v: int, dtype, route: int = -1) -> GenArgmaxPlan:
-    """The launch plan of ``fused_norm_generator_argmax`` for x [b, e] and wg
-    [e, v] of ``dtype``, as the C launcher forms it: a description for tests
-    and readers, not on the launch path. ``route`` -1 picks by the dtype
-    (bfloat16 -> tensor cores, float32 -> CUDA cores); 0 or 1 asks for that
-    route. Raises on what the kernels do not take."""
+def _tc_plan(b: int, v: int, epilogue_bytes_per_row: int) -> GenArgmaxPlan:
+    """The tensor-core route's plan (``gen_tc_plan`` in csrc/gen_wgmma.cuh):
+    batch tiles of 64 rows up to B = 64, of 128 above, 256-column slabs, K
+    steps of 64 through 3 stages. Shared memory: 1 KB to reach a 1024-byte
+    boundary; per stage the hi and the lo rows (128 bytes each) and the
+    weight tile (pitch cols + 8); the epilogue's bytes per row."""
+    rows, cols, kstep, stages = (64 if b <= 64 else 128), 256, 64, 3
+    smem = 1024 + stages * (2 * rows * 128 + kstep * (cols + 8) * 2) + rows * epilogue_bytes_per_row
+    m_tiles = -(-b // rows)
+    return GenArgmaxPlan(1, rows, cols, kstep, stages, smem, m_tiles, -(-v // cols),
+                         m_tiles * rows)
+
+
+def _gen_route(b: int, e: int, v: int, dtype, route: int) -> int:
+    """Raises on what neither route takes -> the route (-1: by the dtype)."""
     if dtype not in _DTYPE_CODE:
         raise TypeError(f"dtype {dtype}; kernels take float32 or bfloat16")
     if b < 1 or e < 8 or v < 8 or e % 8 or v % 8:
@@ -431,23 +440,26 @@ def gen_argmax_plan(b: int, e: int, v: int, dtype, route: int = -1) -> GenArgmax
                          f"(16-byte weight loads)")
     if route not in (-1, 0, 1) or (route == 1 and dtype != torch.bfloat16):
         raise ValueError(f"route {route} for {dtype}")
-    if route < 0:
-        route = 1 if dtype == torch.bfloat16 else 0
-    if route == 1:
-        rows, cols, kstep, stages = (64 if b <= 64 else 128), 256, 64, 3
-        # 1 KB to reach a 1024-byte boundary; per stage the hi and the lo rows
-        # (128 bytes each) and the weight tile (pitch cols + 8); 8 warps' keys
-        smem = 1024 + stages * (2 * rows * 128 + kstep * (cols + 8) * 2) + 8 * rows * 8
-        m_tiles = -(-b // rows)
-        plan = GenArgmaxPlan(1, rows, cols, kstep, stages, smem, m_tiles, -(-v // cols),
-                             m_tiles * rows)
-    else:
-        plan = GenArgmaxPlan(0, 8, 32, 0, 0, 4 * (8 * e + 8 * 8 * 32), -(-b // 8),
-                             -(-(-(-v // 32)) // 8), 0)
+    return route if route >= 0 else (1 if dtype == torch.bfloat16 else 0)
+
+
+def _fits(plan: GenArgmaxPlan, e: int) -> GenArgmaxPlan:
     if plan.smem_bytes > SMEM_LIMIT:
         raise ValueError(f"width {e} needs {plan.smem_bytes} bytes of shared memory, above "
                          f"{SMEM_LIMIT}")
     return plan
+
+
+def gen_argmax_plan(b: int, e: int, v: int, dtype, route: int = -1) -> GenArgmaxPlan:
+    """The launch plan of ``fused_norm_generator_argmax`` for x [b, e] and wg
+    [e, v] of ``dtype``, as the C launcher forms it: a description for tests
+    and readers, not on the launch path. ``route`` -1 picks by the dtype
+    (bfloat16 -> tensor cores, float32 -> CUDA cores); 0 or 1 asks for that
+    route. Raises on what the kernels do not take."""
+    if _gen_route(b, e, v, dtype, route) == 1:
+        return _fits(_tc_plan(b, v, 8 * 8), e)  # 8 warps' keys a row
+    return _fits(GenArgmaxPlan(0, 8, 32, 0, 0, 4 * (8 * e + 8 * 8 * 32), -(-b // 8),
+                               -(-(-(-v // 32)) // 8), 0), e)
 
 
 def _launch_gen_argmax(x, norm_scale, norm_bias, wg, bg, _route: int = -1) -> torch.Tensor:
@@ -499,24 +511,34 @@ def fused_norm_generator_argmax(x, norm_scale, norm_bias, wg, bg) -> torch.Tenso
     return tok
 
 
-def fused_norm_generator_topk(x, norm_scale, norm_bias, wg, bg, *, k: int
-                              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """LayerNorm -> vocab projection -> per-row top-k and logsumexp -> (values
-    [B, k] float32, ids [B, k] int32, lse [B] float32); the [B, V] logits are
-    never stored. ``values - lse[:, None]`` are the k largest log-softmax
-    entries of each row, so beam search forms its candidates from k numbers
-    per beam. The lowest id wins among equal logits; the result does not
-    change from run to run. The kernel carries 1 <= k <= ``TOPK_MAX`` and
-    raises above it; the plain version (CPU tensors) takes any k up to the
-    vocab width."""
-    if not 1 <= k <= wg.shape[1]:
-        raise ValueError(f"k={k} outside 1..{wg.shape[1]}, the vocab width")
-    if not _on_cuda(x, "fused_norm_generator_topk"):
-        return fused_norm_generator_topk_reference(x, norm_scale, norm_bias, wg, bg, k=k)
-    if k > TOPK_MAX:
-        raise ValueError(f"k={k} above {TOPK_MAX}, the widest top-k the kernel carries")
+def gen_topk_plan(b: int, e: int, v: int, k: int, dtype, route: int = -1) -> GenArgmaxPlan:
+    """The launch plan of ``fused_norm_generator_topk`` for x [b, e], wg [e,
+    v] of ``dtype`` and ``k`` candidates a row, as the C launcher
+    (``vct_gen_topk_plan``) forms it: a description for tests and readers, not
+    on the launch path. ``route`` -1 picks by the dtype: bfloat16 takes the
+    tensor-core route of ``gen_argmax_plan`` (the same tiles and ring, and
+    per warp and row a key and a float plus per row a key for the top-k
+    epilogue); float32 takes ``gen_topk_partial`` (units of 8 rows x 256
+    columns, ``n_tiles`` column blocks). Both end in the fixed-order merge.
+    Raises on what the kernels do not take."""
+    route = _gen_route(b, e, v, dtype, route)
+    if not 1 <= k <= min(TOPK_MAX, v):
+        raise ValueError(f"k={k} outside 1..{min(TOPK_MAX, v)}")
+    if route == 1:
+        return _fits(_tc_plan(b, v, 8 * 12 + 8), e)
+    return _fits(GenArgmaxPlan(0, 8, 256, 0, 0, 4 * (8 * e + 8 * 8 * 32 + 8 * 256),
+                               -(-b // 8), -(-v // 256), 0), e)
+
+
+def _launch_gen_topk(x, norm_scale, norm_bias, wg, bg, k: int, _route: int = -1
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``_route`` -1 leaves the choice to the launcher's rule on the dtype, as
+    every caller in the package does; only checks set it, to time or test the
+    CUDA-core kernel (0) on bfloat16 inputs."""
     from vct_tpu_torch.ops._build import load_library
 
+    if k > TOPK_MAX:
+        raise ValueError(f"k={k} above {TOPK_MAX}, the widest top-k the kernel carries")
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"x has dtype {x.dtype}; kernels take float32 or bfloat16")
     b, e = x.shape
@@ -534,15 +556,39 @@ def fused_norm_generator_topk(x, norm_scale, norm_bias, wg, bg, *, k: int
     topv = torch.empty((b, k), dtype=torch.float32, device=dev)
     topi = torch.empty((b, k), dtype=torch.int32, device=dev)
     lse = torch.empty((b,), dtype=torch.float32, device=dev)
+    # the LayerNorm output's two bfloat16 parts for the tensor-core route, as
+    # for the argmax: whole batch tiles of 64 rows up to B = 64, of 128 above
+    rows = 64 if b <= 64 else 128
+    parts = (torch.empty((2, -(-b // rows) * rows, e), dtype=torch.bfloat16, device=dev)
+             if x.dtype == torch.bfloat16 and _route != 0 else None)
     with torch.cuda.device(dev):
         err = lib.vct_gen_topk(_DTYPE_CODE[x.dtype], x.data_ptr(), norm_scale.data_ptr(),
                                norm_bias.data_ptr(), wg.data_ptr(), bg.data_ptr(),
                                part_key.data_ptr(), part_m.data_ptr(), part_s.data_ptr(),
-                               topv.data_ptr(), topi.data_ptr(), lse.data_ptr(), b, e, v, k,
+                               topv.data_ptr(), topi.data_ptr(), lse.data_ptr(),
+                               None if parts is None else parts.data_ptr(), b, e, v, k, _route,
                                _stream(dev))
     _raise_on(err, "gen_topk kernel")
-    fused_norm_generator_topk.launches += 1
     return topv, topi, lse
+
+
+def fused_norm_generator_topk(x, norm_scale, norm_bias, wg, bg, *, k: int
+                              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """LayerNorm -> vocab projection -> per-row top-k and logsumexp -> (values
+    [B, k] float32, ids [B, k] int32, lse [B] float32); the [B, V] logits are
+    never stored. ``values - lse[:, None]`` are the k largest log-softmax
+    entries of each row, so beam search forms its candidates from k numbers
+    per beam. The lowest id wins among equal logits; the result does not
+    change from run to run. The kernel carries 1 <= k <= ``TOPK_MAX`` and
+    raises above it; the plain version (CPU tensors) takes any k up to the
+    vocab width."""
+    if not 1 <= k <= wg.shape[1]:
+        raise ValueError(f"k={k} outside 1..{wg.shape[1]}, the vocab width")
+    if not _on_cuda(x, "fused_norm_generator_topk"):
+        return fused_norm_generator_topk_reference(x, norm_scale, norm_bias, wg, bg, k=k)
+    out = _launch_gen_topk(x, norm_scale, norm_bias, wg, bg, k)
+    fused_norm_generator_topk.launches += 1
+    return out
 
 
 def fused_layer_step(x, k_cache, v_cache, ck, cv, mem_bias, weights, idx: int, *,
