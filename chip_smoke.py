@@ -13,6 +13,15 @@ CUDA card.
                                            each greedy mode
     python3 chip_smoke.py --profile-beam   build, then a torch.profiler
                                            reading of a beam-4 eval batch of 64
+    python3 chip_smoke.py --stack-variant ROOT
+                                           the package under ROOT (a copy of
+                                           vct_tpu_torch with a changed
+                                           csrc/stack_step.cu) in place of the
+                                           one beside the script: its stack
+                                           kernel's time at B=128 and 256 rows,
+                                           its route checks and the bf16 beam
+                                           loop checks, and per-phase times if
+                                           its library exports vct_stack_stamps
 
 Phases, each of which must pass:
   1. device   the card's name and power limit (nvidia-smi); no card -> exit 1
@@ -23,7 +32,10 @@ Phases, each of which must pass:
               kernel at B = 1, 65, 128, 200 and 256 (tokens equal but at
               near-ties, no pad column wins, the same tokens twice) and with
               one weight column planted on both sides of a slab boundary and
-              in a far slab, where the lowest index must win
+              in a far slab, where the lowest index must win; the stack
+              kernel's tensor-core route at B = 65, 128 and 256 against its
+              plain version and the kernel it replaced, the same bits twice,
+              and its plan (stack_step_plan) against the C launcher's
   4. server   configs/msvd.json with a synthetic 30522-entry vocab and seeded
               random weights saved as a reference-keyed .pth; the port's HTTP
               server on port 0 with max_batch 32 answers concurrent
@@ -43,7 +55,9 @@ Phases, each of which must pass:
               3000 and 30522 bare and 30522 padded, E = 768 and 896, against
               their plain versions and the kernel they replaced, labels
               outside [0, V), the same bits from two calls, and their launch
-              plan (sce_stats_plan) against the C launcher's
+              plan (sce_stats_plan) against the C launcher's; the bfloat16
+              backward's tensor-core route at N = 1984, 4096, 1000 and 300
+              (E = 896) the same way, and its plan (sce_backward_plan)
   7. train    a synthetic MSVD-shaped dataset (features, annotations, the
               30522-entry vocab) and configs/msvd.json with only paths and
               the epoch count changed, through vct_tpu_torch.cli.train's
@@ -132,8 +146,9 @@ Times: every row of the ``kernels`` line names its ``timer``. ``cuda_events``
 is ``cuda_time``, CUDA events around a Python loop of calls. ``graph_replay``
 is ``device_time`` (the calls captured into a CUDA graph and replayed: the
 device alone), used for the generator + argmax kernel, the top-k kernel, the
-attention forward and (``backward_timer``) backward, the two loss statistics
-kernels (at N=1984 and, in ``*_n4096``, N=4096) and their library calls,
+attention forward and (``backward_timer``) backward, the three loss kernels
+(at N=1984 and, in ``*_n4096``, N=4096) and their library calls, the stack
+kernel (at B=128 and, in ``*_b256``, 256 beam rows),
 because their wrappers' host code outlasts the kernels or, for the backward,
 because autograd's host loop is no clock of its kernels; ``eager_ms`` is the
 loop's reading of the same call (for the backward, forward + backward minus
@@ -223,6 +238,8 @@ RECORDED_PREVIOUS_MS = {
     "fused_attention_trainable_backward": {"encoder_self": 1.3829, "decoder_self": 0.6538,
                                            "decoder_cross": 0.7419},
     "fused_norm_generator_topk": 0.8690,
+    "fused_layers_step": {"b128": 0.8744, "b256": 1.3138},
+    "sce_backward_tiles": 4.5906,
 }
 BEAM_ROWS, BEAM_K = 256, 4   # eval batch 64 x beam 4
 LOSS_REPLACES = {
@@ -455,6 +472,8 @@ def check_kernels(fw, heads, tm):
             compare_float(name + " k rows", k1[:, idx], k2[:, idx], means),
             compare_float(name + " v rows", v1[:, idx], v2[:, idx], means))
         say(f"  ok {name}")
+    errs["fused_layers_step"] = max(errs["fused_layers_step"],
+                                    check_stack_routes(fw, heads, tm, means))
     # fused_norm_generator_argmax on decoder-like activations: one M tile of 64
     # rows, one of 128, two of 128; twice, for the same bits
     gargs = (fw["norm_s"], fw["norm_b"], fw["wg"], fw["bg"])
@@ -508,6 +527,63 @@ def check_kernels(fw, heads, tm):
     return errs
 
 
+def check_stack_routes(fw, heads, tm, means):
+    """fused_layers_step's plan (stack_step_plan) against the launcher's;
+    then in bfloat16 at B = 65, 128 and 256 beam rows, where the plan picks
+    the tensor-core kernel: x_out and the fresh cache rows against the plain
+    version and against decode_step_kernel (route 0), within the step
+    kernels' bounds; two calls give the same bits."""
+    import ctypes
+
+    from vct_tpu_torch.ops import decode_kernels as dk
+    from vct_tpu_torch.ops._build import load_library
+
+    st = fw["stacked"]
+    e, f = st["wqkv"].shape[1], st["w1"].shape[-1]
+    for dtype, b, (we, wh, wf), route in itertools.product(
+            (torch.bfloat16, torch.float32), (1, 64, 65, 256, dk.STACK_MAX_ROWS,
+                                              dk.STACK_MAX_ROWS + 1),
+            ((e, heads, f), (128, 4, 256), (96, 12, 256), (1280, 8, 2048), (768, 2, 2048)),
+            (-1, 0, 1)):
+        try:
+            want = tuple(dk.stack_step_plan(b, we, wh, wf, dtype, route))
+        except ValueError:
+            want = None
+        out = (ctypes.c_int * 7)()
+        err = load_library().vct_stack_step_plan(dk._DTYPE_CODE[dtype], b, we, wh, wf, route, out)
+        if (None if err else tuple(out)) != want:
+            fail(f"stack_step_plan({b}, {we}, {wh}, {wf}, {dtype}, {route}) is {want}, the "
+                 f"launcher's {None if err else tuple(out)}")
+    worst = 0.0
+    for b, idx, l_view in ((65, 12, 16), (128, 12, 16), (256, 12, 16), (256, 31, 32)):
+        plan = dk.stack_step_plan(b, e, heads, f, st["wqkv"].dtype)
+        if plan.route != 1:
+            fail(f"fused_layers_step B={b}: the plan takes route {plan.route} ({plan.why})")
+        a = step_inputs(fw, b, idx, tm, gen=7000 + b + idx)
+        args = (a["x"], None, None, a["ck"], a["cv"], a["mem_bias"], st, idx)
+        runs = {}
+        for label, fn in (
+                ("kernel", lambda *s: dk.fused_layers_step(*s, heads=heads, l_view=l_view)[0]),
+                ("again", lambda *s: dk.fused_layers_step(*s, heads=heads, l_view=l_view)[0]),
+                ("replaced", lambda *s: dk._launch_layers_step(*s, heads=heads, l_view=l_view,
+                                                               _route=0)),
+                ("plain", lambda *s: dk.fused_layers_step_reference(
+                    *s, heads=heads, l_view=l_view)[0])):
+            kc, vc = a["kc"].clone(), a["vc"].clone()
+            runs[label] = (fn(args[0], kc, vc, *args[3:]), kc[:, idx], vc[:, idx])
+        torch.cuda.synchronize()
+        name = f"fused_layers_step tensor-core route B={b} idx={idx} l_view={l_view}"
+        if not all(torch.equal(p, q) for p, q in zip(runs["kernel"], runs["again"])):
+            fail(f"{name}: two calls gave different bits")
+        for ref in ("plain", "replaced"):
+            for part, got, want in zip(("x_out", "k rows", "v rows"), runs["kernel"], runs[ref]):
+                err = compare_float(f"{name} {part} against the {ref}", got, want, means)
+                if ref == "plain":
+                    worst = max(worst, err)
+        say(f"  ok {name}: against the plain version and the replaced kernel; same bits twice")
+    return worst
+
+
 def step_bound(fw, a, b, l_view, gen: bool):
     """Bound of one decode step: every weight, the attended cache rows, the
     cross K/V and the activations once; 2 operations per weight and row."""
@@ -538,15 +614,37 @@ def time_kernels(fw, heads, tm):
         "plain_ms": cuda_time(lambda: dk.fused_whole_step_reference(
             *args, fw, 12, heads=heads, l_view=16)),
         "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
-    a = step_inputs(fw, 128, 12, tm, gen=4001)
-    args = (a["x"], a["kc"], a["vc"], a["ck"], a["cv"], a["mem_bias"], fw["stacked"])
-    bnd = step_bound(fw, a, 128, 16, False)
-    out["fused_layers_step"] = {
-        "ms": cuda_time(lambda: dk.fused_layers_step(*args, 12, heads=heads, l_view=16)),
-        "plain_ms": cuda_time(lambda: dk.fused_layers_step_reference(
-            *args, 12, heads=heads, l_view=16)),
-        "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
-    x = a["x"]
+    # the stack kernel and decode_step_kernel, which it replaced in bfloat16,
+    # by graph replay in turns (kernel, replaced, replaced, kernel) at B=128
+    # (greedy decode past 64) and 256 beam rows (eval batch 64 at beam 4)
+    row = {"timer": "graph_replay", "library_ms": None}
+    for b in (128, BEAM_ROWS):
+        a = step_inputs(fw, b, 12, tm, gen=4001 if b == 128 else 4003)
+        args = (a["x"], a["kc"], a["vc"], a["ck"], a["cv"], a["mem_bias"], fw["stacked"])
+        fns = {"kernel": lambda: dk.fused_layers_step(*args, 12, heads=heads, l_view=16),
+               "previous": lambda: dk._launch_layers_step(*args, 12, heads=heads, l_view=16,
+                                                          _route=0)}
+        t = {k: [] for k in fns}
+        for order in (list(fns), list(fns)[::-1]):
+            for which in order:
+                t[which].append(device_time(fns[which]))
+        bnd = step_bound(fw, a, b, 16, False)
+        sfx = "" if b == 128 else f"_b{b}"
+        row.update({f"ms{sfx}": min(t["kernel"]), f"previous_same_run_ms{sfx}": min(t["previous"]),
+                    f"bound_ms{sfx}": bnd[0], f"bound_by{sfx}": bnd[1]})
+        if b == 128:
+            row["eager_ms"] = cuda_time(fns["kernel"])
+            row["plain_ms"] = cuda_time(lambda: dk.fused_layers_step_reference(
+                *args, 12, heads=heads, l_view=16))
+            x = a["x"]
+    out["fused_layers_step"] = row
+    rec = RECORDED_PREVIOUS_MS["fused_layers_step"]
+    say(f"  fused_layers_step [stack kernel, graph replay]: B=128 {row['ms']:.4f} ms (replaced "
+        f"kernel {row['previous_same_run_ms']:.4f}, recorded earlier by cuda_time "
+        f"{rec['b128']:.4f}; host loop {row['eager_ms']:.4f}; bound {row['bound_ms']:.4f}), "
+        f"{BEAM_ROWS} rows {row[f'ms_b{BEAM_ROWS}']:.4f} ms (replaced kernel "
+        f"{row[f'previous_same_run_ms_b{BEAM_ROWS}']:.4f}, recorded earlier {rec['b256']:.4f}; "
+        f"bound {row[f'bound_ms_b{BEAM_ROWS}']:.4f})")
     gargs = (x, fw["norm_s"], fw["norm_b"], fw["wg"], fw["bg"])
     bg_dt = fw["bg"].to(x.dtype)
 
@@ -1702,6 +1800,29 @@ def rel_err(name, got, want, rel):
     return abs_and_rel(name, got, want, rel)[1]
 
 
+def backward_err(name, got, want, dt):
+    """sce_backward_tiles' outputs against ``want``: dz within one unit of
+    the compute dtype in all but 0.1% of the elements and within 5% in
+    every one, rows 8..16 (zero weight) exactly 0, dx and dbg within
+    GRAD_REL of their largest value -> (max abs difference, the largest of
+    dx's and dbg's as a share of their largest value, the share of dz
+    elements beyond one unit)."""
+    dx, dz, parts = got
+    dx_r, dz_r, parts_r = want
+    err = (dz.float() - dz_r.float()).abs()
+    ref = dz_r.float().abs()
+    unit = 2.0 ** -7 if dt == torch.bfloat16 else 2e-5
+    off = float((err > unit * ref + 1e-12).float().mean())
+    if off > 1e-3 or not bool((err <= 0.05 * ref + 1e-12).all()):
+        fail(f"{name}: dz off by more than one unit in {off:.2e} of the elements, worst "
+             f"{float((err / (ref + 1e-12)).max()):.3g} relative")
+    if float(dz[8:16].float().abs().max()) != 0.0:
+        fail(f"{name}: zero-weight rows gave a gradient")
+    dx_err = abs_and_rel(f"{name} dx", dx, dx_r, GRAD_REL[dt])
+    dbg_err = abs_and_rel(f"{name} dbg", parts.sum(0), parts_r.sum(0), GRAD_REL[dt])
+    return max(dx_err[0], dbg_err[0], float(err.max())), max(dx_err[1], dbg_err[1]), off
+
+
 def check_loss_kernels(dev):
     from vct_tpu_torch.ops import fused_loss as fl
     from vct_tpu_torch.ops import loss_kernels as lk
@@ -1732,8 +1853,8 @@ def check_loss_kernels(dev):
             torch.tensor(0.5 / n, device=dev), torch.tensor(0.5 / n, device=dev),
             a["keep"], a["rect"], lse, zt_r, sa_r, True)
         bargs = (x, w, b, lse, u.contiguous(), cc.contiguous(), lt.contiguous(), lab)
-        dx, dz, parts = lk.sce_backward_tiles(*bargs)
-        dx_r, dz_r, parts_r = lk.sce_backward_tiles_reference(*bargs)
+        got = lk.sce_backward_tiles(*bargs)
+        want = lk.sce_backward_tiles_reference(*bargs)
         torch.cuda.synchronize()
         errs["softmax_stats"] = max(
             errs["softmax_stats"],
@@ -1745,21 +1866,9 @@ def check_loss_kernels(dev):
             errs["clipped_prob_stats"],
             max_err(f"clipped_prob_stats {name} sa", sa, sa_r, STAT_ATOL[dt]))
         max_err(f"clipped_prob_stats {name} cnt", cnt, cnt_r, 8.0)
-        err = (dz.float() - dz_r.float()).abs()
-        ref = dz_r.float().abs()
-        unit = 2.0 ** -7 if dt == torch.bfloat16 else 2e-5
-        off = float((err > unit * ref + 1e-12).float().mean())
-        if off > 1e-3 or not bool((err <= 0.05 * ref + 1e-12).all()):
-            fail(f"sce_backward_tiles {name}: dz off by more than one unit in {off:.2e} of "
-                 f"the elements, worst {float((err / (ref + 1e-12)).max()):.3g} relative")
-        if float(dz[8:16].float().abs().max()) != 0.0:
-            fail(f"sce_backward_tiles {name}: zero-weight rows gave a gradient")
-        dx_err = abs_and_rel(f"sce_backward_tiles {name} dx", dx, dx_r, GRAD_REL[dt])
-        dbg_err = abs_and_rel(f"sce_backward_tiles {name} dbg", parts.sum(0), parts_r.sum(0),
-                              GRAD_REL[dt])
-        errs["sce_backward_tiles"] = max(errs["sce_backward_tiles"], dx_err[0], dbg_err[0],
-                                         float(err.max()))
-        bwd["max_rel_err"] = max(bwd["max_rel_err"], dx_err[1], dbg_err[1])
+        err, rel, off = backward_err(f"sce_backward_tiles {name}", got, want, dt)
+        errs["sce_backward_tiles"] = max(errs["sce_backward_tiles"], err)
+        bwd["max_rel_err"] = max(bwd["max_rel_err"], rel)
         bwd["dz_beyond_one_unit"] = max(bwd["dz_beyond_one_unit"], off)
         say(f"  ok kernels {name}: dz beyond one unit in {off:.2e} of the elements")
         # the autograd function: kernel route against the chunked route
@@ -1787,6 +1896,10 @@ def check_loss_kernels(dev):
         say(f"  ok linear_sce_parts {name}: SCE and CE-only, both routes")
     for name, err in check_stats_kernels(dev).items():
         errs[name] = max(errs[name], err)
+    err, rel, off = check_backward_routes(dev)
+    errs["sce_backward_tiles"] = max(errs["sce_backward_tiles"], err)
+    bwd["max_rel_err"] = max(bwd["max_rel_err"], rel)
+    bwd["dz_beyond_one_unit"] = max(bwd["dz_beyond_one_unit"], off)
     say(f"  max abs differences {errs}; sce_backward_tiles {bwd}")
     return errs, bwd
 
@@ -1856,13 +1969,80 @@ def check_stats_kernels(dev):
     return errs
 
 
+# (N, E, V) of the backward's route checks: the MSVD step, the long step, a
+# ragged last row tile, a width whose last dx tile is half full
+BWD_SHAPES = [(LOSS_N, LOSS_E, LOSS_V), (4096, LOSS_E, LOSS_V), (1000, LOSS_E, LOSS_V),
+              (300, 896, 3000)]
+
+
+def check_backward_routes(dev):
+    """sce_backward_tiles' plan (sce_backward_plan) against the C launcher's;
+    then in bfloat16 at BWD_SHAPES, where the plan takes the tensor-core
+    pair, against the plain version and against backward_kernel (route 0)
+    by backward_err's bounds, with labels outside [0, V); two calls give the
+    same bits. -> backward_err's worst figures against the plain versions."""
+    import ctypes
+
+    from vct_tpu_torch.ops import fused_loss as fl
+    from vct_tpu_torch.ops import loss_kernels as lk
+    from vct_tpu_torch.ops._build import load_library
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for dtype, n, e, v, route in itertools.product(
+            (torch.bfloat16, torch.float32), (1, 33, 256, 1984, 4096, 7936, lk.BWD_MAX_N + 1),
+            (128, 768, 896, 1664), (1111, 30522), (-1, 0, 1)):
+        try:
+            want = tuple(lk.sce_backward_plan(n, e, v, dtype, route, sms))
+        except ValueError:
+            want = None
+        out = (ctypes.c_int * 13)()
+        err = load_library().vct_sce_backward_plan(lk._DTYPE_CODE[dtype], n, e, v, route, sms,
+                                                   out)
+        if (None if err else tuple(out)) != want:
+            fail(f"sce_backward_plan({n}, {e}, {v}, {dtype}, {route}) is {want}, the "
+                 f"launcher's {None if err else tuple(out)}")
+    dt = torch.bfloat16
+    worst = (0.0, 0.0, 0.0)
+    for n, e, v in BWD_SHAPES:
+        plan = lk.sce_backward_plan(n, e, v, dt, -1, sms)
+        if plan.route != 1:
+            fail(f"sce_backward_tiles N={n} E={e} V={v}: the plan takes route {plan.route}")
+        a = loss_inputs(dev, dt, n, seed=n + e + v + 1, e=e, v=v)
+        x, w, b = a["x_dt"], a["w"], a["b"]
+        lab = a["lab32"].clone()
+        lab[16:19] = torch.tensor([-1, v, v + 700], dtype=torch.int32, device=dev)
+        m, s, zt = lk.softmax_stats_reference(x, w, b, lab)
+        lse = m + torch.log(s)
+        sa, _ = lk.clipped_prob_stats_reference(x, w, b, lse)
+        g = torch.tensor(0.5 / n, device=dev)
+        u, cc, lt = (t.contiguous() for t in fl._bwd_coefficients(
+            g, g, a["keep"], a["rect"], lse, zt, sa, True))
+        bargs = (x, w, b, lse, u, cc, lt, lab)
+        name = f"sce_backward_tiles tensor-core route N={n} E={e} V={v}"
+        with no_plain_on_cuda(name, lk):
+            got = lk.sce_backward_tiles(*bargs)
+            again = lk.sce_backward_tiles(*bargs)
+            old = lk._launch_backward(*bargs, _route=0)
+        want = lk.sce_backward_tiles_reference(*bargs)
+        torch.cuda.synchronize()
+        if not all(torch.equal(p, q) for p, q in zip(got, again)):
+            fail(f"{name}: two calls gave different bits")
+        res = backward_err(name, got, want, dt)
+        backward_err(f"{name} against the replaced kernel", got, old, dt)
+        worst = tuple(max(p, q) for p, q in zip(worst, res))
+        say(f"  ok {name} ({plan.groups} vocab groups of dx): against the plain version (dz "
+            f"beyond one unit in {res[2]:.2e}, dx and dbg within {res[1]:.2e} of their largest) "
+            f"and the replaced kernel; same bits twice")
+    return worst
+
+
 def time_loss_kernels(dev, card):
     """name -> {ms, plain_ms, bound_ms, bound_by, library_ms} at the train
     step's shape, and the routes of linear_sce_parts at N=1984 and N=7936.
-    The two statistics kernels, the kernel they replaced (route 0) and their
-    library calls are timed by graph replay at N=1984 and N=4096; the
-    backward by CUDA events. The generator's padded copy against the bare
-    cast, by graph replay."""
+    The three kernels, the kernels they replaced (route 0) and their library
+    calls are timed by graph replay at N=1984 and N=4096, and so is the
+    whole loss backward (kernel, dwg, dbg) against its library route. The
+    generator's padded copy against the bare cast, by graph replay."""
     import torch.nn.functional as F
 
     from vct_tpu_torch.models.losses import sce_loss_parts
@@ -1883,9 +2063,6 @@ def time_loss_kernels(dev, card):
         g, g, a["keep"], a["rect"], lse, zt, sa, True))
     bargs = (x, w, b, lse, u, cc, lt, lab)
     long_lab = a["labels"]
-    one_pass = 2.0 * n * e * v
-    bwd_bytes = nbytes(x, w, b, lab) + 4 * 4 * n + 4 * n * e + 2 * n * v_pad \
-        + 4 * v_pad * ((n + lk.ROW_TILE[dt] - 1) // lk.ROW_TILE[dt])
 
     leaves = [a[k].clone().requires_grad_() for k in ("x", "wg", "bg")]
 
@@ -1902,14 +2079,28 @@ def time_loss_kernels(dev, card):
     mat_fwd = cuda_time(lambda: materialised(False), iters=10)
     mat_both = cuda_time(lambda: materialised(True), iters=10)
     out = {}
-    rows_idx = torch.arange(n, device=dev)
 
-    def lib_backward():  # the same outputs from library calls, without dwg
-        p = torch.exp(F.linear(x, w, b).float() - lse[:, None])
-        dz = p * (u[:, None] + cc[:, None] * (p > 1e-7))
-        dz[rows_idx, long_lab] -= lt
-        dz_dt = dz.to(dt)
-        return fl._matmul_f32(dz_dt, w), dz_dt, dz.sum(0)
+    def lib_backward_for(x, w, b, lse, u, cc, lt, long_lab, with_dwg=False):
+        """The backward's outputs from library calls (materialised logits),
+        without dwg unless asked for."""
+        rows_idx = torch.arange(x.shape[0], device=x.device)
+
+        def run():
+            p = torch.exp(F.linear(x, w, b).float() - lse[:, None])
+            dz = p * (u[:, None] + cc[:, None] * (p > 1e-7))
+            dz[rows_idx, long_lab] -= lt
+            dz_dt = dz.to(dt)
+            out = (fl._matmul_f32(dz_dt, w), dz_dt, dz.sum(0))
+            return out + (fl._matmul_f32(dz_dt.t(), x),) if with_dwg else out
+        return run
+
+    def whole_backward_for(bargs):
+        """The kernel route's whole loss backward: the kernel, dwg on one
+        product, the dbg partials summed (fused_loss.py's backward)."""
+        def run():
+            dx, dz, parts = lk.sce_backward_tiles(*bargs)
+            return dx, fl._matmul_f32(dz.t(), bargs[0])[:v], parts.sum(dim=0)[:v]
+        return run
 
     # the statistics kernels by graph replay, in turns (kernel, replaced
     # kernel, library call, then the other way round), at the MSVD step's N
@@ -1954,11 +2145,52 @@ def time_loss_kernels(dev, card):
         lambda: lk.softmax_stats_reference(x, w, b, lab), iters=3)
     out["clipped_prob_stats"]["plain_ms"] = cuda_time(
         lambda: lk.clipped_prob_stats_reference(x, w, b, lse), iters=3)
-    bnd = bound_ms(bwd_bytes, 2 * one_pass, dt)
-    out["sce_backward_tiles"] = {
-        "ms": cuda_time(lambda: lk.sce_backward_tiles(*bargs), iters=10),
-        "plain_ms": cuda_time(lambda: lk.sce_backward_tiles_reference(*bargs), iters=3),
-        "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": cuda_time(lib_backward, iters=10)}
+    # the backward by graph replay, in turns (kernel, replaced kernel, library
+    # route, then the other way round), at N=1984 and N=4096; then the whole
+    # loss backward (kernel, dwg, dbg) against the library route with dwg
+    row = out["sce_backward_tiles"] = {"timer": "graph_replay"}
+    for rows in (LOSS_N, 4096):
+        if rows == LOSS_N:
+            ar, br, lab_long = a, bargs, long_lab
+        else:
+            ar = loss_inputs(dev, dt, rows, seed=9)
+            mr, sr, ztr = lk.softmax_stats(ar["x_dt"], ar["w"], ar["b"], ar["lab32"])
+            lse_r = (mr + torch.log(sr)).contiguous()
+            sa_r, _ = lk.clipped_prob_stats(ar["x_dt"], ar["w"], ar["b"], lse_r)
+            gr = torch.tensor(0.5 / rows, device=dev)
+            ur, ccr, ltr = (t.contiguous() for t in fl._bwd_coefficients(
+                gr, gr, ar["keep"], ar["rect"], lse_r, ztr, sa_r, True))
+            br = (ar["x_dt"], ar["w"], ar["b"], lse_r, ur, ccr, ltr, ar["lab32"])
+            lab_long = ar["labels"]
+        fns = {"kernel": lambda: lk.sce_backward_tiles(*br),
+               "previous": lambda: lk._launch_backward(*br, _route=0),
+               "library": lib_backward_for(*br[:7], lab_long)}
+        t = {k: [] for k in fns}
+        for order in (list(fns), list(fns)[::-1]):
+            for which in order:
+                t[which].append(device_time(fns[which], iters=10))
+        whole = {"kernel": whole_backward_for(br),
+                 "library": lib_backward_for(*br[:7], lab_long, with_dwg=True)}
+        tw = {k: [] for k in whole}
+        for order in (list(whole), list(whole)[::-1]):
+            for which in order:
+                tw[which].append(device_time(whole[which], iters=10))
+        nr = br[0].shape[0]
+        moved = nbytes(*br) + 4 * nr * e + 2 * nr * v_pad + 4 * v_pad * ((nr + 31) // 32)
+        bnd = bound_ms(moved, 2 * 2.0 * nr * e * v, dt)
+        sfx = "" if rows == LOSS_N else f"_n{rows}"
+        row.update({f"ms{sfx}": min(t["kernel"]), f"previous_same_run_ms{sfx}": min(t["previous"]),
+                    f"library_ms{sfx}": min(t["library"]), f"bound_ms{sfx}": bnd[0],
+                    f"bound_by{sfx}": bnd[1], f"whole_backward_ms{sfx}": min(tw["kernel"]),
+                    f"whole_backward_library_ms{sfx}": min(tw["library"])})
+        if rows == LOSS_N:
+            row["eager_ms"] = cuda_time(fns["kernel"], iters=10)
+            row["plain_ms"] = cuda_time(lambda: lk.sce_backward_tiles_reference(*bargs), iters=3)
+    say(f"  sce_backward_tiles whole loss backward (kernel + dwg + dbg, graph replay): "
+        f"{row['whole_backward_ms']:.4f} ms at N={LOSS_N} (library route with dwg "
+        f"{row['whole_backward_library_ms']:.4f}), {row['whole_backward_ms_n4096']:.4f} at "
+        f"N=4096 (library {row['whole_backward_library_ms_n4096']:.4f}); replaced kernel "
+        f"recorded earlier by cuda_time {RECORDED_PREVIOUS_MS['sce_backward_tiles']:.4f} [{card}]")
     for name, t in out.items():
         was = "" if "previous_same_run_ms" not in t else (
             f" (replaced kernel {t['previous_same_run_ms']:.4f}; N=4096: kernel "
@@ -2220,7 +2452,7 @@ def profile_train(tr, card):
     say(f"profile of 10 train steps [{card}]: {step_ms:.2f} ms/step unprofiled "
         f"({profiled_ms:.1f} under the profiler), device busy {busy:.2f} ms/step, idle share "
         f"{1 - busy / step_ms:.2f}, {sum(r[2] for r in rows):.0f} kernels/step")
-    bwd = sum(r[1] for r in rows if "bwd_d" in r[0])  # the attention backward's kernels
+    bwd = sum(r[1] for r in rows if "bwd_dq" in r[0] or "bwd_dkv" in r[0])  # attention's
     say(f"  attention backward kernels {bwd:.3f} ms/step, {bwd / busy:.3f} of the busy time")
     for key, ms, count in sorted(rows, key=lambda r: -r[1])[:14]:
         say(f"  {ms:8.3f} ms/step  {count:6.1f}/step  {key[:100]}")
@@ -2247,6 +2479,55 @@ def profile_beam(model, fw, card):
         f"{sum(r[2] for r in rows):.0f} kernels per batch")
     for key, k_ms, count in sorted(rows, key=lambda r: -r[1])[:10]:
         say(f"  {k_ms:8.3f} ms/batch  {count:6.1f}/batch  {key[:90]}")
+
+
+def stack_variant(root, model, fw, heads, tm, card):
+    """The stack kernel of the package under ``root``: graph-replay ms at
+    B=128 and 256 rows, its route checks (the worst mean difference), the
+    bf16 beam loop checks (reported, not fatal), and per-phase µs from
+    %globaltimer stamps where the library exports ``vct_stack_stamps`` (a
+    copy instrumented to write one after each barrier)."""
+    import ctypes
+
+    import vct_tpu_torch
+    from vct_tpu_torch.ops import decode_kernels as dk
+    from vct_tpu_torch.ops._build import load_library
+
+    times = {}
+    for b in (128, BEAM_ROWS):
+        a = step_inputs(fw, b, 12, tm, gen=4001)
+        args = (a["x"], a["kc"], a["vc"], a["ck"], a["cv"], a["mem_bias"], fw["stacked"])
+        times[b] = min(device_time(lambda: dk.fused_layers_step(*args, 12, heads=heads, l_view=16))
+                       for _ in range(2))
+    say(f"stack variant {root} ({Path(vct_tpu_torch.__file__).parent}) [{card}]: B=128 "
+        f"{times[128]:.4f} ms, {BEAM_ROWS} rows {times[BEAM_ROWS]:.4f} ms (graph replay)")
+    means = []
+    check_stack_routes(fw, heads, tm, means)
+    say(f"  route checks passed, worst mean abs difference {max(means):.6f}")
+    for b, k, seed in ((BATCH, BEAM_K, SEED + 51), (8, 16, SEED + 52)):
+        try:
+            check_beam_loop(model, fw, b, k, seed)
+        except SystemExit:
+            say(f"  beam loop B={b} K={k}: failed (above)")
+    lib = load_library()
+    if not hasattr(lib, "vct_stack_stamps"):
+        return
+    names = ("qkv", "self", "wo", "ln1", "wcq", "cross", "wco", "ln2", "w1", "w2", "ln3")
+    nl = fw["stacked"]["wqkv"].shape[0]
+    for b in (128, BEAM_ROWS):
+        a = step_inputs(fw, b, 12, tm, gen=4001)
+        args = (a["x"], a["kc"], a["vc"], a["ck"], a["cv"], a["mem_bias"], fw["stacked"])
+        per = {}
+        for _ in range(3):
+            dk.fused_layers_step(*args, 12, heads=heads, l_view=16)
+            torch.cuda.synchronize()
+            stamps = (ctypes.c_ulonglong * 128)()
+            if lib.vct_stack_stamps(stamps) != 0:
+                fail("vct_stack_stamps failed")
+        for i in range(11 * nl):
+            per.setdefault(names[i % 11], []).append(round((stamps[i + 1] - stamps[i]) / 1e3, 2))
+        say(f"  phases at {b} rows, µs per layer (block 0, after each barrier): "
+            + "; ".join(f"{k} {v}" for k, v in per.items()))
 
 
 def profile_decode(model, fw, card):
@@ -3060,6 +3341,12 @@ def main() -> int:
     if not (repo / "vct_tpu_torch" / "csrc").is_dir():
         fail(f"{repo} holds no vct_tpu_torch package: run from a checkout")
     sys.path.insert(0, str(repo))
+    variant = None
+    if "--stack-variant" in sys.argv[1:]:
+        variant = Path(sys.argv[sys.argv.index("--stack-variant") + 1]).resolve()
+        if not (variant / "vct_tpu_torch" / "csrc" / "stack_step.cu").is_file():
+            fail(f"{variant} holds no vct_tpu_torch package")
+        sys.path.insert(0, str(variant))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -3115,6 +3402,9 @@ def main() -> int:
         if "--profile-beam" in sys.argv[1:]:
             profile_beam(model, fw, card)
             return 0
+        if variant is not None:
+            stack_variant(variant, model, fw, heads, tm, card)
+            return 0
         say(f"model: configs/msvd.json, {n_params} parameters and buffers, vocab "
             f"{model.config.vocab_size} (padded {fw['wg'].shape[1]}), {cfg.tpu.dtype}")
 
@@ -3148,7 +3438,7 @@ def main() -> int:
         kernel_times = time_kernels(fw, heads, tm)
         for name, t in kernel_times.items():
             lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
-            was = "" if "previous_same_run_ms" not in t else (
+            was = "" if name != "fused_norm_generator_argmax" else (
                 f" (previous kernel {t['previous_same_run_ms']:.4f}, recorded earlier "
                 f"{RECORDED_PREVIOUS_MS[name]:.4f}; weight not left in L2: kernel "
                 f"{t['cold_weight_ms']:.4f}, library {t['library_cold_weight_ms']:.4f}; host loop "
@@ -3187,6 +3477,7 @@ def main() -> int:
 
     say(json.dumps(report))
     sources = {**{k: SOURCE for k in REPLACES},
+               "fused_layers_step": "vct_tpu_torch/csrc/stack_step.cu",
                "fused_norm_generator_argmax": "vct_tpu_torch/csrc/gen_argmax.cu",
                **{k: LOSS_SOURCE for k in LOSS_REPLACES},
                **{k: v[1] for k, v in BEAM_REPLACES.items()},

@@ -689,13 +689,19 @@ def test_attention_wrapper_raises_outside_the_kernels_span(cuda):
 
 
 def _plan_from_library(fn, *args, n):
+    plan = _plan_or_none(fn, *args, n=n)
+    assert plan is not None
+    return plan
+
+
+def _plan_or_none(fn, *args, n):
+    """The launcher's plan, or None where it refuses the call."""
     import ctypes
 
     from vct_tpu_torch.ops._build import load_library
 
     out = (ctypes.c_int * n)()
-    assert getattr(load_library(), fn)(*args, out) == 0
-    return tuple(out)
+    return None if getattr(load_library(), fn)(*args, out) else tuple(out)
 
 
 def _gen_inputs(dev, dt, b, e, v, v_pad, seed):
@@ -942,3 +948,165 @@ def test_topk_plan_matches_the_launcher(cuda):
                     for route in ((-1, 0, 1) if dt == torch.bfloat16 else (-1, 0)):
                         assert dk.gen_topk_plan(b, e, v, k, dt, route) == _plan_from_library(
                             "vct_gen_topk_plan", dk._DTYPE_CODE[dt], b, e, v, k, route, n=9)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core backward of the fused loss (csrc/sce_loss.cu) and the
+# tensor-core stack step (csrc/stack_step.cu), bfloat16, against their plain
+# versions and the kernels they replaced (route 0). Tolerances of
+# chip_smoke.py: dz within one bfloat16 unit but in under 0.1% of the
+# elements and within 5% everywhere; dx and dbg within 2% of their largest
+# value; the stack's outputs as test_layers_step_kernel's.
+# ---------------------------------------------------------------------------
+
+# (N, E, V): the MSVD step, the long step, ragged row tiles, a width of dx
+# tiles that ends half full (896), the widest width, small vocabularies
+BWD_SHAPES = [(1984, 768, 30522), (4096, 768, 30522), (1000, 768, 30522), (300, 896, 3000),
+              (33, 1664, 1111), (256, 768, 1111)]
+
+
+def _assert_backward(got, want, zero_rows=True):
+    dx, dz, parts = got
+    dx_r, dz_r, parts_r = want
+    assert dz.shape == dz_r.shape and parts.shape == parts_r.shape
+    err = (dz.float() - dz_r.float()).abs()
+    ref = dz_r.float().abs()
+    assert float((err > 2.0 ** -7 * ref + 1e-12).float().mean()) < 1e-3
+    assert bool((err <= 0.05 * ref + 1e-12).all()), float(err.max())
+    if zero_rows:
+        assert float(dz[8:16].float().abs().max()) == 0.0
+    for a, r in ((dx, dx_r), (parts.sum(0), parts_r.sum(0))):
+        scale = float(r.abs().max())
+        assert float((a - r).abs().max()) <= 2e-2 * scale + 1e-12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,e,v", BWD_SHAPES)
+def test_backward_tensor_core_route(cuda, n, e, v):
+    """The plan takes the tensor-core route; it agrees with the plain version
+    and with backward_kernel; labels outside [0, V) hit nothing; two calls
+    give the same bits; the wrapper counts one launch a call."""
+    dt = torch.bfloat16
+    lk, x, w, b, labels, rows = _loss_inputs(cuda, dt, n=n, seed=90 + n, e=e, v=v,
+                                             padded=False)
+    labels[16:19] = torch.tensor([-1, v, v + 700], dtype=torch.int32, device=cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = lk.sce_backward_plan(n, e, v, dt, -1, sms)
+    assert plan.route == 1
+    m, s, _ = lk.softmax_stats_reference(x, w, b, labels)
+    lse = m + torch.log(s)
+    args = (x, w, b, lse, rows["u"], rows["cc"], rows["lt"], labels)
+    before = lk.sce_backward_tiles.launches
+    got = lk.sce_backward_tiles(*args)
+    again = lk.sce_backward_tiles(*args)
+    old = lk._launch_backward(*args, _route=0)
+    want = lk.sce_backward_tiles_reference(*args)
+    torch.cuda.synchronize()
+    assert lk.sce_backward_tiles.launches == before + 2
+    for a, c in zip(got, again):
+        assert torch.equal(a, c)
+    assert float(got[1][:, v:].float().abs().sum()) == 0.0   # dz past V
+    for ref in (want, old):
+        _assert_backward(got, ref)
+
+
+@pytest.mark.cuda
+def test_backward_plan_matches_the_launcher(cuda):
+    from vct_tpu_torch.ops import loss_kernels as lk
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for dt in (torch.float32, torch.bfloat16):
+        for n in (1, 33, 256, 1984, 4096, 7936, lk.BWD_MAX_N + 1):
+            for e in (128, 768, 896, 1664):
+                for v in (1111, 30522):
+                    for route in (-1, 0, 1):
+                        try:
+                            plan = tuple(lk.sce_backward_plan(n, e, v, dt, route, sms))
+                        except ValueError:
+                            plan = None
+                        assert plan == _plan_or_none("vct_sce_backward_plan", lk._DTYPE_CODE[dt],
+                                                     n, e, v, route, sms, n=13), (dt, n, e, v, route)
+
+
+def _stack_inputs(dev, b, e, heads, f, nl, idx, seed, big_l=32, tm=13):
+    """Seeded stack-step inputs at the given widths, bfloat16, weights scaled
+    by 1/sqrt(fan-in); caches filled below idx; a memory bias that masks the
+    tail of odd rows."""
+    g = torch.Generator().manual_seed(seed)
+    dt = torch.bfloat16
+
+    def n(*s, scale=1.0, dtype=dt):
+        return (torch.randn(s, generator=g) * scale).to(dev, dtype)
+
+    w = {"wqkv": n(nl, e, 3 * e, scale=e ** -0.5), "bqkv": n(nl, 3 * e, scale=0.1),
+         "wo": n(nl, e, e, scale=e ** -0.5), "bo": n(nl, e, scale=0.1),
+         "wcq": n(nl, e, e, scale=e ** -0.5), "bcq": n(nl, e, scale=0.1),
+         "wco": n(nl, e, e, scale=e ** -0.5), "bco": n(nl, e, scale=0.1),
+         "w1": n(nl, e, f, scale=e ** -0.5), "b1": n(nl, f, scale=0.1),
+         "w2": n(nl, f, e, scale=f ** -0.5), "b2": n(nl, e, scale=0.1)}
+    for k in dk._NORM_KEYS:
+        w[k] = (1 + n(nl, e, scale=0.1, dtype=torch.float32)) if k.endswith("s") \
+            else n(nl, e, scale=0.1, dtype=torch.float32)
+    kc, vc = n(nl, big_l, b, e), n(nl, big_l, b, e)
+    kc[:, idx:] = 0
+    vc[:, idx:] = 0
+    mem_bias = torch.zeros((b, tm), device=dev)
+    mem_bias[1::2, -4:] = dk.NEG_INF
+    return w, (n(b, e), kc, vc, n(nl, tm, b, e), n(nl, tm, b, e), mem_bias)
+
+
+# (E, heads, F, layers): the MSVD decoder, a width whose head (112) is not a
+# power of two, and this file's small widths
+STACK_WIDTHS = [(768, 8, 2048, 3), (896, 8, 2048, 1), (E, H, F, NL)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths", STACK_WIDTHS)
+@pytest.mark.parametrize("b", [65, 128, 256, 600])
+def test_stack_tensor_core_route(cuda, b, widths):
+    """fused_layers_step in bfloat16 takes the tensor-core kernel; x_out and
+    the fresh cache rows agree with the plain version and with
+    decode_step_kernel (route 0); two calls give the same bits."""
+    e, heads, f, nl = widths
+    assert dk.stack_step_plan(b, e, heads, f, torch.bfloat16).route == 1
+    w, step = _stack_inputs(cuda, b, e, heads, f, nl, idx=12, seed=b + e)
+    outs = []
+    for fn in (lambda *s: dk.fused_layers_step(*s, w, 12, heads=heads, l_view=16)[0],
+               lambda *s: dk.fused_layers_step(*s, w, 12, heads=heads, l_view=16)[0],
+               lambda *s: dk._launch_layers_step(*s, w, 12, heads=heads, l_view=16, _route=0),
+               lambda *s: dk.fused_layers_step_reference(*s, w, 12, heads=heads,
+                                                          l_view=16)[0]):
+        s = _clone(step)
+        outs.append((fn(*s), s[1][:, 12].clone(), s[2][:, 12].clone()))
+    torch.cuda.synchronize()
+    for a, c in zip(outs[0], outs[1]):
+        assert torch.equal(a, c)
+    for ref in outs[2:]:
+        for a, r in zip(outs[0], ref):
+            torch.testing.assert_close(a.float(), r.float(), **TOL[torch.bfloat16])
+            assert float((a.float() - r.float()).abs().mean()) < MEAN_BF16
+
+
+@pytest.mark.cuda
+def test_stack_tensor_core_route_window_poison(cuda):
+    w, step = _stack_inputs(cuda, 65, E, H, F, NL, idx=16, seed=5)
+    x, k_c, _, _, _, _ = s = _clone(step)
+    out, _, _ = dk.fused_layers_step(*s, w, 16, heads=H, l_view=16)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(out.float()).all())
+    assert float(k_c[:, 16].float().abs().max()) > 0.0   # the row is written all the same
+
+
+@pytest.mark.cuda
+def test_stack_plan_matches_the_launcher(cuda):
+    for dt in (torch.float32, torch.bfloat16):
+        for b in (1, 64, 65, 256, dk.STACK_MAX_ROWS, dk.STACK_MAX_ROWS + 1):
+            for e, heads, f in ((768, 8, 2048), (128, 4, 256), (96, 12, 256), (1280, 8, 2048),
+                                (768, 2, 2048), (768, 3, 2048)):
+                for route in (-1, 0, 1):
+                    try:
+                        plan = tuple(dk.stack_step_plan(b, e, heads, f, dt, route))
+                    except ValueError:
+                        plan = None
+                    assert plan == _plan_or_none("vct_stack_step_plan", dk._DTYPE_CODE[dt], b, e,
+                                                 heads, f, route, n=7), (dt, b, e, heads, f, route)

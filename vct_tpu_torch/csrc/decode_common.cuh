@@ -468,9 +468,10 @@ static inline size_t step_smem_bytes(int E, int F) {
 
 // A cooperative launch of ``kernel(args)`` with every block resident, as
 // grid.sync() needs: two blocks per SM keep loads in flight without making
-// each barrier slower.
+// each barrier slower (``max_per_sm`` caps them).
 template <typename K, typename A>
-static cudaError_t launch_cooperative(K kernel, const A& a, size_t smem, cudaStream_t stream) {
+static cudaError_t launch_cooperative(K kernel, const A& a, size_t smem, cudaStream_t stream,
+                                      int max_per_sm = 2) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
@@ -482,7 +483,7 @@ static cudaError_t launch_cooperative(K kernel, const A& a, size_t smem, cudaStr
       cudaSuccess)
     return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const int grid = sms * (per_sm < 2 ? per_sm : 2);
+  const int grid = sms * (per_sm < max_per_sm ? per_sm : max_per_sm);
   A args = a;
   void* params[] = {(void*)&args};
   err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(grid), dim3(NTHREADS), params,

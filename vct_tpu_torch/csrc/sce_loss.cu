@@ -13,7 +13,7 @@
 // of bytes); the backward one does two such products and writes the 122 MB
 // dz.
 //
-// Two designs:
+// Three designs:
 //
 //   bfloat16 statistics (both forward kernels) -> stats_wgmma_kernel<MODE>
 //   then stats_merge_kernel<MODE>:
@@ -48,8 +48,15 @@
 //     (the online rescale for MODE 0, plain sums for MODE 1). No float
 //     atomics: the same bits on every run.
 //
-//   float32 statistics, and the backward in either dtype -> stats_kernel<T,
-//   MODE> and backward_kernel<T>: one block owns a tile of BM rows and walks
+//   bfloat16 backward -> bwd_dz_wgmma_kernel (dz and the dbg partials: the
+//   statistics kernel's walk and product with a dz epilogue), then
+//   bwd_dx_wgmma_kernel (dx = dz . w on wgmma, the vocab split into groups
+//   across the SMs) and bwd_dx_merge_kernel (the groups' partials added in
+//   order); described above the kernels. Route 0 reaches backward_kernel for
+//   timing, and N past BWD_MAX_N takes it.
+//
+//   float32 statistics, and the float32 backward -> stats_kernel<T, MODE> and
+//   backward_kernel<T>: one block owns a tile of BM rows and walks
 //   the vocab in ascending tiles of 512 columns, which takes the place of the
 //   TPU grid's sequential vocab axis. x's row tile stays in shared memory for
 //   the whole walk; the weight tile streams through a two-stage cp.async
@@ -59,8 +66,9 @@
 //   slabs of 768, each with a vocab walk of its own that recomputes the
 //   logits; dz and the dbg partials are written by the first walk only. The
 //   product is nvcuda::wmma 16x16x16 bf16 tiles with fp32 accumulation, or a
-//   shared-memory FMA tile for float32. The bfloat16 stats_kernel stays
-//   reachable (route 0) so that checks can time it against its replacement.
+//   shared-memory FMA tile for float32. The bfloat16 stats_kernel and
+//   backward_kernel stay reachable (route 0) so that checks can time them
+//   against their replacements.
 //
 // Layout: x [N, E] row-major; the generator weight in PyTorch's own [V, E]
 // layout (row v holds column v of the product's right-hand side), so the
@@ -661,6 +669,34 @@ struct StCursor {
   }
 };
 
+// One K step of a (row tile, slab) tile into a ring stage: x rows [rt * 128,
+// +128) and weight rows [slab * 256, +256), columns [k0, k0 + 64); piece c of
+// row r lands at piece c ^ (r % 8). Rows past n and weight rows past v are
+// zeros.
+__device__ __forceinline__ void st_fetch(unsigned char* st, const StCursor& c, const bf16* x,
+                                         const bf16* w, int n, int e, int v, int row_tiles) {
+  const int tid = threadIdx.x;
+  const int slab = c.tile / row_tiles, rt = c.tile - slab * row_tiles;
+  const int k0 = c.ks * ST_BK;
+#pragma unroll
+  for (int i = 0; i < ST_BM * 8 / ST_THREADS; ++i) {
+    const int chunk = tid + i * ST_THREADS, r = chunk >> 3, kc = chunk & 7;
+    const int row = rt * ST_BM + r;
+    const bool ok = row < n;
+    cp_async16(st + r * 128 + ((kc ^ (r & 7)) << 4),
+               x + (ok ? (size_t)row * e + k0 + kc * 8 : 0), ok);
+  }
+  unsigned char* ws = st + ST_X_BYTES;
+#pragma unroll
+  for (int i = 0; i < ST_BN * 8 / ST_THREADS; ++i) {
+    const int chunk = tid + i * ST_THREADS, r = chunk >> 3, kc = chunk & 7;
+    const int col = slab * ST_BN + r;
+    const bool ok = col < v;
+    cp_async16(ws + r * 128 + ((kc ^ (r & 7)) << 4),
+               w + (ok ? (size_t)col * e + k0 + kc * 8 : 0), ok);
+  }
+}
+
 // parts: float32 [2][slabs][n]. MODE 0: (slab max, slab sum rescaled to it),
 // and zt[row] for a label inside the slab; MODE 1: (sa, cnt) of the slab.
 template <int MODE>
@@ -680,29 +716,8 @@ stats_wgmma_kernel(const bf16* x, const bf16* w, const bf16* bias, const int* la
   const int my_tiles = (n_tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
   const int total = my_tiles * ksteps;
 
-  // x rows [rt * 128, +128) and weight rows [slab * 256, +256), columns
-  // [k0, k0 + 64): piece c of row r lands at piece c ^ (r % 8)
   auto fetch = [&](const StCursor& c, int stage) {
-    unsigned char* st = ring + stage * ST_STAGE;
-    const int slab = c.tile / row_tiles, rt = c.tile - slab * row_tiles;
-    const int k0 = c.ks * ST_BK;
-#pragma unroll
-    for (int i = 0; i < ST_BM * 8 / ST_THREADS; ++i) {
-      const int chunk = tid + i * ST_THREADS, r = chunk >> 3, kc = chunk & 7;
-      const int row = rt * ST_BM + r;
-      const bool ok = row < n;
-      cp_async16(st + r * 128 + ((kc ^ (r & 7)) << 4),
-                 x + (ok ? (size_t)row * e + k0 + kc * 8 : 0), ok);
-    }
-    unsigned char* ws = st + ST_X_BYTES;
-#pragma unroll
-    for (int i = 0; i < ST_BN * 8 / ST_THREADS; ++i) {
-      const int chunk = tid + i * ST_THREADS, r = chunk >> 3, kc = chunk & 7;
-      const int col = slab * ST_BN + r;
-      const bool ok = col < v;
-      cp_async16(ws + r * 128 + ((kc ^ (r & 7)) << 4),
-                 w + (ok ? (size_t)col * e + k0 + kc * 8 : 0), ok);
-    }
+    st_fetch(ring + stage * ST_STAGE, c, x, w, n, e, v, row_tiles);
   };
 
   float acc[128];   // rows 16 w4 + g + 8 h of the warpgroup's 64, columns 8 j + 2 q + c
@@ -885,6 +900,315 @@ stats_merge_kernel(const float* parts, const int* labels, float* o0, float* o1, 
   }
 }
 
+// ---- the tensor-core backward (bfloat16) -------------------------------------------
+//
+// bwd_dz_wgmma_kernel: the statistics kernels' walk (128-row tile x 256-column
+// slab, slab-major over persistent blocks, wgmma.m64n256k16 from the same
+// ring) with a dz epilogue in registers. Each row's lse, u, cc, lab_term and
+// label wait in shared memory, staged with the slab's bias while the tile's
+// first products run. Per accumulator pair: the logits rounded with their
+// bias as one bfloat16 pair, p = exp(z - lse), dz = p (u + cc [p > 1e-7]),
+// the label term subtracted, then dz stored as bfloat16. A row past n gets
+// lse = +inf, so its p and dz are exactly 0. The dbg partial of a 32-row
+// group (two warps of a warpgroup) is the un-rounded dz summed over the
+// thread's two rows, then over the 8 lanes of a column by a butterfly that
+// halves the values a lane holds at each of its three steps (56 shuffles for
+// 64 columns), then the odd warp's sum added to the even warp's through
+// shared memory: one fixed order, no atomics.
+//
+// bwd_dx_wgmma_kernel: dx = dz . w with the vocab as K, computed transposed,
+// dx^T = w^T . dz^T, as gen_wgmma.cuh computes the generator's logits: E is
+// the M side (a warp reads 16 columns x 16 vocab rows of the [vocab][E]
+// weight tile with ldmatrix.trans into the register operand), dz's rows are
+// the N side, read as the 128-byte-swizzled K-major operand as dz lies in
+// memory. A unit is (vocab group, row tile of 128, E tile of 256); the vocab
+// is split into ``groups`` so that the units fill the SMs (48 E x row tiles
+// at N = 1984 against 132 SMs), each group's float32 partial of dx is
+// written whole, and bwd_dx_merge_kernel adds them in ascending group order.
+// With one group the unit writes dx itself. Units run group-major, then row
+// tile, then E tile, so the blocks in flight share a dz slice and a weight
+// slice in L2.
+
+constexpr int BW_ROW_BYTES = 5 * ST_BM * 4;        // lse, u, cc, lab_term, label of a tile
+constexpr int BW_XCHG_BYTES = 4 * ST_BN * 4;       // the odd warps' dbg sums, one slab
+constexpr int BW_SMEM = ST_SMEM + 2 * BW_ROW_BYTES + BW_XCHG_BYTES;
+constexpr int DX_THREADS = 256;   // two warpgroups, each 128 E columns of the tile
+constexpr int DX_BM = 256;        // E columns of a unit (the M side, transposed)
+constexpr int DX_BN = 128;        // rows of dz in a unit (the N of wgmma.m64n128k16)
+constexpr int DX_BK = 64;         // vocab rows of a K step
+constexpr int DX_STAGES = 4;
+constexpr int DX_WLD = DX_BM + 8; // pitch of the weight tile, elements
+constexpr int DX_STAGE = DX_BN * 128 + DX_BK * DX_WLD * 2;
+constexpr int DX_SMEM = 1024 + DX_STAGES * DX_STAGE;
+constexpr int DX_MAX_GROUPS = 16;
+constexpr int BWD_MAX_N = 16384;   // rows the partials of the tensor-core route are sized for
+
+__global__ void __launch_bounds__(ST_THREADS, 1)
+bwd_dz_wgmma_kernel(const bf16* x, const bf16* w, const bf16* bias, const int* labels,
+                    const float* lse, const float* u, const float* cc, const float* lt, bf16* dz,
+                    float* dbg, int n, int e, int v, int v_pad, int row_tiles, int n_tiles) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  bf16* bias_s = reinterpret_cast<bf16*>(ring + ST_STAGES * ST_STAGE);
+  float* rows_s = reinterpret_cast<float*>(bias_s + 2 * ST_BN);   // [2][5][ST_BM]
+  float* xchg = rows_s + 2 * 5 * ST_BM;                           // [4 groups][8][32 lanes]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wg = warp >> 2, w4 = warp & 3, g = lane >> 2, q = lane & 3;
+  const int ksteps = e / ST_BK;
+  const int groups = (n + 31) / 32;
+  const int my_tiles = (n_tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  const int total = my_tiles * ksteps;
+
+  auto fetch = [&](const StCursor& c, int stage) {
+    st_fetch(ring + stage * ST_STAGE, c, x, w, n, e, v, row_tiles);
+  };
+
+  float acc[128];   // rows 16 w4 + g + 8 h of the warpgroup's 64, columns 8 j + 2 q + c
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+
+  StCursor ld = {(int)blockIdx.x, 0}, cs = {(int)blockIdx.x, 0};
+  for (int s = 0; s < ST_STAGES - 2; ++s) {
+    if (s < total) {
+      fetch(ld, s);
+      ld.advance(ksteps, gridDim.x);
+    }
+    cp_async_commit();
+  }
+
+  int mine = 0;   // tiles this block has finished
+  for (int s = 0; s < total; ++s) {
+    cp_async_wait<ST_STAGES - 3>();
+    fence_async_shared();
+    __syncthreads();
+    if (s + ST_STAGES - 2 < total) {
+      fetch(ld, (s + ST_STAGES - 2) % ST_STAGES);
+      ld.advance(ksteps, gridDim.x);
+    }
+    cp_async_commit();
+
+    const int slab = cs.tile / row_tiles, rt = cs.tile - slab * row_tiles;
+    const unsigned char* st = ring + (s % ST_STAGES) * ST_STAGE;
+    const uint64_t a_desc = wgmma_desc_sw128(st + wg * 64 * 128);
+    const uint64_t b_desc = wgmma_desc_sw128(st + ST_X_BYTES);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < ST_BK / 16; ++kk)
+      wgmma_m64n256k16_ss(acc, a_desc + 2 * kk, b_desc + 2 * kk, (cs.ks > 0 || kk > 0) ? 1 : 0);
+    wgmma_commit();
+    if (cs.ks == 0) {
+      // while the products run: the slab's bias (NEG_INF past v) and the
+      // tile's per-row values, read after a later barrier
+      const int col = slab * ST_BN + tid;
+      bias_s[(mine & 1) * ST_BN + tid] = col < v ? bias[col] : __float2bfloat16(NEG_INF);
+      if (tid < ST_BM) {
+        float* R = rows_s + (mine & 1) * 5 * ST_BM;
+        const int row = rt * ST_BM + tid;
+        const bool live = row < n;
+        const int l = live ? labels[row] : -1;
+        R[tid] = live ? lse[row] : INFINITY;
+        R[ST_BM + tid] = live ? u[row] : 0.f;
+        R[2 * ST_BM + tid] = live ? cc[row] : 0.f;
+        R[3 * ST_BM + tid] = live ? lt[row] : 0.f;
+        // the label's column within the slab, or -1
+        R[4 * ST_BM + tid] = __int_as_float((l >= 0 && l < v) ? l - slab * ST_BN : -1);
+      }
+    }
+    wgmma_wait<1>();
+
+    if (cs.ks == ksteps - 1) {
+      wgmma_wait<0>();
+      pin_regs(acc);
+      // acc[4 j + 2 h + c] is row lr0 + 8 h, column 8 j + 2 q + c of the slab
+      const __nv_bfloat162* bias2 =
+          reinterpret_cast<const __nv_bfloat162*>(bias_s + (mine & 1) * ST_BN + 2 * q);
+      const float* R = rows_s + (mine & 1) * 5 * ST_BM;
+      const int lr0 = wg * 64 + w4 * 16 + g;
+      float lse_r[2], u_r[2], cc_r[2], lt_r[2];
+      int lab[2];
+      bf16* dz_row[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int lr = lr0 + 8 * h, row = rt * ST_BM + lr;
+        lse_r[h] = R[lr];
+        u_r[h] = R[ST_BM + lr];
+        cc_r[h] = R[2 * ST_BM + lr];
+        lt_r[h] = R[3 * ST_BM + lr];
+        lab[h] = __float_as_int(R[4 * ST_BM + lr]) - 2 * q;   // 8 j + c in this lane
+        dz_row[h] = row < n ? dz + (size_t)row * v_pad + slab * ST_BN + 2 * q : nullptr;
+      }
+#pragma unroll
+      for (int j = 0; j < ST_BN / 8; ++j) {
+        const __nv_bfloat162 b2 = bias2[4 * j];
+        float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float2 z = __bfloat1622float2(
+              __hadd2(__floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]), b2));
+          const float p0 = expf(z.x - lse_r[h]), p1 = expf(z.y - lse_r[h]);
+          float d0 = p0 * (u_r[h] + cc_r[h] * (p0 > EPS ? 1.0f : 0.0f));
+          float d1 = p1 * (u_r[h] + cc_r[h] * (p1 > EPS ? 1.0f : 0.0f));
+          if (lab[h] == 8 * j) d0 -= lt_r[h];   // before the rounding
+          if (lab[h] == 8 * j + 1) d1 -= lt_r[h];
+          if (dz_row[h])
+            *reinterpret_cast<__nv_bfloat162*>(dz_row[h] + 8 * j) = __floats2bfloat162_rn(d0, d1);
+          sum0 += d0;
+          sum1 += d1;
+        }
+        acc[4 * j] = sum0;   // the thread's two rows, column 8 j + 2 q (+1)
+        acc[4 * j + 1] = sum1;
+      }
+      // over the 8 lanes of a column: value i (column 8 (i / 2) + 2 q + i % 2)
+      // sits at acc[4 (i / 2) + i % 2]; each step keeps half of a lane's values
+      // and adds its partner's copy of them
+#define BW_V(i) acc[4 * ((i) >> 1) + ((i) & 1)]
+#pragma unroll
+      for (int step = 0; step < 3; ++step) {
+        const int half = 32 >> step, bit = (lane >> (4 - step)) & 1;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          if (i < half) {
+            const float lo = BW_V(i), hi = BW_V(i + half);
+            const float send = bit ? lo : hi;
+            BW_V(i) = (bit ? hi : lo) + __shfl_xor_sync(0xffffffffu, send, 16 >> step);
+          }
+        }
+      }
+      // lane (g, q) now holds columns 32 g + 8 m + 2 q + c at BW_V(2 m + c)
+      // over its warp's 16 rows; the odd warp of a 32-row group hands its sums
+      // to the even one
+      const int gi = wg * 2 + (w4 >> 1);
+      float* xg = xchg + gi * 8 * 32;
+      if (w4 & 1) {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) xg[k * 32 + lane] = BW_V(k);
+      }
+      __syncthreads();
+      const int group = rt * 4 + gi;
+      if (!(w4 & 1) && group < groups) {
+        float* out = dbg + (size_t)group * v_pad + slab * ST_BN + 32 * g + 2 * q;
+#pragma unroll
+        for (int m = 0; m < 4; ++m)
+          *reinterpret_cast<float2*>(out + 8 * m) =
+              make_float2(BW_V(2 * m) + xg[(2 * m) * 32 + lane],
+                          BW_V(2 * m + 1) + xg[(2 * m + 1) * 32 + lane]);
+      }
+#undef BW_V
+      ++mine;
+    }
+    cs.advance(ksteps, gridDim.x);
+  }
+  cp_async_wait<0>();
+}
+
+// One unit per block: (vocab group, row tile, E tile) -> out [n, e] float32,
+// the group's partial of dx (dx itself with one group). K steps [ks0, ks1) of
+// the vocab, ks in units of DX_BK rows.
+__global__ void __launch_bounds__(DX_THREADS, 1)
+bwd_dx_wgmma_kernel(const bf16* dz, const bf16* w, float* parts, int n, int e, int v, int v_pad,
+                    int row_tiles, int e_tiles, int groups) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wgid = warp >> 2, w4 = warp & 3, g = lane >> 2, q = lane & 3;
+  const int unit = blockIdx.x;
+  const int et = unit % e_tiles, rest = unit / e_tiles;
+  const int rt = rest % row_tiles, grp = rest / row_tiles;
+  const int kt = v_pad / DX_BK;
+  const int ks0 = grp * kt / groups, ks1 = (grp + 1) * kt / groups;
+  const int total = ks1 - ks0;
+  const int row0 = rt * DX_BN, col0 = et * DX_BM;
+
+  // dz rows [row0, +128) x vocab [k0, +64), swizzled; weight rows [k0, +64) x
+  // E columns [col0, +256) at pitch DX_WLD
+  auto fetch = [&](int ks, int stage) {
+    unsigned char* st = ring + stage * DX_STAGE;
+    const int k0 = ks * DX_BK;
+#pragma unroll
+    for (int i = 0; i < DX_BN * 8 / DX_THREADS; ++i) {
+      const int chunk = tid + i * DX_THREADS, r = chunk >> 3, kc = chunk & 7;
+      const int row = row0 + r;
+      const bool ok = row < n;
+      cp_async16(st + r * 128 + ((kc ^ (r & 7)) << 4),
+                 dz + (ok ? (size_t)row * v_pad + k0 + kc * 8 : 0), ok);
+    }
+    bf16* ws = reinterpret_cast<bf16*>(st + DX_BN * 128);
+#pragma unroll
+    for (int i = 0; i < DX_BK * (DX_BM / 8) / DX_THREADS; ++i) {
+      const int chunk = tid + i * DX_THREADS, kr = chunk / (DX_BM / 8), nc = chunk % (DX_BM / 8);
+      const int k = k0 + kr, col = col0 + nc * 8;
+      const bool ok = k < v && col < e;
+      cp_async16(ws + kr * DX_WLD + nc * 8, w + (ok ? (size_t)k * e + col : 0), ok);
+    }
+  };
+
+  float acc[2][64];   // two m64 tiles of E columns x 128 rows
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int j = 0; j < 64; ++j) acc[mi][j] = 0.f;
+
+  for (int s = 0; s < DX_STAGES - 1; ++s) {
+    if (s < total) fetch(ks0 + s, s);
+    cp_async_commit();
+  }
+  for (int s = 0; s < total; ++s) {
+    cp_async_wait<DX_STAGES - 2>();   // step s has landed
+    fence_async_shared();
+    __syncthreads();                  // every warp's products of step s - 1 are done
+    if (s + DX_STAGES - 1 < total) fetch(ks0 + s + DX_STAGES - 1, (s + DX_STAGES - 1) % DX_STAGES);
+    cp_async_commit();
+
+    const unsigned char* st = ring + (s % DX_STAGES) * DX_STAGE;
+    const bf16* ws = reinterpret_cast<const bf16*>(st + DX_BN * 128);
+    uint32_t afr[2][DX_BK / 16][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int kk = 0; kk < DX_BK / 16; ++kk)
+        ldmatrix_x4_trans(afr[mi][kk],
+                          ws + (kk * 16 + (lane >> 4) * 8 + (lane & 7)) * DX_WLD + wgid * 128 +
+                              mi * 64 + w4 * 16 + ((lane >> 3) & 1) * 8);
+    const uint64_t b_desc = wgmma_desc_sw128(st);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DX_BK / 16; ++kk)
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+        wgmma_m64n128k16_rs(acc[mi], afr[mi][kk], b_desc + 2 * kk, (s > 0 || kk > 0) ? 1 : 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+  }
+  cp_async_wait<0>();
+  // acc[mi][4 j + r]: E column col0 + wgid * 128 + mi * 64 + w4 * 16 + g + 8 (r / 2),
+  // row row0 + 8 j + 2 q + r % 2
+  float* out = parts + (groups > 1 ? (size_t)grp * n * e : 0);
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int col = col0 + wgid * 128 + mi * 64 + w4 * 16 + g + 8 * (r >> 1);
+        const int row = row0 + 8 * j + 2 * q + (r & 1);
+        if (row < n && col < e) out[(size_t)row * e + col] = acc[mi][4 * j + r];
+      }
+}
+
+// dx = the groups' partials added in ascending group order, four at a time
+__global__ void __launch_bounds__(MERGE_THREADS)
+bwd_dx_merge_kernel(const float* parts, float* dx, int count4, int groups, size_t stride4) {
+  const int i = blockIdx.x * MERGE_THREADS + threadIdx.x;
+  if (i >= count4) return;
+  const float4* p = reinterpret_cast<const float4*>(parts) + i;
+  float4 a = p[0];
+  for (int gi = 1; gi < groups; ++gi) {
+    const float4 b = p[gi * stride4];
+    a.x += b.x; a.y += b.y; a.z += b.z; a.w += b.w;
+  }
+  reinterpret_cast<float4*>(dx)[i] = a;
+}
+
 // ---- launch plans ----------------------------------------------------------------
 // {route, rows of a row tile, vocab columns of a tile, K step, ring stages,
 // dynamic shared memory, row tiles, vocab slabs, blocks}. Route 1 is the
@@ -926,8 +1250,8 @@ bool stats_plan(int dtype, int n, int e, int v, int route, int sms, StatsPlan* o
   return p.smem <= SMEM_LIMIT;
 }
 
-// the SM count of the current device, and the kernels' shared-memory
-// attribute set once per device
+// the SM count of the current device, and the tensor-core kernels' shared-
+// memory attributes set once per device
 int sm_count() {
   static int count[64] = {};
   int dev = 0, sms = 0;
@@ -937,6 +1261,10 @@ int sm_count() {
                            ST_SMEM) != cudaSuccess ||
       cudaFuncSetAttribute(stats_wgmma_kernel<1>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            ST_SMEM) != cudaSuccess ||
+      cudaFuncSetAttribute(bwd_dz_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           BW_SMEM) != cudaSuccess ||
+      cudaFuncSetAttribute(bwd_dx_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           DX_SMEM) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
     return 0;
   if (dev < 64) count[dev] = sms;
@@ -1001,6 +1329,101 @@ int dispatch_stats(int dtype, int mode, const Params& p, float* parts, int route
                    : launch_stats_wgmma<1>(pl, p, parts, st);
 }
 
+// ---- the backward's launch plan ----------------------------------------------------
+// {route, rows of a dz tile, vocab columns of a slab, K step, ring stages, dz
+// kernel's shared memory, row tiles, slabs, dz kernel's blocks, E tiles of dx,
+// vocab groups of dx, dx units, dx kernel's shared memory}. Route 1 (bfloat16)
+// is the tensor-core pair above while 1 <= n <= BWD_MAX_N; route 0 is
+// backward_kernel<T> (one block per row tile of 32 (bfloat16) or 16 rows walks
+// the vocab; ``e_tiles`` counts its dx column slabs of SLAB_E; groups 1, no
+// dx units). Route -1, what the package's wrappers pass, takes route 1 where
+// it may and route 0 elsewhere.
+//
+// The vocab groups of dx: the first count in [1, min(16, K steps / 8)] whose
+// units fill at least 90% of the last wave over the SMs, else the count that
+// fills the most (the smallest on a tie). N = 1984: 48 tiles x 5 groups = 240
+// units over 132 SMs; N = 4096: 96 x 4 = 384.
+
+struct BwdPlan {
+  int route, bm, bn, bk, stages, smem, row_tiles, slabs, grid, e_tiles, groups, dx_units,
+      dx_smem;
+};
+
+int dx_groups(int tiles, int ksteps, int sms) {
+  int cap = ksteps / 8;
+  cap = cap < 1 ? 1 : (cap > DX_MAX_GROUPS ? DX_MAX_GROUPS : cap);
+  int best = 1;
+  long best_fill = -1;   // units / (waves * sms), in millionths
+  for (int gr = 1; gr <= cap; ++gr) {
+    const long units = (long)tiles * gr;
+    const long waves = (units + sms - 1) / sms;
+    const long fill = units * 1000000 / (waves * sms);
+    if (fill >= 900000) return gr;
+    if (fill > best_fill) {
+      best_fill = fill;
+      best = gr;
+    }
+  }
+  return best;
+}
+
+bool bwd_plan(int dtype, int n, int e, int v, int route, int sms, BwdPlan* out) {
+  if (n < 1 || e < 128 || e % 128 || v < 1 || sms < 1 || route < -1 || route > 1 ||
+      (route == 1 && (dtype != 1 || n > BWD_MAX_N)))
+    return false;
+  BwdPlan p = {};
+  p.route = route >= 0 ? route : (dtype == 1 && n <= BWD_MAX_N ? 1 : 0);
+  const int v_pad = (v + TILE_V - 1) / TILE_V * TILE_V;
+  if (p.route == 1) {
+    p.bm = ST_BM; p.bn = ST_BN; p.bk = ST_BK; p.stages = ST_STAGES; p.smem = BW_SMEM;
+    p.row_tiles = (n + ST_BM - 1) / ST_BM;
+    p.slabs = v_pad / ST_BN;
+    const int tiles = p.row_tiles * p.slabs;
+    p.grid = tiles < sms ? tiles : sms;
+    p.e_tiles = (e + DX_BM - 1) / DX_BM;
+    const int dx_row_tiles = (n + DX_BN - 1) / DX_BN;
+    p.groups = dx_groups(dx_row_tiles * p.e_tiles, v_pad / DX_BK, sms);
+    p.dx_units = dx_row_tiles * p.e_tiles * p.groups;
+    p.dx_smem = DX_SMEM;
+  } else {
+    const bool b16 = dtype == 1;
+    p.bm = b16 ? Cfg<bf16>::BM : Cfg<float>::BM;
+    p.bn = TILE_V;
+    p.bk = b16 ? Cfg<bf16>::KC : Cfg<float>::KC;
+    p.stages = 2;
+    p.smem = (int)(b16 ? smem_bytes<bf16>(e, true) : smem_bytes<float>(e, true));
+    p.row_tiles = (n + p.bm - 1) / p.bm;
+    p.slabs = 1;
+    p.grid = p.row_tiles;
+    p.e_tiles = (e + SLAB_E - 1) / SLAB_E;
+    p.groups = 1;
+  }
+  *out = p;
+  return p.smem <= SMEM_LIMIT && p.dx_smem <= SMEM_LIMIT;
+}
+
+// route 1: dz and the dbg partials, then dx (through ``parts``, room for
+// ``parts_groups`` partials, when the vocab is split into groups), all on
+// stream ``st``
+int launch_bwd_wgmma(const BwdPlan& pl, const Params& p, float* parts, int parts_groups,
+                     cudaStream_t st) {
+  if (pl.groups > 1 && (!parts || parts_groups < pl.groups)) return (int)cudaErrorInvalidValue;
+  bwd_dz_wgmma_kernel<<<pl.grid, ST_THREADS, pl.smem, st>>>(
+      (const bf16*)p.x, (const bf16*)p.w, (const bf16*)p.b, p.labels, p.lse, p.u, p.cc, p.lt,
+      (bf16*)p.dz, p.o1, p.n, p.e, p.v, p.v_pad, pl.row_tiles, pl.row_tiles * pl.slabs);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  float* out = pl.groups > 1 ? parts : p.o0;
+  bwd_dx_wgmma_kernel<<<pl.dx_units, DX_THREADS, pl.dx_smem, st>>>(
+      (const bf16*)p.dz, (const bf16*)p.w, out, p.n, p.e, p.v, p.v_pad,
+      (p.n + DX_BN - 1) / DX_BN, pl.e_tiles, pl.groups);
+  if ((err = cudaGetLastError()) != cudaSuccess || pl.groups == 1) return (int)err;
+  const int count4 = p.n * p.e / 4;
+  bwd_dx_merge_kernel<<<(count4 + MERGE_THREADS - 1) / MERGE_THREADS, MERGE_THREADS, 0, st>>>(
+      parts, p.o0, count4, pl.groups, (size_t)count4);
+  return (int)cudaGetLastError();
+}
+
 Params base_params(const void* x, const void* w, const void* b, int n, int e, int v) {
   Params p = {};
   p.x = x; p.w = w; p.b = b;
@@ -1054,16 +1477,35 @@ int vct_sce_clipped_stats(int dtype, const void* x, const void* w, const void* b
   return dispatch_stats(dtype, 1, p, (float*)parts, route, stream);
 }
 
+// out: 13 ints, see BwdPlan; sms: the device's SM count
+int vct_sce_backward_plan(int dtype, int n, int e, int v, int route, int sms, int* out) {
+  BwdPlan p;
+  if (!bwd_plan(dtype, n, e, v, route, sms, &p)) return (int)cudaErrorInvalidValue;
+  const int vals[13] = {p.route, p.bm, p.bn, p.bk, p.stages, p.smem, p.row_tiles, p.slabs,
+                        p.grid, p.e_tiles, p.groups, p.dx_units, p.dx_smem};
+  for (int i = 0; i < 13; ++i) out[i] = vals[i];
+  return 0;
+}
+
 // dx float32 [n, e]; dz [n, v_pad] in the compute dtype; dbg_parts float32
-// [ceil(n / block_rows), v_pad]; v_pad = round_up(v, 512)
+// [ceil(n / block_rows), v_pad]; v_pad = round_up(v, 512). parts: float32
+// scratch [parts_groups, n, e] for the tensor-core route's dx partials (NULL
+// with one group or on route 0); the call fails if the plan needs more
+// groups. route: -1 by the plan's rule (what the package's wrappers pass), 0
+// backward_kernel, 1 the tensor-core pair.
 int vct_sce_backward(int dtype, const void* x, const void* w, const void* b, const void* lse,
                      const void* u, const void* cc, const void* lt, const void* labels,
-                     void* dx, void* dz, void* dbg_parts, int n, int e, int v, void* stream) {
+                     void* dx, void* dz, void* dbg_parts, void* parts, int n, int e, int v,
+                     int parts_groups, int route, void* stream) {
   Params p = base_params(x, w, b, n, e, v);
   p.lse = (const float*)lse; p.u = (const float*)u;
   p.cc = (const float*)cc; p.lt = (const float*)lt; p.labels = (const int*)labels;
   p.o0 = (float*)dx; p.o1 = (float*)dbg_parts; p.dz = dz;
-  return dispatch(dtype, 2, p, stream);
+  const int sms = sm_count();
+  BwdPlan pl;
+  if (!sms || !bwd_plan(dtype, n, e, v, route, sms, &pl)) return (int)cudaErrorInvalidValue;
+  if (pl.route == 0) return dispatch(dtype, 2, p, stream);
+  return launch_bwd_wgmma(pl, p, (float*)parts, parts_groups, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -90,6 +90,10 @@ def load_library() -> ctypes.CDLL:
     lib.vct_gen_argmax.restype = _I
     lib.vct_gen_argmax_plan.argtypes = [_I] * 5 + [_IP]
     lib.vct_gen_argmax_plan.restype = _I
+    lib.vct_stack_step.argtypes = [_I, _P] + [_I] * 10 + [_P]
+    lib.vct_stack_step.restype = _I
+    lib.vct_stack_step_plan.argtypes = [_I] * 6 + [_IP]
+    lib.vct_stack_step_plan.restype = _I
     lib.vct_decode_multi.argtypes = [_I, _P] + [_I] * 18 + [_P]
     lib.vct_decode_multi.restype = _I
     lib.vct_gen_topk_blocks.argtypes = [_I]
@@ -106,8 +110,10 @@ def load_library() -> ctypes.CDLL:
     lib.vct_sce_softmax_stats.restype = _I
     lib.vct_sce_clipped_stats.argtypes = [_I] + [_P] * 7 + [_I] * 4 + [_P]
     lib.vct_sce_clipped_stats.restype = _I
-    lib.vct_sce_backward.argtypes = [_I] + [_P] * 11 + [_I] * 3 + [_P]
+    lib.vct_sce_backward.argtypes = [_I] + [_P] * 12 + [_I] * 5 + [_P]
     lib.vct_sce_backward.restype = _I
+    lib.vct_sce_backward_plan.argtypes = [_I] * 6 + [_IP]
+    lib.vct_sce_backward_plan.restype = _I
     lib.vct_attn_forward.argtypes = [_I] + [_P] * 7 + [_I] * 5 + [_IP, _F, _F, _I, _P]
     lib.vct_attn_forward.restype = _I
     lib.vct_attn_forward_plan.argtypes = [_I] * 5 + [_IP]

@@ -3,7 +3,9 @@
 Port of the kernels in ``vct_tpu/ops/pallas_decode.py``:
 
 * ``fused_layers_step`` (``pallas_decode.py:516``) — one token through the
-  whole decoder stack; x_out is NaN when ``idx >= l_view``;
+  whole decoder stack; x_out is NaN when ``idx >= l_view``. In bfloat16 it
+  runs on tensor cores (``csrc/stack_step.cu``) within the limits that
+  ``stack_step_plan`` states, on ``decode_step_kernel`` elsewhere;
 * ``fused_norm_generator_argmax`` (``pallas_decode.py:811``) — final
   LayerNorm, vocab projection and first-win argmax without storing logits;
 * ``fused_whole_step`` (``pallas_decode.py:581``) — both in one launch; the
@@ -29,8 +31,8 @@ in place; the same tensors are returned.
 
 Dispatch: a wrapper given CPU tensors runs the ``*_reference`` version; given
 CUDA tensors it launches the CUDA kernel (``csrc/decode_step.cu``,
-``csrc/gen_argmax.cu``, ``csrc/gen_topk.cu``, ``csrc/decode_multi.cu``) or
-raises.
+``csrc/stack_step.cu``, ``csrc/gen_argmax.cu``, ``csrc/gen_topk.cu``,
+``csrc/decode_multi.cu``) or raises.
 Each wrapper counts its kernel launches in ``<wrapper>.launches``.
 """
 
@@ -293,8 +295,71 @@ def _step_pointers(x, k_cache, v_cache, ck, cv, mem_bias, stacked, gen, out, scr
     return (ctypes.c_void_p * len(tensors))(*map(_ptr, tensors))
 
 
+class StackPlan(NamedTuple):
+    """How ``csrc/stack_step.cu`` launches ``fused_layers_step``, field for
+    field what ``vct_stack_step_plan`` reports. ``route`` 1 is
+    ``stack_step_kernel`` (bfloat16, products on tensor cores in units of
+    ``rows`` x ``cols`` over K steps of ``kstep`` through ``stages`` ring
+    stages), ``route`` 0 ``decode_step_kernel`` (units of ``rows`` x ``cols``
+    on the CUDA cores, no ring); ``smem_bytes`` per block either way. ``why``
+    is the rule that decided, a key of ``STACK_WHY``."""
+    route: int
+    rows: int
+    cols: int
+    kstep: int
+    stages: int
+    smem_bytes: int
+    why: int
+
+
+# csrc/stack_step.cu: greedy decode sends 65 rows and more here (64 and fewer
+# run the whole-step kernel), beam search up to 64 videos x a beam of 32
+STACK_MIN_ROWS, STACK_MAX_ROWS = 65, 2048
+STACK_WHY = {0: "bfloat16 within every limit: the tensor-core kernel",
+             1: "route 0 asked for",
+             2: "float32: the CUDA-core kernel",
+             3: f"rows outside [{STACK_MIN_ROWS}, {STACK_MAX_ROWS}]: at 64 and fewer the stack "
+                f"keeps the whole-step kernel's sums, so a beam of 1 gives greedy's tokens",
+             4: "a width (E or F) that is not a multiple of 64",
+             5: "E above 1024, the row a LayerNorm warp holds in registers",
+             6: "a head width that is not a multiple of 8 or is above 128"}
+
+
+def stack_step_plan(b: int, e: int, heads: int, f: int, dtype, route: int = -1) -> StackPlan:
+    """The launch plan of ``fused_layers_step`` for B = ``b`` rows, widths
+    ``e`` and ``f`` and ``heads`` heads, as the C launcher forms it (a
+    description for tests and readers, not on the launch path). The rule
+    (``route`` -1): the tensor-core kernel for bfloat16 at ``STACK_MIN_ROWS``
+    to ``STACK_MAX_ROWS`` rows with E and F multiples of 64, E <= 1024 and a
+    head width that is a multiple of 8 up to 128; ``decode_step_kernel``
+    otherwise, with the rule that sent it there in ``why``. 0 asks for that
+    kernel; 1 for the tensor-core one, and raises where it does not run."""
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"dtype {dtype}; kernels take float32 or bfloat16")
+    if b < 1 or e < 1 or heads < 1 or f < 1 or e % heads or route not in (-1, 0, 1):
+        raise ValueError(f"B={b}, E={e}, heads {heads}, F={f}, route {route}")
+    d = e // heads
+    why = next((code for code, bad in (
+        (1, route == 0), (2, dtype != torch.bfloat16),
+        (3, not STACK_MIN_ROWS <= b <= STACK_MAX_ROWS),
+        (4, e % 64 or f % 64), (5, e > 1024), (6, d % 8 or d > 128)) if bad), 0)
+    if route == 1 and why:
+        raise ValueError(f"the tensor-core stack kernel does not run here: {STACK_WHY[why]}")
+    if why:
+        return StackPlan(0, 8, 32, 0, 0, 4 * (8 * max(e, f) + 8 * 8 * 32 + 8 * _MAX_SPAN), why)
+    # four stages of a [64][72] activation tile and a [64][72] weight tile, or
+    # the attention phase's staging: per warp q (128 floats) and 32 key rows
+    # (2 x 128 + 16 bytes apart) and 32 value rows of 128 bfloat16
+    return StackPlan(1, 64, 64, 64, 4,
+                     max(4 * 2 * 64 * 72 * 2, 8 * (128 * 4 + 32 * (128 * 2 + 16) + 32 * 128 * 2)), 0)
+
+
 def _launch_step(x, k_cache, v_cache, ck, cv, mem_bias, stacked, idx, heads, l_view,
-                 gen: Optional[Dict[str, torch.Tensor]]):
+                 gen: Optional[Dict[str, torch.Tensor]], stack_route: Optional[int] = None):
+    """One decode-step launch. ``stack_route`` None: ``vct_decode_step``
+    (the whole step with ``gen``, else the stack on ``decode_step_kernel``);
+    otherwise the stack through ``vct_stack_step`` with that route (-1: by
+    the plan)."""
     from vct_tpu_torch.ops._build import load_library
 
     b, e, nl, big_l, tm, f, l = _check_stack(x, k_cache, v_cache, ck, cv, mem_bias,
@@ -313,10 +378,15 @@ def _launch_step(x, k_cache, v_cache, ck, cv, mem_bias, stacked, idx, heads, l_v
                           keys)
     lib = load_library()
     with torch.cuda.device(dev):
-        err = lib.vct_decode_step(
-            _DTYPE_CODE[x.dtype], ctypes.cast(ptrs, ctypes.c_void_p), b, e, heads, f,
-            nl, big_l, tm, v, int(idx), l, int(gen is not None), _stream(dev))
-    _raise_on(err, "decode_step kernel")
+        if stack_route is None:
+            err = lib.vct_decode_step(
+                _DTYPE_CODE[x.dtype], ctypes.cast(ptrs, ctypes.c_void_p), b, e, heads, f,
+                nl, big_l, tm, v, int(idx), l, int(gen is not None), _stream(dev))
+        else:
+            err = lib.vct_stack_step(
+                _DTYPE_CODE[x.dtype], ctypes.cast(ptrs, ctypes.c_void_p), b, e, heads, f,
+                nl, big_l, tm, int(idx), l, int(stack_route), _stream(dev))
+    _raise_on(err, "decode_step kernel" if stack_route is None else "stack_step kernel")
     return out
 
 
@@ -368,10 +438,20 @@ def fused_layers_step(x, k_cache, v_cache, ck, cv, mem_bias, weights, idx: int, 
     if not _on_cuda(x, "fused_layers_step"):
         return fused_layers_step_reference(x, k_cache, v_cache, ck, cv, mem_bias,
                                            weights, idx, heads=heads, l_view=l_view)
-    out = _launch_step(x, k_cache, v_cache, ck, cv, mem_bias, weights, idx, heads,
-                       l_view, None)
+    out = _launch_layers_step(x, k_cache, v_cache, ck, cv, mem_bias, weights, idx,
+                              heads=heads, l_view=l_view)
     fused_layers_step.launches += 1
     return out, k_cache, v_cache
+
+
+def _launch_layers_step(x, k_cache, v_cache, ck, cv, mem_bias, weights, idx: int, *,
+                        heads: int, l_view: Optional[int] = None, _route: int = -1):
+    """``fused_layers_step``'s launch -> x_out. ``_route`` -1 leaves the
+    choice to the launcher's plan (``stack_step_plan``), as the wrapper
+    does; only checks set it, to time or test ``decode_step_kernel`` (0) on
+    bfloat16 inputs."""
+    return _launch_step(x, k_cache, v_cache, ck, cv, mem_bias, weights, idx, heads, l_view,
+                        None, stack_route=_route)
 
 
 def fused_whole_step(x, k_cache, v_cache, ck, cv, mem_bias, weights, idx: int, *,

@@ -30,11 +30,14 @@ dtype with the bias added in that dtype; all statistics are float32.
 
 Dispatch: a wrapper given CPU tensors runs the ``*_reference`` version; given
 CUDA tensors it launches the CUDA kernel (``csrc/sce_loss.cu``) or raises.
-Each wrapper counts its kernel launches in ``<wrapper>.launches``. In
+Each wrapper counts its calls that launch in ``<wrapper>.launches``. In
 bfloat16 the two statistics wrappers launch the tensor-core kernel, which
 splits the vocab across blocks in slabs of ``SLAB_V`` columns and merges the
 slabs' partials in a second, small kernel; ``sce_stats_plan`` describes how
-the C launcher lays a call out.
+the C launcher lays a call out. The bfloat16 backward launches two
+tensor-core kernels (``dz`` and the ``dbg`` partials over the same slabs,
+then ``dx`` with the vocab split into groups) and, with more than one group,
+a merge of the groups' ``dx`` partials; ``sce_backward_plan`` describes it.
 """
 
 from __future__ import annotations
@@ -56,6 +59,7 @@ SLAB_V = 256    # vocab columns of a slab of the tensor-core statistics kernel (
 MAX_E = 1664    # widest row tile of x that fits a block's shared memory (backward, float32)
 ROW_TILE = {torch.bfloat16: 32, torch.float32: 16}  # Cfg<T>::BM in csrc/sce_loss.cu
 H100_SMS = 132
+BWD_MAX_N = 16384  # rows of the tensor-core backward's plan (BWD_MAX_N in csrc/sce_loss.cu)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -232,6 +236,105 @@ def sce_stats_plan(n: int, e: int, v: int, dtype, route: int = -1,
     return plan
 
 
+class BwdPlan(NamedTuple):
+    """How ``csrc/sce_loss.cu`` launches ``sce_backward_tiles``, field for
+    field what ``vct_sce_backward_plan`` reports. ``route`` 1 (bfloat16) is
+    the tensor-core pair: ``bwd_dz_wgmma_kernel`` over ``row_tiles`` x
+    ``slabs`` tiles of ``rows`` x ``cols`` on ``grid`` persistent blocks (K
+    in steps of ``kstep`` through ``stages`` ring stages, ``smem_bytes``),
+    then ``bwd_dx_wgmma_kernel``, one block of ``dx_smem_bytes`` per unit of
+    (vocab group, 128-row tile, 256-column E tile): ``e_tiles`` x row tiles x
+    ``groups`` = ``dx_units``, with the groups' partials merged when
+    ``groups`` > 1. ``route`` 0 is ``backward_kernel``: one block per row
+    tile of ``rows`` walks the vocab in tiles of ``cols``, once per
+    ``e_tiles`` column slab of dx."""
+    route: int
+    rows: int
+    cols: int
+    kstep: int
+    stages: int
+    smem_bytes: int
+    row_tiles: int
+    slabs: int
+    grid: int
+    e_tiles: int
+    groups: int
+    dx_units: int
+    dx_smem_bytes: int
+
+
+def dx_groups(tiles: int, ksteps: int, sms: int) -> int:
+    """The vocab groups of the tensor-core ``dx`` (``dx_groups`` in
+    csrc/sce_loss.cu): the first count in [1, min(16, ksteps // 8)] whose
+    ``tiles`` x count units fill at least 90% of their last wave over
+    ``sms`` SMs, else the count that fills the most (the smallest on a
+    tie)."""
+    cap = max(1, min(16, ksteps // 8))
+    best, best_fill = 1, -1
+    for groups in range(1, cap + 1):
+        units = tiles * groups
+        fill = units * 1000000 // (-(-units // sms) * sms)
+        if fill >= 900000:
+            return groups
+        if fill > best_fill:
+            best, best_fill = groups, fill
+    return best
+
+
+def _backward_kernel_smem(e: int, dtype) -> int:
+    """``smem_bytes<T>(e, true)``: as the statistics kernel's, with a weight
+    stage wide enough for a dx column slab of up to 768."""
+    rows, kc, kc2, pad, size = (32, 32, 16, 8, 2) if dtype == torch.bfloat16 \
+        else (16, 16, 8, 4, 4)
+    stage = max(BLOCK_V * (kc + pad), kc2 * (min(e, 768) + pad))
+    return (rows * (e + pad) * size + rows * (BLOCK_V + pad) * size + 2 * stage * size
+            + 8 * 256 * 4 + 5 * rows * 4)
+
+
+def sce_backward_plan(n: int, e: int, v: int, dtype, route: int = -1,
+                      sms: int = H100_SMS) -> BwdPlan:
+    """The launch plan of ``sce_backward_tiles`` for x [n, e] against a
+    generator of ``v`` rows on a card of ``sms`` SMs, as the C launcher forms
+    it (a description for tests and readers, not on the launch path). The
+    rule (``route`` -1): bfloat16 with 1 <= n <= ``BWD_MAX_N`` takes the
+    tensor-core pair (the ``dx`` partials of its vocab groups are sized by
+    n); float32, and bfloat16 past that, take ``backward_kernel``. 0 or 1
+    asks for that route. Raises on what the kernels do not take."""
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"dtype {dtype}; kernels take float32 or bfloat16")
+    if n < 1 or e < 128 or e % 128 or v < 1 or sms < 1:
+        raise ValueError(f"N={n}, width {e}, vocab {v}: N >= 1, a width that is a multiple "
+                         f"of 128, a vocab >= 1")
+    if route not in (-1, 0, 1) or (route == 1 and (dtype != torch.bfloat16 or n > BWD_MAX_N)):
+        raise ValueError(f"route {route} for {dtype} at N={n}")
+    if route < 0:
+        route = 1 if dtype == torch.bfloat16 and n <= BWD_MAX_N else 0
+    v_pad = _round_up(v, BLOCK_V)
+    if route == 1:
+        rows, cols, kstep, stages = 128, SLAB_V, 64, 4
+        # the statistics kernel's ring and bias, two tiles' per-row values,
+        # the odd warps' dbg sums
+        smem = 1024 + stages * (rows + cols) * 128 + 2 * cols * 2 + 2 * 5 * rows * 4 + 4 * cols * 4
+        row_tiles, slabs = -(-n // rows), v_pad // cols
+        e_tiles = -(-e // 256)
+        dx_tiles = -(-n // 128) * e_tiles
+        groups = dx_groups(dx_tiles, v_pad // 64, sms)
+        # per stage: 128 dz rows of 128 swizzled bytes, 64 weight rows at a
+        # pitch of 264 elements
+        dx_smem = 1024 + 4 * (128 * 128 + 64 * 264 * 2)
+        plan = BwdPlan(1, rows, cols, kstep, stages, smem, row_tiles, slabs,
+                       min(row_tiles * slabs, sms), e_tiles, groups, dx_tiles * groups, dx_smem)
+    else:
+        rows = ROW_TILE[dtype]
+        plan = BwdPlan(0, rows, BLOCK_V, 32 if dtype == torch.bfloat16 else 16, 2,
+                       _backward_kernel_smem(e, dtype), -(-n // rows), 1, -(-n // rows),
+                       -(-e // 768), 1, 0, 0)
+    if max(plan.smem_bytes, plan.dx_smem_bytes) > SMEM_LIMIT:
+        raise ValueError(f"width {e} needs {plan.smem_bytes} bytes of shared memory, above "
+                         f"{SMEM_LIMIT}")
+    return plan
+
+
 # ---------------------------------------------------------------------------
 # checks and the CUDA launches
 # ---------------------------------------------------------------------------
@@ -326,29 +429,42 @@ def clipped_prob_stats(x, w, b, lse) -> Tuple[torch.Tensor, torch.Tensor]:
     return out
 
 
-def sce_backward_tiles(x, w, b, lse, u, cc, lab_term, labels
-                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """-> (dx [N, E] float32, dz [N, V_pad] compute dtype, dbg_parts
-    [ceil(N / ROW_TILE), V_pad] float32), V_pad = round_up(V, BLOCK_V); the
-    columns past V are zeros. A width above 768 is served in column slabs of
-    ``dx``, each with its own walk over the vocab. ``dwg = dz^T @ x`` is left
-    to one matrix product outside the kernel, as in the reference, and
-    ``dbg = dbg_parts.sum(0)``."""
-    if not _on_cuda(x, "sce_backward_tiles"):
-        return sce_backward_tiles_reference(x, w, b, lse, u, cc, lab_term, labels)
+def _launch_backward(x, w, b, lse, u, cc, lab_term, labels, _route: int = -1):
+    """``_route`` as in ``_launch_softmax_stats``: 0 times or tests
+    ``backward_kernel`` on bfloat16 inputs."""
     f32 = torch.float32
     n, e, v = _check_common(x, w, b, {
         "lse": (lse, f32), "u": (u, f32), "cc": (cc, f32), "lab_term": (lab_term, f32),
         "labels": (labels, torch.int32)})
+    plan = sce_backward_plan(n, e, v, x.dtype, _route,
+                             torch.cuda.get_device_properties(x.device).multi_processor_count)
     tile = ROW_TILE[x.dtype]
     v_pad = _round_up(v, BLOCK_V)
     dev = x.device
     dx = torch.empty((n, e), dtype=f32, device=dev)
     dz = torch.empty((n, v_pad), dtype=x.dtype, device=dev)
     dbg_parts = torch.empty(((n + tile - 1) // tile, v_pad), dtype=f32, device=dev)
-    _launch("vct_sce_backward", x, (w, b, lse, u, cc, lab_term, labels, dx, dz, dbg_parts), (v,))
-    sce_backward_tiles.launches += 1
+    # the dx partials of the vocab groups; the launcher plans again and fails
+    # if it needs more groups than this holds
+    parts = torch.empty((plan.groups, n, e), dtype=f32, device=dev) if plan.groups > 1 else None
+    _launch("vct_sce_backward", x,
+            (w, b, lse, u, cc, lab_term, labels, dx, dz, dbg_parts, parts),
+            (v, plan.groups, _route))
     return dx, dz, dbg_parts
+
+
+def sce_backward_tiles(x, w, b, lse, u, cc, lab_term, labels
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """-> (dx [N, E] float32, dz [N, V_pad] compute dtype, dbg_parts
+    [ceil(N / ROW_TILE), V_pad] float32), V_pad = round_up(V, BLOCK_V); the
+    columns past V are zeros. ``dwg = dz^T @ x`` is left to one matrix
+    product outside the kernel, as in the reference, and ``dbg =
+    dbg_parts.sum(0)``. ``sce_backward_plan`` says which kernels run."""
+    if not _on_cuda(x, "sce_backward_tiles"):
+        return sce_backward_tiles_reference(x, w, b, lse, u, cc, lab_term, labels)
+    out = _launch_backward(x, w, b, lse, u, cc, lab_term, labels)
+    sce_backward_tiles.launches += 1
+    return out
 
 
 softmax_stats.launches = 0
