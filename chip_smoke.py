@@ -16,12 +16,17 @@ CUDA card.
     python3 chip_smoke.py --stack-variant ROOT
                                            the package under ROOT (a copy of
                                            vct_tpu_torch with a changed
-                                           csrc/stack_step.cu) in place of the
+                                           csrc/stack_step.cu or
+                                           csrc/small_step.cu) in place of the
                                            one beside the script: its stack
                                            kernel's time at B=128 and 256 rows,
-                                           its route checks and the bf16 beam
-                                           loop checks, and per-phase times if
-                                           its library exports vct_stack_stamps
+                                           the small-row kernels' at B=1, 32
+                                           and 64 (u=4 at 32), its route checks
+                                           and the bf16 beam loop checks, and
+                                           per-phase times if its library
+                                           exports vct_stack_stamps or
+                                           vct_small_stamps (a copy that
+                                           defines VCT_SMALL_STAMPS)
 
 Phases, each of which must pass:
   1. device   the card's name and power limit (nvidia-smi); no card -> exit 1
@@ -33,9 +38,15 @@ Phases, each of which must pass:
               near-ties, no pad column wins, the same tokens twice) and with
               one weight column planted on both sides of a slab boundary and
               in a far slab, where the lowest index must win; the stack
-              kernel's tensor-core route at B = 65, 128 and 256 against its
-              plain version and the kernel it replaced, the same bits twice,
-              and its plan (stack_step_plan) against the C launcher's
+              kernel's tensor-core routes at B = 1, 32, 64 (small-row
+              kernel), 65, 128 and 256 (stack_step_kernel) against its plain
+              version and the kernel it replaced, the same bits twice, and
+              its plan (stack_step_plan) against the C launcher's; the
+              whole step's small-row kernel at B = 1, 7, 32 and 64 against
+              its plain version and decode_step_kernel, the same bits twice,
+              the tokens of the beam's stack + top-k (k=1) and of the argmax
+              kernel equal to its own, its window poison, and its plans
+              (whole_step_plan, multi_step_plan) against the launchers'
   4. server   configs/msvd.json with a synthetic 30522-entry vocab and seeded
               random weights saved as a reference-keyed .pth; the port's HTTP
               server on port 0 with max_batch 32 answers concurrent
@@ -75,9 +86,12 @@ Phases, each of which must pass:
               1, 4, 32 on a ragged vocab against the plain version and the
               kernel it replaced, with ties across slabs),
               fused_layer_step at B=32,
-              fused_multi_step at u=2 and 4 over several windows with the
-              window poison, fused_sequence_decode at B=1 and 32 with end
-              tokens that stop rows and the whole batch early
+              fused_multi_step at B = 1, 7, 32 and 64, u=2 and 4, over
+              several windows against the plain version and the kernel it
+              replaced, the same bits twice, the per-token whole step along
+              its chain bit for bit, the window poison on both routes;
+              fused_sequence_decode at B=1 and 32 with end tokens that stop
+              rows and the whole batch early
   9. eval     vct_tpu_torch.cli.eval's main on the synthetic dataset (160
               videos, eval batch 64) and the seeded .pth: greedy, --beam 4
               (256 beam rows) and --beam 1; predictions and metrics files
@@ -88,11 +102,15 @@ Phases, each of which must pass:
               beam of 16, and against the module path, where beams may part
               only at candidate near-ties; a beam above the top-k kernel's
               width raises
- 10. multi    greedy_generate_fused(multi_step=2 and 4) and
-              (sequence_kernel=True) token-equal to the per-token kernel
-              loop at B=1 and B=32, and a 29-token decode at B=32 with the
-              stack run layer by layer through fused_layer_step
- 11. timings  kernel, plain and library-call times with each kernel's bound,
+ 10. multi    greedy_generate_fused(multi_step=2 and 4) and a beam of 1
+              token-equal, bit for bit, to the per-token kernel loop at B=1,
+              32 and 64 (the beam also at 65); (sequence_kernel=True) and a
+              29-token decode at B=32 with the stack run layer by layer
+              through fused_layer_step, which keep decode_token's sums,
+              against the plain greedy chain but at near-ties
+ 11. timings  kernel, plain and library-call times with each kernel's bound
+              (the whole step at B = 32, 1 and 64, the u=4 window at B=32 and
+              the stack at 1-64 rows against the kernels they replaced),
               ms per token of both decode paths at B=1, 32 and 128,
               captions/s of the server phase, the loss routes at N=1984 and
               N=7936, the generator's padded copy against the bare cast, ms
@@ -148,7 +166,9 @@ is ``device_time`` (the calls captured into a CUDA graph and replayed: the
 device alone), used for the generator + argmax kernel, the top-k kernel, the
 attention forward and (``backward_timer``) backward, the three loss kernels
 (at N=1984 and, in ``*_n4096``, N=4096) and their library calls, the stack
-kernel (at B=128 and, in ``*_b256``, 256 beam rows),
+kernel (at B=128 and, in ``*_b256``, 256 beam rows; at 1-64 rows in
+``*_b1``, ``*_b32``, ``*_b64``), the whole step (B=32; ``*_b1``, ``*_b64``)
+and the multi-token window,
 because their wrappers' host code outlasts the kernels or, for the backward,
 because autograd's host loop is no clock of its kernels; ``eager_ms`` is the
 loop's reading of the same call (for the backward, forward + backward minus
@@ -204,6 +224,8 @@ NEAR_TIE_SAME = 1e-2       # kernel vs plain version: same rounding points
 # the kernels' fp32-statistics schedule by a few such units.
 NEAR_TIE_MODULE = 0.125
 SOURCE = "vct_tpu_torch/csrc/decode_step.cu"
+SMALL_SOURCE = "vct_tpu_torch/csrc/small_step.cu"
+SMALL_BATCHES = (1, 7, 32, 64)   # the small-row kernel's rows: one, ragged, serving, its top
 LOSS_SOURCE = "vct_tpu_torch/csrc/sce_loss.cu"
 REPLACES = {
     "fused_whole_step": "vct_tpu/ops/pallas_decode.py:581",
@@ -215,8 +237,7 @@ BEAM_REPLACES = {
     "fused_norm_generator_topk": ("vct_tpu/ops/pallas_decode.py:721",
                                   "vct_tpu_torch/csrc/gen_topk.cu"),
     "fused_layer_step": ("vct_tpu/ops/pallas_decode.py:211", SOURCE),
-    "fused_multi_step": ("vct_tpu/ops/pallas_decode.py:1289",
-                         "vct_tpu_torch/csrc/decode_multi.cu"),
+    "fused_multi_step": ("vct_tpu/ops/pallas_decode.py:1289", SMALL_SOURCE),
     "fused_sequence_decode": ("vct_tpu/ops/pallas_decode.py:997",
                               "vct_tpu_torch/csrc/decode_multi.cu"),
 }
@@ -239,6 +260,8 @@ RECORDED_PREVIOUS_MS = {
                                            "decoder_cross": 0.7419},
     "fused_norm_generator_topk": 0.8690,
     "fused_layers_step": {"b128": 0.8744, "b256": 1.3138},
+    "fused_whole_step": 0.6746,
+    "fused_multi_step": 2.8116,
     "sce_backward_tiles": 4.5906,
 }
 BEAM_ROWS, BEAM_K = 256, 4   # eval batch 64 x beam 4
@@ -474,6 +497,8 @@ def check_kernels(fw, heads, tm):
         say(f"  ok {name}")
     errs["fused_layers_step"] = max(errs["fused_layers_step"],
                                     check_stack_routes(fw, heads, tm, means))
+    errs["fused_whole_step"] = max(errs["fused_whole_step"],
+                                   check_whole_routes(fw, heads, tm, means))
     # fused_norm_generator_argmax on decoder-like activations: one M tile of 64
     # rows, one of 128, two of 128; twice, for the same bits
     gargs = (fw["norm_s"], fw["norm_b"], fw["wg"], fw["bg"])
@@ -529,8 +554,9 @@ def check_kernels(fw, heads, tm):
 
 def check_stack_routes(fw, heads, tm, means):
     """fused_layers_step's plan (stack_step_plan) against the launcher's;
-    then in bfloat16 at B = 65, 128 and 256 beam rows, where the plan picks
-    the tensor-core kernel: x_out and the fresh cache rows against the plain
+    then in bfloat16 at B = 1, 32 and 64, where the plan picks the small-row
+    kernel (route 2), and at 65, 128 and 256 beam rows, where it picks
+    stack_step_kernel (route 1): x_out and the fresh cache rows against the plain
     version and against decode_step_kernel (route 0), within the step
     kernels' bounds; two calls give the same bits."""
     import ctypes
@@ -543,8 +569,9 @@ def check_stack_routes(fw, heads, tm, means):
     for dtype, b, (we, wh, wf), route in itertools.product(
             (torch.bfloat16, torch.float32), (1, 64, 65, 256, dk.STACK_MAX_ROWS,
                                               dk.STACK_MAX_ROWS + 1),
-            ((e, heads, f), (128, 4, 256), (96, 12, 256), (1280, 8, 2048), (768, 2, 2048)),
-            (-1, 0, 1)):
+            ((e, heads, f), (128, 4, 256), (96, 12, 256), (1280, 8, 2048), (768, 2, 2048),
+             (768, 8, 2560)),
+            (-1, 0, 1, 2)):
         try:
             want = tuple(dk.stack_step_plan(b, we, wh, wf, dtype, route))
         except ValueError:
@@ -555,9 +582,10 @@ def check_stack_routes(fw, heads, tm, means):
             fail(f"stack_step_plan({b}, {we}, {wh}, {wf}, {dtype}, {route}) is {want}, the "
                  f"launcher's {None if err else tuple(out)}")
     worst = 0.0
-    for b, idx, l_view in ((65, 12, 16), (128, 12, 16), (256, 12, 16), (256, 31, 32)):
+    for b, idx, l_view in ((1, 12, 16), (32, 12, 16), (64, 29, 32), (65, 12, 16), (128, 12, 16),
+                           (256, 12, 16), (256, 31, 32)):
         plan = dk.stack_step_plan(b, e, heads, f, st["wqkv"].dtype)
-        if plan.route != 1:
+        if plan.route != (2 if b <= dk.SMALL_MAX_ROWS else 1):
             fail(f"fused_layers_step B={b}: the plan takes route {plan.route} ({plan.why})")
         a = step_inputs(fw, b, idx, tm, gen=7000 + b + idx)
         args = (a["x"], None, None, a["ck"], a["cv"], a["mem_bias"], st, idx)
@@ -572,7 +600,7 @@ def check_stack_routes(fw, heads, tm, means):
             kc, vc = a["kc"].clone(), a["vc"].clone()
             runs[label] = (fn(args[0], kc, vc, *args[3:]), kc[:, idx], vc[:, idx])
         torch.cuda.synchronize()
-        name = f"fused_layers_step tensor-core route B={b} idx={idx} l_view={l_view}"
+        name = f"fused_layers_step tensor-core route {plan.route} B={b} idx={idx} l_view={l_view}"
         if not all(torch.equal(p, q) for p, q in zip(runs["kernel"], runs["again"])):
             fail(f"{name}: two calls gave different bits")
         for ref in ("plain", "replaced"):
@@ -581,6 +609,99 @@ def check_stack_routes(fw, heads, tm, means):
                 if ref == "plain":
                     worst = max(worst, err)
         say(f"  ok {name}: against the plain version and the replaced kernel; same bits twice")
+    return worst
+
+
+def check_small_plans(fw, heads):
+    """whole_step_plan and multi_step_plan against the launchers' plans."""
+    import ctypes
+
+    from vct_tpu_torch.ops import decode_kernels as dk
+    from vct_tpu_torch.ops._build import load_library
+
+    st = fw["stacked"]
+    e, f, v = st["wqkv"].shape[1], st["w1"].shape[-1], fw["wg"].shape[1]
+    for entry, plan_fn in (("vct_whole_step_plan", dk.whole_step_plan),
+                           ("vct_multi_step_plan", dk.multi_step_plan)):
+        for dtype, b, (we, wh, wf), wv, route in itertools.product(
+                (torch.bfloat16, torch.float32), (1, 7, 64, 65),
+                ((e, heads, f), (128, 4, 256), (96, 12, 256), (1280, 8, 2048), (768, 2, 2048),
+                 (768, 8, 2560)), (v, 1020), (-1, 0, 1)):
+            try:
+                want = tuple(plan_fn(b, we, wh, wf, wv, dtype, route))
+            except ValueError:
+                want = None
+            out = (ctypes.c_int * 7)()
+            err = getattr(load_library(), entry)(dk._DTYPE_CODE[dtype], b, we, wh, wf, wv, route,
+                                                 out)
+            if (None if err else tuple(out)) != want:
+                fail(f"{plan_fn.__name__}({b}, {we}, {wh}, {wf}, {wv}, {dtype}, {route}) is "
+                     f"{want}, the launcher's {None if err else tuple(out)}")
+
+
+def check_whole_routes(fw, heads, tm, means):
+    """fused_whole_step's plans against the launchers'; then in bfloat16 at
+    B = 1, 7, 32 and 64, where the plan takes the small-row kernel: tokens
+    and fresh cache rows against the plain version and against
+    decode_step_kernel (route 0), tokens equal but at near-ties of the plain
+    logits; two calls give the same bits; the stack a beam runs at these
+    rows (fused_layers_step) with the top-k kernel at k = 1, and the argmax
+    kernel, give the whole step's tokens bit for bit; the window poison."""
+    from vct_tpu_torch.ops import decode_kernels as dk
+
+    check_small_plans(fw, heads)
+    st = fw["stacked"]
+    e, f, v = st["wqkv"].shape[1], st["w1"].shape[-1], fw["wg"].shape[1]
+    gargs = (fw["norm_s"], fw["norm_b"], fw["wg"], fw["bg"])
+    worst = 0.0
+    for b in SMALL_BATCHES:
+        plan = dk.whole_step_plan(b, e, heads, f, v, st["wqkv"].dtype)
+        if plan.route != 1:
+            fail(f"fused_whole_step B={b}: the plan takes route {plan.route} ({plan.why})")
+        for idx, l_view in ((12, 16), (29, 32)):
+            a = step_inputs(fw, b, idx, tm, gen=7500 + b + idx)
+            args = (a["x"], None, None, a["ck"], a["cv"], a["mem_bias"], fw, idx)
+            runs = {}
+            for label, route in (("kernel", -1), ("again", -1), ("replaced", 0)):
+                kc, vc = a["kc"].clone(), a["vc"].clone()
+                tok = dk._launch_whole_step(args[0], kc, vc, *args[3:], heads=heads,
+                                            l_view=l_view, _route=route)
+                runs[label] = (tok, kc[:, idx], vc[:, idx])
+            kc, vc = a["kc"].clone(), a["vc"].clone()
+            x_ref = dk._stack_reference(a["x"], kc, vc, a["ck"], a["cv"], a["mem_bias"], st, idx,
+                                        heads, l_view)
+            logits = plain_logits(dk, x_ref, fw)
+            runs["plain"] = (torch.argmax(logits, -1).to(torch.int32), kc[:, idx], vc[:, idx])
+            kc, vc = a["kc"].clone(), a["vc"].clone()
+            xs, _, _ = dk.fused_layers_step(a["x"], kc, vc, a["ck"], a["cv"], a["mem_bias"], st,
+                                           idx, heads=heads, l_view=l_view)
+            top1 = dk.fused_norm_generator_topk(xs, *gargs, k=1)[1][:, 0]
+            arg = dk.fused_norm_generator_argmax(xs, *gargs)
+            torch.cuda.synchronize()
+            name = f"fused_whole_step small-row route B={b} idx={idx} l_view={l_view}"
+            if not all(torch.equal(p, q) for p, q in zip(runs["kernel"], runs["again"])):
+                fail(f"{name}: two calls gave different bits")
+            if not (torch.equal(top1, runs["kernel"][0]) and torch.equal(arg, runs["kernel"][0])
+                    and torch.equal(kc[:, idx], runs["kernel"][1])):
+                fail(f"{name}: the stack at these rows with the top-k (k=1) or argmax kernel "
+                     f"gives other tokens or cache rows than the whole step")
+            for ref in ("plain", "replaced"):
+                worst = max(worst, token_err(f"{name} against the {ref}", runs["kernel"][0],
+                                             runs[ref][0], logits, NEAR_TIE_SAME))
+                for part, got, want in zip(("k rows", "v rows"), runs["kernel"][1:],
+                                           runs[ref][1:]):
+                    err = compare_float(f"{name} {part} against the {ref}", got, want, means)
+                    if ref == "plain":
+                        worst = max(worst, err)
+            say(f"  ok {name}: against the plain version and the replaced kernel; same bits "
+                f"twice; the beam's stack + top-k at k=1 and the argmax give its tokens")
+        a = step_inputs(fw, b, 16, tm, gen=7600 + b)
+        tok = dk.fused_whole_step(a["x"], a["kc"], a["vc"], a["ck"], a["cv"], a["mem_bias"], fw,
+                                  16, heads=heads, l_view=16)[0]
+        torch.cuda.synchronize()
+        if not bool((tok == -1).all()) or float(a["kc"][:, 16].float().abs().max()) == 0.0:
+            fail(f"fused_whole_step small-row route B={b}: the window poison did not fire "
+                 f"(or the row was not written)")
     return worst
 
 
@@ -606,14 +727,35 @@ def time_kernels(fw, heads, tm):
     from vct_tpu_torch.ops import decode_kernels as dk
 
     out = {}
-    a = step_inputs(fw, 32, 12, tm, gen=4000)
-    args = (a["x"], a["kc"], a["vc"], a["ck"], a["cv"], a["mem_bias"])
-    bnd = step_bound(fw, a, 32, 16, True)
-    out["fused_whole_step"] = {
-        "ms": cuda_time(lambda: dk.fused_whole_step(*args, fw, 12, heads=heads, l_view=16)),
-        "plain_ms": cuda_time(lambda: dk.fused_whole_step_reference(
-            *args, fw, 12, heads=heads, l_view=16)),
-        "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
+    # the whole step (the small-row kernel) and decode_step_kernel, which it
+    # replaced in bfloat16, by graph replay in turns (kernel, replaced,
+    # replaced, kernel) at B=32 (the serving batch), B=1 and B=64 (its top)
+    row = {"timer": "graph_replay", "library_ms": None}
+    for b in (32, 1, 64):
+        a = step_inputs(fw, b, 12, tm, gen=4000 if b == 32 else 4010 + b)
+        args = (a["x"], a["kc"], a["vc"], a["ck"], a["cv"], a["mem_bias"], fw)
+        fns = {"kernel": lambda: dk.fused_whole_step(*args, 12, heads=heads, l_view=16),
+               "previous": lambda: dk._launch_whole_step(*args, 12, heads=heads, l_view=16,
+                                                         _route=0)}
+        t = {k: [] for k in fns}
+        for order in (list(fns), list(fns)[::-1]):
+            for which in order:
+                t[which].append(device_time(fns[which]))
+        bnd = step_bound(fw, a, b, 16, True)
+        sfx = "" if b == 32 else f"_b{b}"
+        row.update({f"ms{sfx}": min(t["kernel"]), f"previous_same_run_ms{sfx}": min(t["previous"]),
+                    f"bound_ms{sfx}": bnd[0], f"bound_by{sfx}": bnd[1]})
+        if b == 32:
+            row["eager_ms"] = cuda_time(fns["kernel"])
+            row["plain_ms"] = cuda_time(lambda: dk.fused_whole_step_reference(
+                *args, 12, heads=heads, l_view=16))
+    out["fused_whole_step"] = row
+    say(f"  fused_whole_step [small-row kernel, graph replay]: B=32 {row['ms']:.4f} ms (replaced "
+        f"kernel {row['previous_same_run_ms']:.4f}, recorded earlier by cuda_time "
+        f"{RECORDED_PREVIOUS_MS['fused_whole_step']:.4f}; host loop {row['eager_ms']:.4f}; bound "
+        f"{row['bound_ms']:.4f}), B=1 {row['ms_b1']:.4f} (replaced "
+        f"{row['previous_same_run_ms_b1']:.4f}), B=64 {row['ms_b64']:.4f} (replaced "
+        f"{row['previous_same_run_ms_b64']:.4f})")
     # the stack kernel and decode_step_kernel, which it replaced in bfloat16,
     # by graph replay in turns (kernel, replaced, replaced, kernel) at B=128
     # (greedy decode past 64) and 256 beam rows (eval batch 64 at beam 4)
@@ -637,7 +779,23 @@ def time_kernels(fw, heads, tm):
             row["plain_ms"] = cuda_time(lambda: dk.fused_layers_step_reference(
                 *args, 12, heads=heads, l_view=16))
             x = a["x"]
+    # at 1-64 rows the stack is the small-row kernel (route 2), taken for its
+    # summation order (a beam of 1 sums as greedy decode); beside it
+    # decode_step_kernel, which it replaced there, and stack_step_kernel
+    # forced to these rows (route 1)
+    for b in (1, 32, 64):
+        a = step_inputs(fw, b, 12, tm, gen=4020 + b)
+        args = (a["x"], a["kc"], a["vc"], a["ck"], a["cv"], a["mem_bias"], fw["stacked"])
+        for key, route in (("ms", -1), ("previous_same_run_ms", 0), ("stack_step_kernel_ms", 1)):
+            row[f"{key}_b{b}"] = device_time(lambda: dk._launch_layers_step(
+                *args, 12, heads=heads, l_view=16, _route=route))
+        bnd = step_bound(fw, a, b, 16, False)
+        row[f"bound_ms_b{b}"], row[f"bound_by_b{b}"] = bnd
     out["fused_layers_step"] = row
+    say("  fused_layers_step at 1-64 rows [small-row kernel, graph replay]: "
+        + ", ".join(f"B={b} {row[f'ms_b{b}']:.4f} ms (replaced kernel "
+                    f"{row[f'previous_same_run_ms_b{b}']:.4f}, stack_step_kernel "
+                    f"{row[f'stack_step_kernel_ms_b{b}']:.4f})" for b in (1, 32, 64)))
     rec = RECORDED_PREVIOUS_MS["fused_layers_step"]
     say(f"  fused_layers_step [stack kernel, graph replay]: B=128 {row['ms']:.4f} ms (replaced "
         f"kernel {row['previous_same_run_ms']:.4f}, recorded earlier by cuda_time "
@@ -1015,57 +1173,101 @@ def check_layer_step(fw, heads, tm):
 
 
 def check_multi_step(fw, heads, tm):
-    """fused_multi_step at B=32, u=2 and 4, four windows each: every window's
-    chain and cache rows against the plain version one token at a time, then
-    the window poison. Each window starts from the plain version's state, so
-    a near-tie does not travel."""
+    """fused_multi_step at B = 1, 7, 32 and 64 (the small-row kernel), u=2
+    and 4, four windows each: every window's chain and cache rows against the
+    plain version one token at a time, and against decode_multi_kernel (the
+    replaced kernel, route 0) up to near-ties; the same window twice gives
+    the same bits; fused_whole_step one token at a time along the kernel's
+    chain gives the same tokens and rows bit for bit; then the window poison
+    on both routes. Each window starts from the plain version's state, so a
+    near-tie does not travel."""
     from vct_tpu_torch.ops import decode_kernels as dk
 
-    b, err, means = 32, 0.0, []
+    err, means = 0.0, []
     emb, pe = fw["emb"], fw["pe"]
-    a = step_inputs(fw, b, 0, tm, gen=7000)
-    ck, cv, mb = a["ck"], a["cv"], a["mem_bias"]
-    start = torch.full((b,), 101, dtype=torch.int32, device=ck.device)
-    start[0] = 0  # a pad token embeds to zero
-    for u in (2, 4):
-        ks_k, vs_k, ks_r, vs_r = (torch.zeros_like(a["kc"]) for _ in range(4))
-        cur = start
-        for w in range(4):
-            l_view = (((w + 1) * u + 7) // 8) * 8
-            t_k, _, _ = dk.fused_multi_step(cur, ks_k, vs_k, ck, cv, mb, emb, pe, fw, w,
-                                            heads=heads, unroll=u, pad_id=0, l_view=l_view)
+    for b in SMALL_BATCHES:
+        a = step_inputs(fw, b, 0, tm, gen=7000 + b)
+        ck, cv, mb = a["ck"], a["cv"], a["mem_bias"]
+        start = torch.full((b,), 101, dtype=torch.int32, device=ck.device)
+        start[0] = 0  # a pad token embeds to zero
+        e, f, v = ck.shape[3], fw["stacked"]["w1"].shape[-1], fw["wg"].shape[1]
+        if dk.multi_step_plan(b, e, heads, f, v, ck.dtype).route != 1:
+            fail(f"fused_multi_step B={b}: the plan keeps the replaced kernel")
+        for u in (2, 4):
+            ks_r, vs_r = torch.zeros_like(a["kc"]), torch.zeros_like(a["kc"])
+            cur = start
+            for w in range(4):
+                l_view = (((w + 1) * u + 7) // 8) * 8
+                runs = {}
+                for label, route in (("kernel", -1), ("again", -1), ("replaced", 0)):
+                    ks, vs = ks_r.clone(), vs_r.clone()
+                    tok = torch.empty((b, u), dtype=torch.int32, device=ck.device)
+                    dk._launch_multi(cur, ks, vs, ck, cv, mb, emb, pe, fw, heads=heads,
+                                     l_view=l_view, i0=w * u, n_tok=u, seq=False, poison=False,
+                                     tok_out=tok, start_id=0, end_id=-1, pad_id=0, route=route)
+                    runs[label] = (tok, ks, vs)
+                # the per-token whole step along the kernel's chain
+                ks_w, vs_w = ks_r.clone(), vs_r.clone()
+                c, chain = cur, []
+                for j in range(u):
+                    x = dk._embed_step(emb, pe, c, w * u + j, 0)
+                    c = dk.fused_whole_step(x, ks_w, vs_w, ck, cv, mb, fw, w * u + j, heads=heads,
+                                            l_view=l_view)[0]
+                    chain.append(c)
+                    c = runs["kernel"][0][:, j].contiguous()
+                torch.cuda.synchronize()
+                name = f"fused_multi_step B={b} u={u} window {w}"
+                t_k = runs["kernel"][0]
+                if not all(torch.equal(p, q) for p, q in zip(runs["kernel"], runs["again"])):
+                    fail(f"{name}: two calls gave different bits")
+                if not (torch.equal(torch.stack(chain, 1), t_k)
+                        and torch.equal(ks_w, runs["kernel"][1])
+                        and torch.equal(vs_w, runs["kernel"][2])):
+                    fail(f"{name}: the per-token whole step gives other tokens or rows")
+                cur_r = cur
+                ok = torch.ones((b,), dtype=torch.bool, device=ck.device)  # chains agree so far
+                ok_old = ok.clone()
+                for j in range(u):
+                    pos = w * u + j
+                    x = dk._embed_step(emb, pe, cur_r, pos, 0)
+                    xs = dk._stack_reference(x, ks_r, vs_r, ck, cv, mb, fw["stacked"], pos,
+                                             heads, l_view)
+                    logits = plain_logits(dk, xs, fw)
+                    cur_r = torch.argmax(logits, dim=-1).to(torch.int32)
+                    err = max(err, token_err(f"{name} token {j}", t_k[ok, j], cur_r[ok],
+                                             logits[ok], NEAR_TIE_SAME))
+                    token_err(f"{name} token {j} (replaced kernel)", runs["replaced"][0][ok_old, j],
+                              cur_r[ok_old], logits[ok_old], NEAR_TIE_SAME)
+                    ok &= t_k[:, j] == cur_r
+                    ok_old &= runs["replaced"][0][:, j] == cur_r
+                rows = slice(w * u, w * u + u)
+                for label in ("kernel", "replaced"):
+                    both = ok & ok_old
+                    for part, got, want in (("k rows", runs[label][1], ks_r),
+                                            ("v rows", runs[label][2], vs_r)):
+                        d = compare_float(f"{name} {part} ({label})", got[:, rows][:, :, both],
+                                          want[:, rows][:, :, both], means)
+                        if label == "kernel":
+                            err = max(err, d)
+                cur = cur_r.contiguous()   # go on from the plain version's chain and rows
+            say(f"  ok fused_multi_step B={b} u={u}: 4 windows against the plain version and "
+                f"the replaced kernel, same bits twice, the per-token whole step bit for bit")
+        for route in (-1, 0):
+            tok = torch.empty((b, 4), dtype=torch.int32, device=ck.device)
+            dk._launch_multi(start, torch.zeros_like(a["kc"]), torch.zeros_like(a["kc"]), ck, cv,
+                             mb, emb, pe, fw, heads=heads, l_view=8, i0=8, n_tok=4, seq=False,
+                             poison=True, tok_out=tok, start_id=0, end_id=-1, pad_id=0,
+                             route=route)
             torch.cuda.synchronize()
-            cur_r = cur
-            ok = torch.ones((b,), dtype=torch.bool, device=ck.device)  # chains agree so far
-            for j in range(u):
-                pos = w * u + j
-                x = dk._embed_step(emb, pe, cur_r, pos, 0)
-                xs = dk._stack_reference(x, ks_r, vs_r, ck, cv, mb, fw["stacked"], pos,
-                                         heads, l_view)
-                logits = plain_logits(dk, xs, fw)
-                cur_r = torch.argmax(logits, dim=-1).to(torch.int32)
-                name = f"fused_multi_step u={u} window {w} token {j}"
-                err = max(err, token_err(name, t_k[ok, j], cur_r[ok], logits[ok],
-                                         NEAR_TIE_SAME))
-                ok &= t_k[:, j] == cur_r
-            rows = slice(w * u, w * u + u)
-            name = f"fused_multi_step u={u} window {w}"
-            err = max(err, compare_float(name + " k rows", ks_k[:, rows][:, :, ok],
-                                         ks_r[:, rows][:, :, ok], means),
-                      compare_float(name + " v rows", vs_k[:, rows][:, :, ok],
-                                    vs_r[:, rows][:, :, ok], means))
-            # go on from the plain version's chain and rows
-            ks_k.copy_(ks_r)
-            vs_k.copy_(vs_r)
-            cur = cur_r.contiguous()
-        say(f"  ok fused_multi_step B={b} u={u}: 4 windows, chains and cache rows")
+            if not bool((tok == -1).all()):
+                fail(f"fused_multi_step B={b} route {route}: the window poison did not fire")
     t_k, _, _ = dk.fused_multi_step(start, torch.zeros_like(a["kc"]), torch.zeros_like(a["kc"]),
                                     ck, cv, mb, emb, pe, fw, 2, heads=heads, unroll=4,
                                     pad_id=0, l_view=8)
     torch.cuda.synchronize()
     if not bool((t_k == -1).all()):
         fail("fused_multi_step: the window poison did not fire")
-    say("  ok fused_multi_step window poison (tokens -1)")
+    say("  ok fused_multi_step window poison (tokens -1) on both routes")
     return err
 
 
@@ -1501,38 +1703,61 @@ def per_layer_decode(fw, cks, cvs, mem_bias, max_len=30, start_id=101, pad_id=0)
 
 
 def run_multi(model, fw):
-    """The opt-in greedy modes against the per-token kernel loop at B=1 and
-    B=32, and at B=32 a 29-token decode whose stack runs layer by layer
-    through fused_layer_step -> launches, counted from 0."""
-    from vct_tpu_torch.decode import first_mismatch_gaps
-    from vct_tpu_torch.decode_fast import _prep_decode, greedy_generate_fused
+    """The opt-in greedy modes against the per-token kernel loop at B = 1, 32
+    and 64: multi_step=2 and 4 (the small-row kernel, which sums as the whole
+    step) token for token, bit for bit; a beam of 1 (fused_layers_step + the
+    top-k kernel) token for token at B = 1, 32, 64 and 65, across the
+    boundary where greedy decode leaves the whole-step kernel. The sequence
+    kernel and, at B=32, a 29-token decode whose stack runs layer by layer
+    through fused_layer_step keep decode_token's summation order: each is
+    held to the plain greedy chain, parting only at its near-ties (they may
+    part from the per-token loop where its order and theirs round a near-tie
+    apart) -> launches, counted from 0."""
+    from vct_tpu_torch.decode_fast import _prep_decode, beam_generate_fused, greedy_generate_fused
     from vct_tpu_torch.ops import decode_kernels as dk
 
     dev = fw["wg"].device
+    plain = {}   # the plain greedy chains, read before the launches are counted
+    with torch.no_grad():
+        for b in (1, 32):
+            feats, masks = eval_inputs(b, dev, SEED + 20 + b)
+            _, cks, cvs, mem_bias = _prep_decode(model, feats, masks, 30, fw)
+            plain[b] = plain_chain(fw, cks, cvs, mem_bias, fw["heads"], 30, 101, -1, 0)
     reset_launches()
     with no_plain_on_cuda("multi", dk), torch.no_grad():
-        for b in (1, 32):
+        for b in (1, 32, 64, 65):
             feats, masks = eval_inputs(b, dev, SEED + 20 + b)
             kw = dict(max_len=30, start_id=101, end_id=-1, fw=fw)
             base, _ = greedy_generate_fused(model, feats, masks, **kw)
-            runs = [(str(mode), lambda mode=mode: greedy_generate_fused(
-                model, feats, masks, **mode, **kw)[0])
-                for mode in (dict(multi_step=2), dict(multi_step=4),
-                             dict(sequence_kernel=True))]
+            exact = [("beam of 1", lambda: beam_generate_fused(model, feats, masks, beam_size=1,
+                                                                **kw)[0])]
+            near = []
+            if b <= dk.SMALL_MAX_ROWS:
+                exact += [(str(mode), lambda mode=mode: greedy_generate_fused(
+                    model, feats, masks, **mode, **kw)[0])
+                    for mode in (dict(multi_step=2), dict(multi_step=4))]
+            if b <= dk.SEQUENCE_MAX_B:
+                near.append(("{'sequence_kernel': True}", lambda: greedy_generate_fused(
+                    model, feats, masks, sequence_kernel=True, **kw)[0]))
             if b == 32:
                 _, cks, cvs, mem_bias = _prep_decode(model, feats, masks, 30, fw)
-                runs.append(("one fused_layer_step per layer",
+                near.append(("one fused_layer_step per layer",
                              lambda: per_layer_decode(fw, cks, cvs, mem_bias)))
-            for label, run in runs:
+            for label, run in exact:
                 got = run()
                 torch.cuda.synchronize()
-                mism = first_mismatch_gaps(model, feats, masks, got, base)
-                for row, pos, gap in mism:
-                    if gap >= NEAR_TIE_SAME:
-                        fail(f"multi B={b} {label}: row {row} parts from the per-token loop "
-                             f"at position {pos} with top-2 gap {gap} >= {NEAR_TIE_SAME}")
-                say(f"  ok B={b} {label}: {b - len(mism)}/{b} rows token-equal to the "
-                    f"per-token kernel loop")
+                if not torch.equal(got, base):
+                    rows = (got != base).any(1).nonzero().flatten().tolist()
+                    fail(f"multi B={b} {label}: rows {rows} differ from the per-token loop, "
+                         f"which sums alike")
+                say(f"  ok B={b} {label}: {b}/{b} rows equal to the per-token kernel loop")
+            for label, run in near:   # these sum as decode_token: held to the plain chain
+                got = run()
+                torch.cuda.synchronize()
+                chain_err(f"multi B={b} {label}", got, *plain[b], NEAR_TIE_SAME)
+                same = int((got == base).all(dim=1).sum())
+                say(f"  ok B={b} {label}: against the plain chain but at near-ties; {same}/{b} "
+                    f"rows token-equal to the per-token kernel loop")
     launches = read_launches()
     for name in ("fused_multi_step", "fused_sequence_decode", "fused_layer_step"):
         if launches[name] == 0:
@@ -1630,13 +1855,29 @@ def time_beam_kernels(model, fw, heads, tm, card):
 
     margs = (cur, ks, vs, cks, cvs, mem_bias, fw["emb"], fw["pe"], fw)
     bnd = once_bound(u, 8)
+    # the small-row kernel's window and decode_multi_kernel, which it replaced,
+    # by graph replay in turns (kernel, replaced, replaced, kernel)
+    tok = torch.empty((b, u), dtype=torch.int32, device=x.device)
+    fns = {"kernel": lambda: dk.fused_multi_step(*margs, 1, heads=heads, unroll=u, pad_id=0,
+                                                 l_view=8),
+           "previous": lambda: dk._launch_multi(*margs[:8], fw, heads=heads, l_view=8, i0=u,
+                                                n_tok=u, seq=False, poison=False, tok_out=tok,
+                                                start_id=0, end_id=-1, pad_id=0, route=0)}
+    t = {k: [] for k in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for which in order:
+            t[which].append(device_time(fns[which]))
     out["fused_multi_step"] = {
-        "ms": cuda_time(lambda: dk.fused_multi_step(*margs, 1, heads=heads, unroll=u,
-                                                    pad_id=0, l_view=8)),
+        "timer": "graph_replay", "ms": min(t["kernel"]),
+        "previous_same_run_ms": min(t["previous"]), "eager_ms": cuda_time(fns["kernel"]),
         "plain_ms": cuda_time(lambda: dk.fused_multi_step_reference(
             *margs, 1, heads=heads, unroll=u, pad_id=0, l_view=8), iters=5),
         "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
         "restream_bound_ms": u * per_token[0]}
+    say(f"  fused_multi_step [small-row kernel, graph replay] B={b} u={u}: "
+        f"{out['fused_multi_step']['ms']:.4f} ms (replaced kernel "
+        f"{out['fused_multi_step']['previous_same_run_ms']:.4f}, recorded earlier by cuda_time "
+        f"{RECORDED_PREVIOUS_MS['fused_multi_step']:.4f})")
     sargs = (fw["emb"], fw["pe"], cks, cvs, mem_bias, fw)
     skw = dict(heads=heads, max_len=30, start_id=101, end_id=-1, pad_id=0)
     bnd = once_bound(29, 32)  # end_id=-1: this run's data needs all 29 tokens
@@ -2501,8 +2742,25 @@ def stack_variant(root, model, fw, heads, tm, card):
                        for _ in range(2))
     say(f"stack variant {root} ({Path(vct_tpu_torch.__file__).parent}) [{card}]: B=128 "
         f"{times[128]:.4f} ms, {BEAM_ROWS} rows {times[BEAM_ROWS]:.4f} ms (graph replay)")
+    small = {}
+    for b in (1, 32, 64):
+        a = step_inputs(fw, b, 12, tm, gen=4010 + b)
+        args = (a["x"], a["kc"], a["vc"], a["ck"], a["cv"], a["mem_bias"])
+        small[f"whole B={b}"] = min(device_time(lambda: dk.fused_whole_step(
+            *args, fw, 12, heads=heads, l_view=16)) for _ in range(2))
+        small[f"stack B={b}"] = device_time(lambda: dk.fused_layers_step(
+            *args, fw["stacked"], 12, heads=heads, l_view=16))
+    a = step_inputs(fw, 32, 0, tm, gen=4100)
+    ks, vs = torch.zeros_like(a["kc"]), torch.zeros_like(a["kc"])
+    cur = torch.full((32,), 101, dtype=torch.int32, device=ks.device)
+    small["multi B=32 u=4"] = device_time(lambda: dk.fused_multi_step(
+        cur, ks, vs, a["ck"], a["cv"], a["mem_bias"], fw["emb"], fw["pe"], fw, 1, heads=heads,
+        unroll=4, pad_id=0, l_view=8))
+    say("  small-row kernels (graph replay): "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in small.items()))
     means = []
     check_stack_routes(fw, heads, tm, means)
+    check_whole_routes(fw, heads, tm, means)
     say(f"  route checks passed, worst mean abs difference {max(means):.6f}")
     for b, k, seed in ((BATCH, BEAM_K, SEED + 51), (8, 16, SEED + 52)):
         try:
@@ -2510,9 +2768,26 @@ def stack_variant(root, model, fw, heads, tm, card):
         except SystemExit:
             say(f"  beam loop B={b} K={k}: failed (above)")
     lib = load_library()
+    names = ("qkv", "self", "wo", "ln1", "wcq", "cross", "wco", "ln2", "w1", "w2", "ln3")
+    if hasattr(lib, "vct_small_stamps"):   # a copy built with VCT_SMALL_STAMPS
+        a = step_inputs(fw, 32, 12, tm, gen=4032)
+        args = (a["x"], a["kc"], a["vc"], a["ck"], a["cv"], a["mem_bias"])
+        per = {}
+        for _ in range(5):
+            dk.fused_whole_step(*args, fw, 12, heads=heads, l_view=16)
+            torch.cuda.synchronize()
+            stamps = (ctypes.c_ulonglong * 257)()
+            if lib.vct_small_stamps(stamps) != 0:
+                fail("vct_small_stamps failed")
+            for i in range(int(stamps[0]) - 1):
+                per.setdefault(i, []).append((stamps[i + 2] - stamps[i + 1]) / 1e3)
+        med = [sorted(v)[len(v) // 2] for v in per.values()]
+        labels = [f"L{li}.{n}" for li in range(fw["stacked"]["wqkv"].shape[0]) for n in names]
+        labels[-1] = "ln3+split"
+        say("  whole step at B=32, µs per phase (block 0, median of 5, after each barrier): "
+            + "; ".join(f"{k} {v:.1f}" for k, v in zip(labels + ["walk"], med)))
     if not hasattr(lib, "vct_stack_stamps"):
         return
-    names = ("qkv", "self", "wo", "ln1", "wcq", "cross", "wco", "ln2", "w1", "w2", "ln3")
     nl = fw["stacked"]["wqkv"].shape[0]
     for b in (128, BEAM_ROWS):
         a = step_inputs(fw, b, 12, tm, gen=4001)
@@ -3478,6 +3753,7 @@ def main() -> int:
     say(json.dumps(report))
     sources = {**{k: SOURCE for k in REPLACES},
                "fused_layers_step": "vct_tpu_torch/csrc/stack_step.cu",
+               "fused_whole_step": SMALL_SOURCE,
                "fused_norm_generator_argmax": "vct_tpu_torch/csrc/gen_argmax.cu",
                **{k: LOSS_SOURCE for k in LOSS_REPLACES},
                **{k: v[1] for k, v in BEAM_REPLACES.items()},

@@ -1102,11 +1102,192 @@ def test_stack_plan_matches_the_launcher(cuda):
     for dt in (torch.float32, torch.bfloat16):
         for b in (1, 64, 65, 256, dk.STACK_MAX_ROWS, dk.STACK_MAX_ROWS + 1):
             for e, heads, f in ((768, 8, 2048), (128, 4, 256), (96, 12, 256), (1280, 8, 2048),
-                                (768, 2, 2048), (768, 3, 2048)):
-                for route in (-1, 0, 1):
+                                (768, 2, 2048), (768, 3, 2048), (768, 8, 2560)):
+                for route in (-1, 0, 1, 2):
                     try:
                         plan = tuple(dk.stack_step_plan(b, e, heads, f, dt, route))
                     except ValueError:
                         plan = None
                     assert plan == _plan_or_none("vct_stack_step_plan", dk._DTYPE_CODE[dt], b, e,
                                                  heads, f, route, n=7), (dt, b, e, heads, f, route)
+
+
+# ---------------------------------------------------------------------------
+# the small-row token path (csrc/small_step.cu), bfloat16 at 1-64 rows:
+# fused_whole_step, fused_multi_step windows and fused_layers_step, against
+# their plain versions and the kernels they replaced (route 0), at this
+# file's widths and the MSVD decoder's
+# ---------------------------------------------------------------------------
+
+SMALL_WIDTHS = [(E, H, F, NL), (768, 8, 2048, 3)]
+
+
+def _small_inputs(dev, b, widths, idx, seed):
+    """bfloat16 stack and generator inputs at ``widths`` (a padded vocab of
+    1024, the pad columns at NEG_INF), the embedding and position tables."""
+    e, heads, f, nl = widths
+    w, step = _stack_inputs(dev, b, e, heads, f, nl, idx=idx, seed=seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    wg = torch.zeros((e, V_PAD), device=dev, dtype=torch.bfloat16)
+    wg[:, :V] = (torch.randn((e, V), generator=g) * e ** -0.5 * 4).to(dev, torch.bfloat16)
+    bg = torch.full((V_PAD,), dk.NEG_INF, device=dev)
+    bg[:V] = (torch.randn((V,), generator=g) * 0.1).to(dev)
+    fw = {"stacked": w, "norm_s": 1 + (torch.randn((e,), generator=g) * 0.1).to(dev),
+          "norm_b": (torch.randn((e,), generator=g) * 0.1).to(dev), "wg": wg, "bg": bg,
+          "emb": (torch.randn((V, e), generator=g) * 0.5).to(dev, torch.bfloat16),
+          "pe": (torch.randn((32, e), generator=g) * 0.5).to(dev, torch.bfloat16),
+          "heads": heads}
+    return fw, step
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths", SMALL_WIDTHS)
+@pytest.mark.parametrize("b", [1, 7, 32, 64])
+def test_whole_step_small_row_route(cuda, b, widths):
+    """fused_whole_step takes the small-row kernel: tokens against the plain
+    version and decode_step_kernel (route 0) but at near-ties, cache rows
+    within the bfloat16 tolerance; two calls give the same bits; the stack a
+    beam runs at these rows with the top-k kernel at k=1, and the argmax
+    kernel, give its tokens bit for bit; tokens -1 when idx >= l_view."""
+    e, heads, f, _ = widths
+    assert dk.whole_step_plan(b, e, heads, f, V_PAD, torch.bfloat16).route == 1
+    assert dk.stack_step_plan(b, e, heads, f, torch.bfloat16).route == 2
+    idx, l_view = 12, 16
+    fw, step = _small_inputs(cuda, b, widths, idx, seed=b + e)
+    outs = []
+    for route in (-1, -1, 0):
+        s = _clone(step)
+        tok = dk._launch_whole_step(*s, fw, idx, heads=heads, l_view=l_view, _route=route)
+        outs.append((tok, s[1][:, idx].clone(), s[2][:, idx].clone()))
+    s = _clone(step)
+    x_r = dk._stack_reference(*s, fw["stacked"], idx, heads, l_view)
+    tok_r = dk.fused_norm_generator_argmax_reference(x_r, fw["norm_s"], fw["norm_b"], fw["wg"],
+                                                     fw["bg"])
+    s = _clone(step)
+    xs, _, _ = dk.fused_layers_step(*s, fw["stacked"], idx, heads=heads, l_view=l_view)
+    gargs = (xs, fw["norm_s"], fw["norm_b"], fw["wg"], fw["bg"])
+    top1 = dk.fused_norm_generator_topk(*gargs, k=1)[1][:, 0]
+    arg = dk.fused_norm_generator_argmax(*gargs)
+    torch.cuda.synchronize()
+    for a, c in zip(outs[0], outs[1]):
+        assert torch.equal(a, c)
+    assert torch.equal(top1, outs[0][0]) and torch.equal(arg, outs[0][0])
+    assert torch.equal(s[1][:, idx], outs[0][1])
+    gaps = _gaps(x_r, fw)
+    for want in (tok_r, outs[2][0]):
+        _assert_tokens(outs[0][0], want, gaps)
+    for want in ((s[1][:, idx], s[2][:, idx]), outs[2][1:]):
+        for a, r in zip(outs[0][1:], want):
+            torch.testing.assert_close(a.float(), r.float(), **TOL[torch.bfloat16])
+    s = _clone(step)
+    poisoned, _, _ = dk.fused_whole_step(*s, fw, 16, heads=heads, l_view=16)
+    torch.cuda.synchronize()
+    assert bool((poisoned == -1).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths", SMALL_WIDTHS)
+@pytest.mark.parametrize("b", [1, 7, 32, 64])
+def test_multi_step_small_row_route(cuda, b, widths):
+    """Windows of u=2 and 4 on the small-row kernel: the per-token whole step
+    along the window's chain gives its tokens and cache rows bit for bit; the
+    same bits twice; both routes' window poison. At this file's widths the
+    chain is also held to the plain version and to decode_multi_kernel
+    (route 0) but at near-ties. At the MSVD widths these weights put the
+    plain version's float32 sums and both kernels' (the replaced one too)
+    near-ties a little past NEAR_TIE apart, the noise floor that ROADMAP.md
+    §3 names; chip_smoke.py holds the MSVD model's chains there."""
+    e, heads, f, _ = widths
+    assert dk.multi_step_plan(b, e, heads, f, V_PAD, torch.bfloat16).route == 1
+    fw, (_, kc, vc, ck, cv, mb) = _small_inputs(cuda, b, widths, 0, seed=50 + b + e)
+    emb, pe = fw["emb"], fw["pe"]
+    start = torch.full((b,), 101, dtype=torch.int32, device=cuda)
+    start[0] = 0
+    for u in (2, 4):
+        l_view = 8
+        runs = []
+        for route in (-1, -1, 0):
+            ks, vs = kc.clone(), vc.clone()
+            tok = torch.empty((b, u), dtype=torch.int32, device=cuda)
+            dk._launch_multi(start, ks, vs, ck, cv, mb, emb, pe, fw, heads=heads, l_view=l_view,
+                             i0=u, n_tok=u, seq=False, poison=False, tok_out=tok, start_id=0,
+                             end_id=-1, pad_id=0, route=route)
+            runs.append((tok, ks, vs))
+        ks, vs, ks_r, vs_r = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+        c, c_r, chain, gaps, plain = start, start, [], [], []
+        for j in range(u):
+            pos = u + j
+            c = dk.fused_whole_step(dk._embed_step(emb, pe, c, pos, 0), ks, vs, ck, cv, mb, fw,
+                                    pos, heads=heads, l_view=l_view)[0]
+            chain.append(c)
+            c = runs[0][0][:, j].contiguous()
+            xs = dk._stack_reference(dk._embed_step(emb, pe, c_r, pos, 0), ks_r, vs_r, ck, cv,
+                                     mb, fw["stacked"], pos, heads, l_view)
+            gaps.append(_gaps(xs, fw))
+            c_r = dk.fused_norm_generator_argmax_reference(xs, fw["norm_s"], fw["norm_b"],
+                                                           fw["wg"], fw["bg"])
+            plain.append(c_r)
+        torch.cuda.synchronize()
+        for a, r in zip(runs[0], runs[1]):
+            assert torch.equal(a, r)
+        assert torch.equal(torch.stack(chain, 1), runs[0][0])
+        assert torch.equal(ks, runs[0][1]) and torch.equal(vs, runs[0][2])
+        gap_w = torch.stack(gaps, dim=1)
+        for want in (torch.stack(plain, 1), runs[2][0]) if e == E else ():
+            _assert_chain(runs[0][0], want, lambda r: gap_w[r])
+    for route in (-1, 0):
+        tok = torch.empty((b, 4), dtype=torch.int32, device=cuda)
+        dk._launch_multi(start, kc.clone(), vc.clone(), ck, cv, mb, emb, pe, fw, heads=heads,
+                         l_view=8, i0=8, n_tok=4, seq=False, poison=True, tok_out=tok,
+                         start_id=0, end_id=-1, pad_id=0, route=route)
+        torch.cuda.synchronize()
+        assert bool((tok == -1).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 32, 64, 65])
+def test_greedy_modes_and_a_beam_of_one_give_the_same_tokens(cuda, b):
+    """At the MSVD widths, 29 tokens: the per-token greedy loop, windows of
+    u=2 and 4 (at 64 rows and fewer) and a beam of 1 give the same tokens
+    bit for bit, on both sides of the 64/65 boundary."""
+    from vct_tpu_torch.decode_fast import _beam_loop, _decode_loop
+
+    widths = (768, 8, 2048, 3)
+    fw, (_, _, _, ck, cv, mb) = _small_inputs(cuda, b, widths, 0, seed=900 + b)
+    kw = dict(max_len=30, start_id=101, end_id=-1, pad_id=0)
+    base = _decode_loop(fw, ck, cv, mb, single_kernel=b <= 64, **kw)
+    beam, _ = _beam_loop(fw, ck, cv, mb, beam_size=1, length_penalty=0.6, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(beam, base)
+    if b > dk.SMALL_MAX_ROWS:
+        return
+    for u in (2, 4):
+        ks = torch.zeros((3, 32, b, 768), dtype=torch.bfloat16, device=cuda)
+        vs = torch.zeros_like(ks)
+        cur = base[:, 0].contiguous()
+        got = [base[:, :1]]
+        for w in range(32 // u):
+            toks, _, _ = dk.fused_multi_step(cur, ks, vs, ck, cv, mb, fw["emb"], fw["pe"], fw, w,
+                                             heads=8, unroll=u, pad_id=0, l_view=32)
+            got.append(toks)
+            cur = toks[:, -1].contiguous()
+        torch.cuda.synchronize()
+        assert torch.equal(torch.cat(got, 1)[:, :30], base)
+
+
+@pytest.mark.cuda
+def test_small_plans_match_the_launcher(cuda):
+    for entry, fn in (("vct_whole_step_plan", dk.whole_step_plan),
+                      ("vct_multi_step_plan", dk.multi_step_plan)):
+        for dt in (torch.float32, torch.bfloat16):
+            for b in (1, 7, 64, 65):
+                for e, heads, f in ((768, 8, 2048), (128, 4, 256), (96, 12, 256),
+                                    (1280, 8, 2048), (768, 2, 2048), (768, 8, 2560)):
+                    for v in (V_PAD, 1020):
+                        for route in (-1, 0, 1):
+                            try:
+                                plan = tuple(fn(b, e, heads, f, v, dt, route))
+                            except ValueError:
+                                plan = None
+                            assert plan == _plan_or_none(entry, dk._DTYPE_CODE[dt], b, e, heads,
+                                                         f, v, route, n=7), (entry, dt, b, e, f)

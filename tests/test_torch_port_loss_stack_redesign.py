@@ -104,7 +104,8 @@ def test_dx_groups_fill_rule(tiles, ksteps, sms, want):
     # and says why it does not
     (128, 768, 8, 2048, BF16, 0, (0, 1)), (128, 768, 8, 2048, F32, -1, (0, 2)),
     (dk.STACK_MAX_ROWS + 1, 768, 8, 2048, BF16, -1, (0, 3)),
-    (64, 768, 8, 2048, BF16, -1, (0, 3)), (1, 128, 4, 256, BF16, -1, (0, 3)),
+    # at 64 rows and fewer the small-row kernel, whose sums are the whole step's
+    (64, 768, 8, 2048, BF16, -1, (2, 0)), (1, 128, 4, 256, BF16, -1, (2, 0)),
     (128, 96, 12, 256, BF16, -1, (0, 4)), (128, 768, 8, 2000, BF16, -1, (0, 4)),
     (128, 1280, 8, 2048, BF16, -1, (0, 5)), (128, 768, 3, 2048, BF16, -1, (0, 6)),
     (128, 768, 96, 2048, BF16, -1, (1, 0)),   # a head width of 8, the narrowest
@@ -116,13 +117,16 @@ def test_stack_plan_rule_and_boundaries(b, e, heads, f, dtype, route, want):
     if plan.route == 1:
         assert (plan.rows, plan.cols, plan.kstep, plan.stages) == (64, 64, 64, 4)
         assert plan.smem_bytes == 139264   # the attention phase's staging, above the ring's
+    elif plan.route == 2:
+        assert (plan.rows, plan.cols, plan.kstep, plan.stages) == (16, 8, 256, 4)
+        assert plan.smem_bytes == 212992   # two weight slots and the attention staging
     else:
         assert (plan.rows, plan.cols) == (8, 32)   # decode_step_kernel's units
 
 
 @pytest.mark.parametrize("b,e,heads,f,dtype,route", [
     (128, 768, 8, 2048, F32, 1), (dk.STACK_MAX_ROWS + 1, 768, 8, 2048, BF16, 1),
-    (64, 768, 8, 2048, BF16, 1),
+    (65, 768, 8, 2048, BF16, 2),   # the small-row kernel only at its rows
     (128, 768, 7, 2048, BF16, -1), (0, 768, 8, 2048, BF16, -1), (128, 768, 8, 2048, BF16, 3),
     (128, 768, 8, 2048, torch.float16, -1),
 ])

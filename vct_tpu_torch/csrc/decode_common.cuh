@@ -1,9 +1,18 @@
 // Device code shared by the decode kernels (decode_step.cu, decode_multi.cu,
-// gen_topk.cu): rounding helpers, the warp LayerNorm, the hand-written
-// matvec tile, the phases of one decode step and ``decode_token``, which
-// strings them into one token through the decoder stack (and, for the
-// generating kernels, the final norm, the vocab projection and the argmax).
-// decode_step.cu's header describes the design.
+// gen_topk.cu and the tensor-core kernels that include it for its helpers):
+// rounding helpers, the warp LayerNorm, the hand-written matvec tile, the
+// phases of one decode step and ``decode_token``, which strings them into one
+// token through the decoder stack (and, for the generating kernels, the final
+// norm, the vocab projection and the argmax). decode_step.cu's header
+// describes the design.
+//
+// Which routes still run decode_token (CUDA-core products): float32 in every
+// decode kernel; fused_sequence_decode (decode_multi.cu's sequence mode);
+// fused_layer_step; and, in bfloat16, rows outside the tensor-core plans
+// (fused_whole_step and fused_multi_step windows above 64 rows, or at widths
+// small_step.cu's plan refuses; fused_layers_step above 2048 rows), each
+// named by its plan's ``why``. bfloat16 at 1-64 rows runs small_step.cu, at
+// 65-2048 stack rows stack_step.cu.
 
 #pragma once
 

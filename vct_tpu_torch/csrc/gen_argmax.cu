@@ -104,79 +104,8 @@ __global__ void keys_to_tokens_kernel(const u64* keys, int* tok, int B) {
 }
 
 // ---------------------------------------------------------------------------
-// the tensor-core route: gen_wgmma.cuh's product with the argmax epilogue
+// the tensor-core route: gen_wgmma.cuh's product with its ArgmaxEpi epilogue
 // ---------------------------------------------------------------------------
-
-struct ArgmaxEpi {
-  u64* keys;   // [B + 1]: the rows' keys, then the count of finished blocks
-  int* tok;
-
-  template <int NB> static constexpr int smem_bytes() { return 8 * NB * (int)sizeof(u64); }
-
-  // acc[mi][4 j + r]: vocab column mi * 64 + w4 * 16 + g + 8 * (r / 2) of the
-  // warpgroup's 128, batch row 8 j + 2 q + r % 2. A thread's four columns
-  // ascend with (mi, r / 2).
-  template <int NB>
-  __device__ __forceinline__ void tile(float (&acc)[2][NB / 2], const float* bg, int slab, int mt,
-                                       int B, int V, unsigned char* smem) const {
-    u64* skeys = reinterpret_cast<u64*>(smem);  // [8 warps][NB]
-    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-    const int wgid = warp >> 2, w4 = warp & 3, g = lane >> 2, q = lane & 3;
-    const int v0 = slab * GA_BN + wgid * 128 + w4 * 16 + g;
-    float bgv[2][2];
-    bool okv[2][2];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int rr = 0; rr < 2; ++rr) {
-        const int v = v0 + mi * 64 + rr * 8;
-        okv[mi][rr] = v < V;
-        bgv[mi][rr] = okv[mi][rr] ? bg[v] : 0.f;
-      }
-#pragma unroll
-    for (int j = 0; j < NB / 8; ++j)
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        float best = -__int_as_float(0x7f800000);
-        int at = v0;
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-          for (int rr = 0; rr < 2; ++rr) {
-            const float v = acc[mi][4 * j + 2 * rr + c] + bgv[mi][rr];
-            if (okv[mi][rr] && v > best) { best = v; at = v0 + mi * 64 + rr * 8; }
-          }
-        u64 key = okv[0][0] ? argmax_key(best, at) : 0ull;
-#pragma unroll
-        for (int o = 4; o < 32; o <<= 1) {   // the eight lanes that share q
-          const u64 other = __shfl_xor_sync(0xffffffffu, key, o);
-          key = other > key ? other : key;
-        }
-        if (g == 0) skeys[warp * NB + 8 * j + 2 * q + c] = key;
-      }
-    __syncthreads();
-    if (tid < NB) {
-      const int row = mt * NB + tid;
-      u64 key = skeys[tid];
-#pragma unroll
-      for (int w = 1; w < 8; ++w) key = skeys[w * NB + tid] > key ? skeys[w * NB + tid] : key;
-      if (row < B && key) atomicMax(keys + row, key);
-    }
-  }
-
-  // the block that finishes last turns the keys into tokens
-  __device__ __forceinline__ void finish(int B, unsigned char*) const {
-    __shared__ bool last;
-    __threadfence();
-    __syncthreads();
-    if (threadIdx.x == 0) last = atomicAdd(keys + B, 1ull) == (u64)gridDim.x - 1;
-    __syncthreads();
-    if (last) {
-      __threadfence();
-      for (int b = threadIdx.x; b < B; b += GA_THREADS) tok[b] = key_index(__ldcg(keys + b));
-    }
-  }
-};
 
 // ---------------------------------------------------------------------------
 // the launch plan (GenPlan in gen_wgmma.cuh). Route 0 is the CUDA-core

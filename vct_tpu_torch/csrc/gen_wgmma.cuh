@@ -36,41 +36,96 @@ constexpr int GA_THREADS = 256;     // two warpgroups; each owns 128 columns of 
 constexpr int GA_BN = 256;          // vocab columns of a slab
 constexpr int GA_BK = 64;           // K step of the ring: one 128-byte swizzled row of the parts
 constexpr int GA_STAGES = 3;
+constexpr int SK_NS_EMAX = 1024;    // widest row norm_split_row holds in registers
 
-// One warp per row: yn = LayerNorm(x[row]) with float32 statistics, split into
-// hi = bf16(yn) and lo = bf16(yn - hi). parts is [2, b_pad, E]; rows from B to
-// b_pad become zeros. With ``keys`` set it also zeroes keys[0..B] (the argmax
-// keys and the count of finished blocks).
-__global__ void __launch_bounds__(GA_THREADS)
-gen_norm_split_kernel(const bf16* x, const float* ns, const float* nb, bf16* parts, u64* keys,
-                      int B, int b_pad, int E) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row = blockIdx.x * (GA_THREADS / 32) + warp;
-  if (row >= b_pad) return;
+// The LayerNorm and split of one row whose values k = lane + 32 i a lane holds
+// in x[i] (E <= 32 C): the sums of norm_split_row in its order; writes the
+// hi and lo rows.
+template <int C>
+__device__ __forceinline__ void split_row_regs(const float (&x)[C], int E, const float* ns,
+                                               const float* nb, bf16* hi, bf16* lo) {
+  const int lane = threadIdx.x & 31;
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < C; ++i)
+    if (lane + 32 * i < E) s += x[i];
+  const float mean = warp_sum(s) / (float)E;
+  float q = 0.f;
+#pragma unroll
+  for (int i = 0; i < C; ++i) {
+    if (lane + 32 * i >= E) continue;
+    const float d = x[i] - mean;
+    q += d * d;
+  }
+  const float rs = rsqrtf(warp_sum(q) / (float)E + LN_EPS);
+  // the scale and shift asked for before any store, which the compiler
+  // would not move them past
+  float g[C], b[C];
+#pragma unroll
+  for (int i = 0; i < C; ++i) {
+    const int k = lane + 32 * i;
+    g[i] = k < E ? ns[k] : 0.f;
+    b[i] = k < E ? nb[k] : 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < C; ++i) {
+    const int k = lane + 32 * i;
+    if (k >= E) continue;
+    const float y = (x[i] - mean) * rs * g[i] + b[i];
+    const bf16 h = __float2bfloat16_rn(y);
+    hi[k] = h;
+    lo[k] = __float2bfloat16_rn(y - __bfloat162float(h));
+  }
+}
+
+__device__ __forceinline__ void norm_split_row(const bf16* src, const float* ns, const float* nb,
+                                               bf16* parts, u64* keys, int row, int B, int b_pad,
+                                               int E) {
+  constexpr int C = SK_NS_EMAX / 32;   // the row's values a lane holds: k = lane + 32 i
+  const int lane = threadIdx.x & 31;
   if (keys && lane == 0 && row < B) keys[row] = 0ull;   // below every real key
-  if (keys && lane == 0 && row == 0) keys[B] = 0ull;    // the count of finished blocks
   bf16* hi = parts + (size_t)row * E;
   bf16* lo = parts + ((size_t)b_pad + row) * E;
   if (row >= B) {
     for (int k = lane; k < E; k += 32) hi[k] = lo[k] = __float2bfloat16_rn(0.f);
     return;
   }
-  const bf16* src = x + (size_t)row * E;
-  float s = 0.f;
-  for (int k = lane; k < E; k += 32) s += to_f(src[k]);
-  const float mean = warp_sum(s) / (float)E;
-  float q = 0.f;
-  for (int k = lane; k < E; k += 32) {
-    const float d = to_f(src[k]) - mean;
-    q += d * d;
+  if (E > SK_NS_EMAX) {   // wider than the registers hold: three passes over memory
+    float s = 0.f;
+    for (int k = lane; k < E; k += 32) s += to_f(src[k]);
+    const float mean = warp_sum(s) / (float)E;
+    float q = 0.f;
+    for (int k = lane; k < E; k += 32) {
+      const float d = to_f(src[k]) - mean;
+      q += d * d;
+    }
+    const float rs = rsqrtf(warp_sum(q) / (float)E + LN_EPS);
+    for (int k = lane; k < E; k += 32) {
+      const float y = (to_f(src[k]) - mean) * rs * ns[k] + nb[k];
+      const bf16 h = __float2bfloat16_rn(y);
+      hi[k] = h;
+      lo[k] = __float2bfloat16_rn(y - __bfloat162float(h));
+    }
+    return;
   }
-  const float rs = rsqrtf(warp_sum(q) / (float)E + LN_EPS);
-  for (int k = lane; k < E; k += 32) {
-    const float y = (to_f(src[k]) - mean) * rs * ns[k] + nb[k];
-    const bf16 h = __float2bfloat16_rn(y);
-    hi[k] = h;
-    lo[k] = __float2bfloat16_rn(y - __bfloat162float(h));
-  }
+  // the same sums in the same order, the row read once into registers
+  float x[C];
+#pragma unroll
+  for (int i = 0; i < C; ++i) x[i] = lane + 32 * i < E ? to_f(src[lane + 32 * i]) : 0.f;
+  split_row_regs<C>(x, E, ns, nb, hi, lo);
+}
+
+// One warp per row: norm_split_row of x[row]. parts is [2, b_pad, E]; rows
+// from B to b_pad become zeros. With ``keys`` set it also zeroes keys[0..B]
+// (the argmax keys and the count of finished blocks).
+__global__ void __launch_bounds__(GA_THREADS)
+gen_norm_split_kernel(const bf16* x, const float* ns, const float* nb, bf16* parts, u64* keys,
+                      int B, int b_pad, int E) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (GA_THREADS / 32) + warp;
+  if (row >= b_pad) return;
+  if (keys && lane == 0 && row == 0) keys[B] = 0ull;    // the count of finished blocks
+  norm_split_row(x + (size_t)(row < B ? row : 0) * E, ns, nb, parts, keys, row, B, b_pad, E);
 }
 
 // Walks (slab, M tile, K step) in that nesting, one step at a time; the loader
@@ -104,14 +159,19 @@ __host__ __device__ constexpr int gw_ring_bytes(int nb) {
   return 1024 + GA_STAGES * gw_stage_bytes(nb);
 }
 
+// The vocab walk of one block: slabs blockIdx.x, blockIdx.x + gridDim.x, ...
+// (none when blockIdx.x >= n_tiles), every M tile of NB rows against each,
+// the epilogue's ``tile`` after the last K step of a (slab, M tile). smem_raw
+// holds gw_ring_bytes(NB) + the epilogue's bytes. gen_wgmma_kernel runs it
+// as a kernel of its own; the small-row token kernels (small_step.cu) run it
+// inside their cooperative launch, so both give the same logits.
 // NB: batch rows of a tile (the N of the product), 64 or 128
 template <int NB, class Epi>
-__global__ void __launch_bounds__(GA_THREADS, 1)
-gen_wgmma_kernel(const bf16* parts, const bf16* wg, const float* bg, int B, int b_pad, int E,
-                 int V, int n_tiles, int m_tiles, Epi epi) {
+__device__ __forceinline__ void gen_walk(const bf16* parts, const bf16* wg, const float* bg,
+                                         int B, int b_pad, int E, int V, int n_tiles,
+                                         int m_tiles, const Epi& epi, unsigned char* smem_raw) {
   constexpr int STAGE = gw_stage_bytes(NB), WLD = GA_BN + 8, NC = GA_BN / 8;
   constexpr int P_CHUNKS = 2 * NB * 8 / GA_THREADS, W_CHUNKS = GA_BK * NC / GA_THREADS;
-  extern __shared__ unsigned char smem_raw[];
   // the swizzled tiles want a 1024-byte boundary
   unsigned char* ring = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   unsigned char* epi_smem = ring + GA_STAGES * STAGE;
@@ -203,8 +263,91 @@ gen_wgmma_kernel(const bf16* parts, const bf16* wg, const float* bg, int B, int 
     cs.advance(ksteps, m_tiles, gridDim.x);
   }
   cp_async_wait<0>();
-  epi.finish(B, epi_smem);
 }
+
+template <int NB, class Epi>
+__global__ void __launch_bounds__(GA_THREADS, 1)
+gen_wgmma_kernel(const bf16* parts, const bf16* wg, const float* bg, int B, int b_pad, int E,
+                 int V, int n_tiles, int m_tiles, Epi epi) {
+  extern __shared__ unsigned char smem_raw[];
+  gen_walk<NB, Epi>(parts, wg, bg, B, b_pad, E, V, n_tiles, m_tiles, epi, smem_raw);
+  epi.finish(B, smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023) +
+                    GA_STAGES * gw_stage_bytes(NB));
+}
+
+// The argmax epilogue (gen_argmax.cu's tensor-core route, and the generator
+// phase of the small-row token kernels in small_step.cu): per (row, slab) the
+// first-win maximum as a 64-bit key, merged across blocks by atomicMax.
+struct ArgmaxEpi {
+  u64* keys;   // [B + 1]: the rows' keys, then the count of finished blocks
+  int* tok;
+
+  template <int NB> static constexpr int smem_bytes() { return 8 * NB * (int)sizeof(u64); }
+
+  // acc[mi][4 j + r]: vocab column mi * 64 + w4 * 16 + g + 8 * (r / 2) of the
+  // warpgroup's 128, batch row 8 j + 2 q + r % 2. A thread's four columns
+  // ascend with (mi, r / 2).
+  template <int NB>
+  __device__ __forceinline__ void tile(float (&acc)[2][NB / 2], const float* bg, int slab, int mt,
+                                       int B, int V, unsigned char* smem) const {
+    u64* skeys = reinterpret_cast<u64*>(smem);  // [8 warps][NB]
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int wgid = warp >> 2, w4 = warp & 3, g = lane >> 2, q = lane & 3;
+    const int v0 = slab * GA_BN + wgid * 128 + w4 * 16 + g;
+    float bgv[2][2];
+    bool okv[2][2];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int v = v0 + mi * 64 + rr * 8;
+        okv[mi][rr] = v < V;
+        bgv[mi][rr] = okv[mi][rr] ? bg[v] : 0.f;
+      }
+#pragma unroll
+    for (int j = 0; j < NB / 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        float best = -__int_as_float(0x7f800000);
+        int at = v0;
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            const float v = acc[mi][4 * j + 2 * rr + c] + bgv[mi][rr];
+            if (okv[mi][rr] && v > best) { best = v; at = v0 + mi * 64 + rr * 8; }
+          }
+        u64 key = okv[0][0] ? argmax_key(best, at) : 0ull;
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) {   // the eight lanes that share q
+          const u64 other = __shfl_xor_sync(0xffffffffu, key, o);
+          key = other > key ? other : key;
+        }
+        if (g == 0) skeys[warp * NB + 8 * j + 2 * q + c] = key;
+      }
+    __syncthreads();
+    if (tid < NB) {
+      const int row = mt * NB + tid;
+      u64 key = skeys[tid];
+#pragma unroll
+      for (int w = 1; w < 8; ++w) key = skeys[w * NB + tid] > key ? skeys[w * NB + tid] : key;
+      if (row < B && key) atomicMax(keys + row, key);
+    }
+  }
+
+  // the block that finishes last turns the keys into tokens
+  __device__ __forceinline__ void finish(int B, unsigned char*) const {
+    __shared__ bool last;
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) last = atomicAdd(keys + B, 1ull) == (u64)gridDim.x - 1;
+    __syncthreads();
+    if (last) {
+      __threadfence();
+      for (int b = threadIdx.x; b < B; b += GA_THREADS) tok[b] = key_index(__ldcg(keys + b));
+    }
+  }
+};
 
 // ---------------------------------------------------------------------------
 // the launch plan: {route, rows of an M tile, columns of a slab, K step,

@@ -63,6 +63,16 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
                : "r"(smem_addr(p)));
 }
 
+// Two transposed 8 x 8 matrices: lanes 0-7 give the rows of matrix 0, lanes
+// 8-15 those of matrix 1 (the addresses of lanes 16-31 are not read but must
+// be valid). For an operand stored [k][n] with rows k0 .. k0 + 15, r[0] and
+// r[1] are the b0 and b1 fragments of one n8 tile.
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
+
 // c += a . b, bfloat16 operands, float32 accumulation
 __device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
                                                uint32_t b1) {

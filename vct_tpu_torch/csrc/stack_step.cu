@@ -57,8 +57,7 @@
 // output and x_out in bfloat16. Only the order of the float32 sums changes.
 // Every sum has one order, so two calls give the same bits.
 
-#include "decode_common.cuh"
-#include "mma_common.cuh"
+#include "stack_phases.cuh"
 
 namespace {
 
@@ -75,72 +74,19 @@ constexpr int SK_ALD = SK_BK + 8;
 constexpr int SK_WLD = SK_BN + 8;
 constexpr int SK_A_BYTES = SK_BM * SK_ALD * 2;
 constexpr int SK_STAGE = SK_A_BYTES + SK_BK * SK_WLD * 2;
-constexpr int SK_DMAX = 128;           // widest head
-constexpr int SK_EMAX = 1024;          // widest row a LayerNorm warp holds in registers
-constexpr int SK_CH = 32;              // cache rows an attention warp stages at a time
-// an attention warp's staging: q in float32, SK_CH key rows at a pitch of
-// 2 D + 16 bytes (16-byte reads by 8 lanes of 8 rows fall in 8 bank groups),
-// SK_CH value rows
-constexpr int SK_WARP_ATTN = SK_DMAX * 4 + SK_CH * (SK_DMAX * 2 + 16) + SK_CH * SK_DMAX * 2;
 constexpr int SK_RING = SK_STAGES * SK_STAGE;
-constexpr int SK_ATTN = NWARPS * SK_WARP_ATTN;
 constexpr int SK_SMEM = SK_RING > SK_ATTN ? SK_RING : SK_ATTN;
-// Rows it takes: greedy decode sends 65 and more to fused_layers_step (64 and
-// fewer run the whole-step kernel, whose stack is decode_step_kernel's), and
-// beam search up to 64 videos x a beam of 32. At 64 rows and fewer the stack
-// keeps decode_step_kernel's summation order, so that beam search at width 1
-// gives greedy decode's tokens at every batch size.
+// Rows the rule gives it: greedy decode sends 65 and more to
+// fused_layers_step (64 and fewer run the whole-step kernel), beam search up
+// to 64 videos x a beam of 32. At 64 rows and fewer the rule takes the
+// small-row kernel (small_step.cu), whose sums are the whole-step kernel's,
+// so that beam search at width 1 gives greedy decode's tokens at every batch
+// size; route 1 asked for runs this kernel at any row count up to
+// STACK_MAX_ROWS.
 constexpr int STACK_MIN_ROWS = 65;
 constexpr int STACK_MAX_ROWS = 2048;
 
-enum { EP_QKV = 0, EP_F32 = 1, EP_RESID = 2, EP_GELU = 3 };
 constexpr int SK_COMP_K = 1024;   // a deeper K adds its steps' sums with compensation
-
-// s + x with the rounding error carried in c (Kahan)
-__device__ __forceinline__ void add_compensated(float& s, float& c, float x) {
-  const float y = x - c, t = s + y;
-  c = (t - s) - y;
-  s = t;
-}
-
-struct Prod {
-  const bf16* A; int K;                  // [B, K]
-  const bf16* W; const bf16* bias; int N;  // [K, N], [N]
-  int ep;
-  float* dst;          // EP_QKV: q [B, E]; EP_F32, EP_RESID: [B, N]
-  bf16* dst_b;         // EP_GELU: [B, N]
-  const float* res_f;  // EP_RESID: the residual in float32, or
-  const bf16* res_b;   //           in bfloat16
-  bf16* kc_row;        // EP_QKV: cache row idx of the layer [B, E], or null
-  bf16* vc_row;
-};
-
-// out[row, col .. col + 1] of a product's epilogue; v0, v1 hold the bias, r
-// the residual (EP_RESID)
-__device__ __forceinline__ void prod_store(const Prod& m, int row, int col, float v0, float v1,
-                                           float2 r) {
-  if (m.ep == EP_QKV) {
-    const int E = m.N / 3;
-    if (col < E) {
-      *reinterpret_cast<float2*>(m.dst + (size_t)row * E + col) = make_float2(v0, v1);
-    } else {
-      bf16* cache = col < 2 * E ? m.kc_row : m.vc_row;
-      if (cache)
-        *reinterpret_cast<__nv_bfloat162*>(cache + (size_t)row * E + col % E) =
-            __floats2bfloat162_rn(v0, v1);
-    }
-    return;
-  }
-  const size_t o = (size_t)row * m.N + col;
-  if (m.ep == EP_F32) {
-    *reinterpret_cast<float2*>(m.dst + o) = make_float2(v0, v1);
-  } else if (m.ep == EP_RESID) {
-    *reinterpret_cast<float2*>(m.dst + o) = make_float2(r.x + v0, r.y + v1);
-  } else {
-    *reinterpret_cast<__nv_bfloat162*>(m.dst_b + o) =
-        __floats2bfloat162_rn(gelu_exact(v0), gelu_exact(v1));
-  }
-}
 
 // A [B, K] . W [K, N] + bias, in units of 64 rows x 64 columns; warp w takes
 // rows 16 (w % 4) and columns 32 (w / 4) of a unit. K and N are multiples of
@@ -261,153 +207,6 @@ __device__ void run_product(const Prod& m, int B, unsigned char* smem) {
     product_phase<false>(m, B, smem);
 }
 
-// Single-query attention, one warp per (row b, head h) over cache rows 0 ..
-// nrows - 1 of kc / vc [rows, B, E]; q [B, E] float32; bias [B, bias_ld] or
-// null. out [B, E] bfloat16. The warp stages q and SK_CH key and value rows
-// at a time in its shared memory with one round of cp.async, lane j forms the
-// logit of row j, and the softmax runs over the chunks online (max, then the
-// sum and the weighted values rescaled to it); the lanes split the head's
-// columns in pairs for the weighted sum.
-__device__ void attention_phase_tc(const float* q, const bf16* kc, const bf16* vc, int nrows,
-                                   const float* bias, int bias_ld, int B, int E, int H, bf16* out,
-                                   unsigned char* smem) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int D = E / H, pieces = D / 8, kld = 2 * D + 16;
-  const float scale = rsqrtf((float)D);
-  float* qs = reinterpret_cast<float*>(smem + warp * SK_WARP_ATTN);
-  unsigned char* ks = reinterpret_cast<unsigned char*>(qs + SK_DMAX);
-  const bf16* vs = reinterpret_cast<const bf16*>(ks + SK_CH * (SK_DMAX * 2 + 16));
-  const size_t row_stride = (size_t)B * E;
-  for (int u = blockIdx.x * NWARPS + warp; u < B * H; u += gridDim.x * NWARPS) {
-    const int b = u / H, h = u % H;
-    const size_t off = (size_t)b * E + h * D;
-    float m = -INFINITY, sum = 0.f;
-    float o[SK_DMAX / 64][2] = {};   // columns 2 lane + 64 p, + 1
-    for (int j0 = 0; j0 < nrows; j0 += SK_CH) {
-      const int n = min(SK_CH, nrows - j0);
-      __syncwarp();   // every lane is done with the last chunk's staging
-      if (j0 == 0)
-        for (int i = lane; i < D / 4; i += 32) cp_async16(qs + 4 * i, q + off + 4 * i, true);
-      for (int i = lane; i < n * pieces; i += 32) {
-        const int r = i / pieces, c = i - r * pieces;
-        const size_t src = (size_t)(j0 + r) * row_stride + off + c * 8;
-        cp_async16(ks + r * kld + c * 16, kc + src, true);
-        cp_async16((unsigned char*)vs + (r * D + c * 8) * 2, vc + src, true);
-      }
-      cp_async_commit();
-      const float bj = (bias && lane < n) ? bias[(size_t)b * bias_ld + j0 + lane] : 0.f;
-      cp_async_wait<0>();
-      __syncwarp();
-      float lg = -INFINITY;
-      if (lane < n) {
-        const unsigned char* kr = ks + lane * kld;
-        float d = 0.f;
-        for (int t = 0; t < D; t += 8) {
-          const uint4 raw = *reinterpret_cast<const uint4*>(kr + 2 * t);
-          const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float2 kv = __bfloat1622float2(k2[i]);
-            d += qs[t + 2 * i] * kv.x;
-            d += qs[t + 2 * i + 1] * kv.y;
-          }
-        }
-        lg = d * scale + bj;
-      }
-      const float mn = fmaxf(m, warp_max(lg));
-      const float keep = expf(m - mn);   // 0 on the first chunk
-      const float e = lane < n ? expf(lg - mn) : 0.f;
-      sum = sum * keep + warp_sum(e);
-#pragma unroll
-      for (int p = 0; p < SK_DMAX / 64; ++p) {
-        o[p][0] *= keep;
-        o[p][1] *= keep;
-      }
-      for (int jj = 0; jj < n; ++jj) {
-        const float w = __shfl_sync(0xffffffffu, e, jj);
-#pragma unroll
-        for (int p = 0; p < SK_DMAX / 64; ++p) {
-          const int t = 2 * lane + 64 * p;
-          if (t < D) {
-            const float2 v2 =
-                __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(vs + jj * D + t));
-            o[p][0] += w * v2.x;
-            o[p][1] += w * v2.y;
-          }
-        }
-      }
-      m = mn;
-    }
-#pragma unroll
-    for (int p = 0; p < SK_DMAX / 64; ++p) {
-      const int t = 2 * lane + 64 * p;
-      if (t < D)
-        *reinterpret_cast<__nv_bfloat162*>(out + off + t) =
-            __floats2bfloat162_rn(o[p][0] / sum, o[p][1] / sum);
-    }
-  }
-}
-
-// LayerNorm of each row of src [B, E] float32, one warp per row holding it in
-// registers (E <= SK_EMAX, a multiple of 4): float32 statistics in two
-// passes, then y = (x - mean) * rsqrt(var + eps) * gam + bet. Writes y in
-// float32 to dst_f and rounded to bfloat16 to dst_b (either may be null), and
-// to out rounded, or NaN with ``poison`` (out may be null).
-__device__ void layernorm_phase(const float* src, int B, int E, const float* gam,
-                                const float* bet, float* dst_f, bf16* dst_b, bf16* out,
-                                bool poison) {
-  constexpr int C = SK_EMAX / 128;   // float4 pieces a lane holds
-  const int lane = threadIdx.x & 31;
-  const int E4 = E / 4;
-  for (int b = blockIdx.x * NWARPS + (threadIdx.x >> 5); b < B; b += gridDim.x * NWARPS) {
-    const float4* r = reinterpret_cast<const float4*>(src + (size_t)b * E);
-    float4 x[C], g4[C], b4[C];   // the row, and its scale and shift asked for with it
-    float s = 0.f;
-#pragma unroll
-    for (int i = 0; i < C; ++i) {
-      const int c = lane + 32 * i;
-      const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-      x[i] = c < E4 ? __ldcg(r + c) : z;
-      g4[i] = c < E4 ? reinterpret_cast<const float4*>(gam)[c] : z;
-      b4[i] = c < E4 ? reinterpret_cast<const float4*>(bet)[c] : z;
-    }
-#pragma unroll
-    for (int i = 0; i < C; ++i) s += (x[i].x + x[i].y) + (x[i].z + x[i].w);
-    const float mean = warp_sum(s) / (float)E;
-    float sq = 0.f;
-#pragma unroll
-    for (int i = 0; i < C; ++i) {
-      if (lane + 32 * i < E4) {
-        const float d0 = x[i].x - mean, d1 = x[i].y - mean, d2 = x[i].z - mean,
-                    d3 = x[i].w - mean;
-        sq += (d0 * d0 + d1 * d1) + (d2 * d2 + d3 * d3);
-      }
-    }
-    const float rs = rsqrtf(warp_sum(sq) / (float)E + LN_EPS);
-#pragma unroll
-    for (int i = 0; i < C; ++i) {
-      const int c = lane + 32 * i;
-      if (c >= E4) continue;
-      const float4 y = make_float4((x[i].x - mean) * rs * g4[i].x + b4[i].x,
-                                   (x[i].y - mean) * rs * g4[i].y + b4[i].y,
-                                   (x[i].z - mean) * rs * g4[i].z + b4[i].z,
-                                   (x[i].w - mean) * rs * g4[i].w + b4[i].w);
-      const size_t o = (size_t)b * E + 4 * c;
-      if (dst_f) *reinterpret_cast<float4*>(dst_f + o) = y;
-      const __nv_bfloat162 lo = __floats2bfloat162_rn(y.x, y.y), hi = __floats2bfloat162_rn(y.z, y.w);
-      if (dst_b) {
-        reinterpret_cast<__nv_bfloat162*>(dst_b + o)[0] = lo;
-        reinterpret_cast<__nv_bfloat162*>(dst_b + o)[1] = hi;
-      }
-      if (out) {
-        const float nan = __int_as_float(0x7fc00000);
-        reinterpret_cast<__nv_bfloat162*>(out + o)[0] = poison ? __floats2bfloat162_rn(nan, nan) : lo;
-        reinterpret_cast<__nv_bfloat162*>(out + o)[1] = poison ? __floats2bfloat162_rn(nan, nan) : hi;
-      }
-    }
-  }
-}
-
 __global__ void __launch_bounds__(NTHREADS, 1) stack_step_kernel(StepArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   cg::grid_group grid = cg::this_grid();
@@ -493,13 +292,16 @@ __global__ void __launch_bounds__(NTHREADS, 1) stack_step_kernel(StepArgs a) {
 
 // ---------------------------------------------------------------------------
 // the plan: {route, rows of a product unit, its columns, K step, ring stages,
-// dynamic shared memory, why}. Route 1 is stack_step_kernel, route 0
-// decode_step_kernel. Route -1 (what fused_layers_step passes) takes route 1
-// for bfloat16 when every limit below holds, and says by ``why`` which did
-// not: 0 route 1 by the rule; 1 route 0 asked for; 2 float32; 3 rows outside
-// [STACK_MIN_ROWS, STACK_MAX_ROWS]; 4 a width (E or F) that is not a multiple
-// of 64; 5 E above SK_EMAX; 6 a head width that is not a multiple of 8 or is
-// above SK_DMAX.
+// dynamic shared memory, why}. Route 1 is stack_step_kernel, route 2 the
+// small-row kernel (small_step.cu without the generator: units of an m16 row
+// tile x 8 columns, A chunks of 256 k), route 0 decode_step_kernel. Route -1
+// (what fused_layers_step passes) takes route 2 for bfloat16 at 1-64 rows and
+// route 1 at 65-2048 when every limit below holds, and says by ``why`` which
+// did not: 0 route 1 or 2 by the rule; 1 route 0 asked for; 2 float32; 3 rows
+// above STACK_MAX_ROWS; 4 a width (E or F) that is not a multiple of 64; 5 E
+// above SK_EMAX; 6 a head width that is not a multiple of 8 or is above
+// SK_DMAX; 7 at 64 rows and fewer, F above SS_MAX_K. Route 1 asked for runs at
+// 1-2048 rows, route 2 at 1-64, each within its limits.
 // ---------------------------------------------------------------------------
 
 struct StackPlan {
@@ -507,21 +309,26 @@ struct StackPlan {
 };
 
 bool stack_plan(int dtype, int B, int E, int H, int F, int route, StackPlan* out) {
-  if (B < 1 || E < 1 || H < 1 || F < 1 || E % H || route < -1 || route > 1) return false;
+  if (B < 1 || E < 1 || H < 1 || F < 1 || E % H || route < -1 || route > 2) return false;
   const int D = E / H;
   int why = 0;
   if (route == 0) why = 1;
   else if (dtype != 1) why = 2;
-  else if (B < STACK_MIN_ROWS || B > STACK_MAX_ROWS) why = 3;
+  else if (B > STACK_MAX_ROWS) why = 3;
   else if (E % 64 || F % 64) why = 4;
   else if (E > SK_EMAX) why = 5;
   else if (D % 8 || D > SK_DMAX) why = 6;
-  if (route == 1 && why) return false;   // route 1 asked for where it does not run
+  else if (B < STACK_MIN_ROWS && route != 1) why = small_why(dtype, B, E, H, F, 2);
+  const int by_rule = why ? 0 : (B < STACK_MIN_ROWS ? 2 : 1);
+  if (route == 2 && (why || by_rule != 2)) return false;   // route 2 only at its rows
+  if (route == 1 && why) return false;
   StackPlan p;
-  p.route = why ? 0 : 1;
+  p.route = route > 0 ? route : by_rule;
   p.why = why;
   if (p.route == 1) {
     p.bm = SK_BM; p.bn = SK_BN; p.bk = SK_BK; p.stages = SK_STAGES; p.smem = SK_SMEM;
+  } else if (p.route == 2) {
+    p.bm = 16; p.bn = SS_G; p.bk = SS_KC; p.stages = SS_STAGES; p.smem = SS_SMEM;
   } else {   // decode_step_kernel: units of BT rows x TN columns, no ring
     p.bm = BT; p.bn = TN; p.bk = 0; p.stages = 0; p.smem = (int)step_smem_bytes(E, F);
   }
@@ -535,6 +342,8 @@ extern "C" {
 
 int vct_decode_step(int dtype, void* const* t, int B, int E, int H, int F, int NL, int L,
                     int Tm, int V, int idx, int l_view, int gen, void* stream);
+int vct_small_step(void* const* t, int B, int E, int H, int F, int NL, int L, int Tm, int V,
+                   int idx, int l_view, int gen, void* stream);
 
 // out: 7 ints, see StackPlan
 int vct_stack_step_plan(int dtype, int B, int E, int H, int F, int route, int* out) {
@@ -546,8 +355,9 @@ int vct_stack_step_plan(int dtype, int B, int E, int H, int F, int route, int* o
 }
 
 // fused_layers_step: tensors as vct_decode_step takes them (the generator's
-// null); route -1 by the plan, 0 decode_step_kernel, 1 stack_step_kernel.
-// scratch: float32 [B * (5E + F)], of which route 1 uses B * (18E + 2F) bytes.
+// null); route -1 by the plan, 0 decode_step_kernel, 1 stack_step_kernel, 2
+// the small-row kernel. scratch: float32 [B * (5E + F)], of which routes 1
+// and 2 use B * (18E + 2F) bytes.
 int vct_stack_step(int dtype, void* const* t, int B, int E, int H, int F, int NL, int L, int Tm,
                    int idx, int l_view, int route, void* stream) {
   StackPlan p;
@@ -555,6 +365,7 @@ int vct_stack_step(int dtype, void* const* t, int B, int E, int H, int F, int NL
     return (int)cudaErrorInvalidValue;
   if (p.route == 0)
     return vct_decode_step(dtype, t, B, E, H, F, NL, L, Tm, 0, idx, l_view, 0, stream);
+  if (p.route == 2) return vct_small_step(t, B, E, H, F, NL, L, Tm, 0, idx, l_view, 0, stream);
   StepArgs a;
   fill_step_args(a, t);
   a.B = B; a.E = E; a.H = H; a.F = F; a.NL = NL; a.L = L; a.Tm = Tm; a.V = 0;

@@ -94,6 +94,14 @@ def load_library() -> ctypes.CDLL:
     lib.vct_stack_step.restype = _I
     lib.vct_stack_step_plan.argtypes = [_I] * 6 + [_IP]
     lib.vct_stack_step_plan.restype = _I
+    lib.vct_whole_step.argtypes = [_I, _P] + [_I] * 11 + [_P]
+    lib.vct_whole_step.restype = _I
+    lib.vct_whole_step_plan.argtypes = [_I] * 7 + [_IP]
+    lib.vct_whole_step_plan.restype = _I
+    lib.vct_multi_step.argtypes = [_I, _P] + [_I] * 16 + [_P]
+    lib.vct_multi_step.restype = _I
+    lib.vct_multi_step_plan.argtypes = [_I] * 7 + [_IP]
+    lib.vct_multi_step_plan.restype = _I
     lib.vct_decode_multi.argtypes = [_I, _P] + [_I] * 18 + [_P]
     lib.vct_decode_multi.restype = _I
     lib.vct_gen_topk_blocks.argtypes = [_I]

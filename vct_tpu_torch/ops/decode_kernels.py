@@ -4,12 +4,16 @@ Port of the kernels in ``vct_tpu/ops/pallas_decode.py``:
 
 * ``fused_layers_step`` (``pallas_decode.py:516``) — one token through the
   whole decoder stack; x_out is NaN when ``idx >= l_view``. In bfloat16 it
-  runs on tensor cores (``csrc/stack_step.cu``) within the limits that
-  ``stack_step_plan`` states, on ``decode_step_kernel`` elsewhere;
+  runs on tensor cores within the limits that ``stack_step_plan`` states
+  (``csrc/small_step.cu`` at 1-64 rows, ``csrc/stack_step.cu`` above), on
+  ``decode_step_kernel`` elsewhere;
 * ``fused_norm_generator_argmax`` (``pallas_decode.py:811``) — final
   LayerNorm, vocab projection and first-win argmax without storing logits;
 * ``fused_whole_step`` (``pallas_decode.py:581``) — both in one launch; the
-  tokens are -1 when ``idx >= l_view``;
+  tokens are -1 when ``idx >= l_view``. In bfloat16 at 1-64 rows it runs the
+  small-row tensor-core kernel (``csrc/small_step.cu``, ``whole_step_plan``),
+  whose stack sums as ``fused_layers_step``'s there and whose generator is
+  ``fused_norm_generator_argmax``'s;
 * ``fused_norm_generator_topk`` (``pallas_decode.py:721``) — final LayerNorm,
   vocab projection, per-row top-k (lowest id wins ties) and logsumexp
   without storing logits: beam search's candidates;
@@ -17,9 +21,12 @@ Port of the kernels in ``vct_tpu/ops/pallas_decode.py``:
   on un-stacked weights and [L, B, E] caches;
 * ``fused_multi_step`` (``pallas_decode.py:1289``) — ``unroll`` greedy tokens
   per launch, embedding and argmax feedback inside; tokens are -1 when the
-  window reaches past ``l_view``;
+  window reaches past ``l_view``. In bfloat16 at 1-64 rows the small-row
+  kernel's token in a loop (``multi_step_plan``), so a window gives the
+  per-token loop's tokens;
 * ``fused_sequence_decode`` (``pallas_decode.py:997``) — the whole greedy
-  caption in one launch (B <= 32).
+  caption in one launch (B <= 32), on ``decode_multi_kernel``: its sums run
+  in another order than the per-token loop's in bfloat16.
 
 The public functions keep the reference's argument layout: caches
 [NL, L, B, E], cross K/V [NL, Tm, B, E], memory bias [B, Tm] float32 (or
@@ -31,8 +38,8 @@ in place; the same tensors are returned.
 
 Dispatch: a wrapper given CPU tensors runs the ``*_reference`` version; given
 CUDA tensors it launches the CUDA kernel (``csrc/decode_step.cu``,
-``csrc/stack_step.cu``, ``csrc/gen_argmax.cu``, ``csrc/gen_topk.cu``,
-``csrc/decode_multi.cu``) or raises.
+``csrc/stack_step.cu``, ``csrc/small_step.cu``, ``csrc/gen_argmax.cu``,
+``csrc/gen_topk.cu``, ``csrc/decode_multi.cu``) or raises.
 Each wrapper counts its kernel launches in ``<wrapper>.launches``.
 """
 
@@ -300,9 +307,11 @@ class StackPlan(NamedTuple):
     field what ``vct_stack_step_plan`` reports. ``route`` 1 is
     ``stack_step_kernel`` (bfloat16, products on tensor cores in units of
     ``rows`` x ``cols`` over K steps of ``kstep`` through ``stages`` ring
-    stages), ``route`` 0 ``decode_step_kernel`` (units of ``rows`` x ``cols``
-    on the CUDA cores, no ring); ``smem_bytes`` per block either way. ``why``
-    is the rule that decided, a key of ``STACK_WHY``."""
+    stages), ``route`` 2 the small-row kernel of ``csrc/small_step.cu``
+    without its generator (m16 row tiles x 8-column units, A chunks of
+    ``kstep``), ``route`` 0 ``decode_step_kernel`` (units of ``rows`` x
+    ``cols`` on the CUDA cores, no ring); ``smem_bytes`` per block either way.
+    ``why`` is the rule that decided, a key of ``STACK_WHY``."""
     route: int
     rows: int
     cols: int
@@ -315,51 +324,155 @@ class StackPlan(NamedTuple):
 # csrc/stack_step.cu: greedy decode sends 65 rows and more here (64 and fewer
 # run the whole-step kernel), beam search up to 64 videos x a beam of 32
 STACK_MIN_ROWS, STACK_MAX_ROWS = 65, 2048
-STACK_WHY = {0: "bfloat16 within every limit: the tensor-core kernel",
+# csrc/stack_phases.cuh: the small-row token path of csrc/small_step.cu takes
+# 1-64 rows (four m16 tiles) and an FFN width whose 8-column weight slice fits
+# a 36 KB slot
+SMALL_MAX_ROWS, SMALL_MAX_F = 64, 2304
+_SMALL_SMEM = 2 * 36864 + 8 * (128 * 4 + 32 * (128 * 2 + 16) + 32 * 128 * 2)
+STACK_WHY = {0: "bfloat16 within every limit: a tensor-core kernel (route 1 from "
+                f"{STACK_MIN_ROWS} rows, route 2 below)",
              1: "route 0 asked for",
              2: "float32: the CUDA-core kernel",
-             3: f"rows outside [{STACK_MIN_ROWS}, {STACK_MAX_ROWS}]: at 64 and fewer the stack "
-                f"keeps the whole-step kernel's sums, so a beam of 1 gives greedy's tokens",
+             3: f"rows above {STACK_MAX_ROWS}",
              4: "a width (E or F) that is not a multiple of 64",
              5: "E above 1024, the row a LayerNorm warp holds in registers",
-             6: "a head width that is not a multiple of 8 or is above 128"}
+             6: "a head width that is not a multiple of 8 or is above 128",
+             7: f"F above {SMALL_MAX_F} at {SMALL_MAX_ROWS} rows or fewer: an 8-column weight "
+                f"slice outgrows the small-row kernel's slot"}
+
+
+def _small_why(dtype, b: int, e: int, heads: int, f: int, route: int) -> int:
+    """``small_why`` of csrc/stack_phases.cuh: the rule for the small-row path."""
+    d = e // heads
+    return next((code for code, bad in (
+        (1, route == 0), (2, dtype != torch.bfloat16), (3, b > SMALL_MAX_ROWS),
+        (4, e % 64 or f % 64), (5, e > 1024), (6, d % 8 or d > 128),
+        (7, f > SMALL_MAX_F)) if bad), 0)
+
+
+def _step_smem(e: int, f: int) -> int:
+    """decode_step_kernel's shared memory (``step_smem_bytes``): its loaded
+    rows, the cross-warp reduction and the attention weights."""
+    return 4 * (8 * max(e, f) + 8 * 8 * 32 + 8 * _MAX_SPAN)
 
 
 def stack_step_plan(b: int, e: int, heads: int, f: int, dtype, route: int = -1) -> StackPlan:
     """The launch plan of ``fused_layers_step`` for B = ``b`` rows, widths
     ``e`` and ``f`` and ``heads`` heads, as the C launcher forms it (a
     description for tests and readers, not on the launch path). The rule
-    (``route`` -1): the tensor-core kernel for bfloat16 at ``STACK_MIN_ROWS``
-    to ``STACK_MAX_ROWS`` rows with E and F multiples of 64, E <= 1024 and a
-    head width that is a multiple of 8 up to 128; ``decode_step_kernel``
-    otherwise, with the rule that sent it there in ``why``. 0 asks for that
-    kernel; 1 for the tensor-core one, and raises where it does not run."""
+    (``route`` -1), for bfloat16 with E and F multiples of 64, E <= 1024 and a
+    head width that is a multiple of 8 up to 128: the small-row kernel (2)
+    at 1-64 rows while F <= ``SMALL_MAX_F``, so that a beam of width 1 sums
+    as the whole-step kernel; ``stack_step_kernel`` (1) at ``STACK_MIN_ROWS``
+    to ``STACK_MAX_ROWS`` rows; ``decode_step_kernel`` (0) otherwise, with the
+    rule that sent it there in ``why``. 0 asks for that kernel; 1 for
+    ``stack_step_kernel`` at any row count up to ``STACK_MAX_ROWS``; 2 for the
+    small-row kernel at its rows. Either raises where it does not run."""
     if dtype not in _DTYPE_CODE:
         raise TypeError(f"dtype {dtype}; kernels take float32 or bfloat16")
-    if b < 1 or e < 1 or heads < 1 or f < 1 or e % heads or route not in (-1, 0, 1):
+    if b < 1 or e < 1 or heads < 1 or f < 1 or e % heads or route not in (-1, 0, 1, 2):
         raise ValueError(f"B={b}, E={e}, heads {heads}, F={f}, route {route}")
     d = e // heads
     why = next((code for code, bad in (
-        (1, route == 0), (2, dtype != torch.bfloat16),
-        (3, not STACK_MIN_ROWS <= b <= STACK_MAX_ROWS),
+        (1, route == 0), (2, dtype != torch.bfloat16), (3, b > STACK_MAX_ROWS),
         (4, e % 64 or f % 64), (5, e > 1024), (6, d % 8 or d > 128)) if bad), 0)
+    if not why and b < STACK_MIN_ROWS and route != 1:
+        why = _small_why(dtype, b, e, heads, f, 2)
+    by_rule = 0 if why else (2 if b < STACK_MIN_ROWS else 1)
+    if route == 2 and (why or by_rule != 2):
+        raise ValueError(f"the small-row kernel does not run here: "
+                         f"{STACK_WHY[why] if why else f'{b} rows'}")
     if route == 1 and why:
         raise ValueError(f"the tensor-core stack kernel does not run here: {STACK_WHY[why]}")
-    if why:
-        return StackPlan(0, 8, 32, 0, 0, 4 * (8 * max(e, f) + 8 * 8 * 32 + 8 * _MAX_SPAN), why)
+    route = route if route > 0 else by_rule
+    if route == 0:
+        return StackPlan(0, 8, 32, 0, 0, _step_smem(e, f), why)
+    if route == 2:
+        return StackPlan(2, 16, 8, 256, 4, _SMALL_SMEM, why)
     # four stages of a [64][72] activation tile and a [64][72] weight tile, or
     # the attention phase's staging: per warp q (128 floats) and 32 key rows
     # (2 x 128 + 16 bytes apart) and 32 value rows of 128 bfloat16
     return StackPlan(1, 64, 64, 64, 4,
-                     max(4 * 2 * 64 * 72 * 2, 8 * (128 * 4 + 32 * (128 * 2 + 16) + 32 * 128 * 2)), 0)
+                     max(4 * 2 * 64 * 72 * 2, 8 * (128 * 4 + 32 * (128 * 2 + 16) + 32 * 128 * 2)),
+                     why)
+
+
+class SmallPlan(NamedTuple):
+    """How ``csrc/small_step.cu`` launches ``fused_whole_step``
+    (``whole_step_plan``) or a window of ``fused_multi_step``
+    (``multi_step_plan``), field for field what ``vct_whole_step_plan`` /
+    ``vct_multi_step_plan`` report. ``route`` 1 is the small-row tensor-core
+    kernel: 1 to ``SMALL_MAX_ROWS`` rows padded to m16 tiles of ``rows``,
+    products in units of ``cols`` output columns over the whole K, the A
+    operand in chunks of ``kstep`` through ``stages`` ring stages, the
+    generator inside. ``route`` 0 is the kernel it replaced
+    (``decode_step_kernel`` / ``decode_multi_kernel``: units of ``rows`` x
+    ``cols`` on the CUDA cores). ``why`` is the rule that decided, a key of
+    ``SMALL_WHY``."""
+    route: int
+    rows: int
+    cols: int
+    kstep: int
+    stages: int
+    smem_bytes: int
+    why: int
+
+
+SMALL_WHY = {0: f"bfloat16 at 1-{SMALL_MAX_ROWS} rows within every limit: the small-row "
+                f"tensor-core kernel",
+             1: "route 0 asked for",
+             2: "float32: the CUDA-core kernel",
+             3: f"rows above {SMALL_MAX_ROWS}, the four m16 tiles of the small-row kernel",
+             4: "a width (E or F) that is not a multiple of 64",
+             5: "E above 1024, the row a LayerNorm warp holds in registers",
+             6: "a head width that is not a multiple of 8 or is above 128",
+             7: f"F above {SMALL_MAX_F}: an 8-column weight slice outgrows a slot"}
+
+
+def _small_plan(b, e, heads, f, v, dtype, route, smem0) -> SmallPlan:
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"dtype {dtype}; kernels take float32 or bfloat16")
+    if (b < 1 or e < 1 or heads < 1 or f < 1 or e % heads or v < 8 or v % 8 or e % 8 or f % 8
+            or route not in (-1, 0, 1)):
+        raise ValueError(f"B={b}, E={e}, heads {heads}, F={f}, V={v}, route {route}")
+    why = _small_why(dtype, b, e, heads, f, route)
+    if route == 1 and why:
+        raise ValueError(f"the small-row kernel does not run here: {SMALL_WHY[why]}")
+    if why:
+        return SmallPlan(0, 8, 32, 0, 0, smem0, why)
+    return SmallPlan(1, 16, 8, 256, 4, _SMALL_SMEM, 0)
+
+
+def whole_step_plan(b: int, e: int, heads: int, f: int, v: int, dtype,
+                    route: int = -1) -> SmallPlan:
+    """The launch plan of ``fused_whole_step`` for B = ``b`` rows, widths
+    ``e``, ``f``, ``heads`` heads and a padded vocab of ``v``, as the C
+    launcher forms it (a description for tests and readers, not on the launch
+    path). The rule (``route`` -1): the small-row kernel for bfloat16 at 1 to
+    ``SMALL_MAX_ROWS`` rows with E and F multiples of 64, E <= 1024, F <=
+    ``SMALL_MAX_F`` and a head width that is a multiple of 8 up to 128;
+    ``decode_step_kernel`` otherwise, with the rule that sent it there in
+    ``why``. 0 asks for that kernel; 1 for the small-row one, and raises where
+    it does not run."""
+    return _small_plan(b, e, heads, f, v, dtype, route, _step_smem(e, f))
+
+
+def multi_step_plan(b: int, e: int, heads: int, f: int, v: int, dtype,
+                    route: int = -1) -> SmallPlan:
+    """The launch plan of a ``fused_multi_step`` window, as the C launcher
+    forms it: the rule of ``whole_step_plan`` (the same token path in a loop,
+    at the same 1 to ``SMALL_MAX_ROWS`` rows); route 0 is
+    ``decode_multi_kernel``, whose shared memory adds the rows' token ids and
+    done flags. ``fused_sequence_decode`` keeps ``decode_multi_kernel``."""
+    return _small_plan(b, e, heads, f, v, dtype, route,
+                       _step_smem(e, f) + 4 * ((2 * b + 3) // 4 * 4))
 
 
 def _launch_step(x, k_cache, v_cache, ck, cv, mem_bias, stacked, idx, heads, l_view,
-                 gen: Optional[Dict[str, torch.Tensor]], stack_route: Optional[int] = None):
-    """One decode-step launch. ``stack_route`` None: ``vct_decode_step``
-    (the whole step with ``gen``, else the stack on ``decode_step_kernel``);
-    otherwise the stack through ``vct_stack_step`` with that route (-1: by
-    the plan)."""
+                 gen: Optional[Dict[str, torch.Tensor]], route: int = -1):
+    """One decode-step launch: with ``gen`` the whole step through
+    ``vct_whole_step`` (tokens), else the stack through ``vct_stack_step``
+    (x_out); ``route`` -1 by the launcher's plan, or the route asked for."""
     from vct_tpu_torch.ops._build import load_library
 
     b, e, nl, big_l, tm, f, l = _check_stack(x, k_cache, v_cache, ck, cv, mem_bias,
@@ -369,32 +482,42 @@ def _launch_step(x, k_cache, v_cache, ck, cv, mem_bias, stacked, idx, heads, l_v
     if gen is not None:
         v = _check_gen(gen, e, x.dtype, dev)
         out = torch.empty((b,), dtype=torch.int32, device=dev)
-        keys = torch.empty((b,), dtype=torch.int64, device=dev)
+        keys = torch.empty((b,), dtype=torch.int64, device=dev)  # zeroed by the kernels
     else:
         out = torch.empty_like(x)
         keys = None
-    scratch = torch.empty((b * (5 * e + f),), dtype=torch.float32, device=dev)
+    scratch = _scratch(b, e, f, dev)
     ptrs = _step_pointers(x, k_cache, v_cache, ck, cv, mem_bias, stacked, gen, out, scratch,
                           keys)
     lib = load_library()
     with torch.cuda.device(dev):
-        if stack_route is None:
-            err = lib.vct_decode_step(
+        if gen is not None:
+            err = lib.vct_whole_step(
                 _DTYPE_CODE[x.dtype], ctypes.cast(ptrs, ctypes.c_void_p), b, e, heads, f,
-                nl, big_l, tm, v, int(idx), l, int(gen is not None), _stream(dev))
+                nl, big_l, tm, v, int(idx), l, int(route), _stream(dev))
         else:
             err = lib.vct_stack_step(
                 _DTYPE_CODE[x.dtype], ctypes.cast(ptrs, ctypes.c_void_p), b, e, heads, f,
-                nl, big_l, tm, int(idx), l, int(stack_route), _stream(dev))
-    _raise_on(err, "decode_step kernel" if stack_route is None else "stack_step kernel")
+                nl, big_l, tm, int(idx), l, int(route), _stream(dev))
+    _raise_on(err, "whole_step kernel" if gen is not None else "stack_step kernel")
     return out
 
 
+def _scratch(b: int, e: int, f: int, dev) -> torch.Tensor:
+    """float32 scratch of the step kernels: decode_step_kernel's [B * (5E +
+    F)] (the tensor-core stacks use B * (18E + 2F) bytes of it), then the
+    small-row kernel's generator parts, bfloat16 [2, 64, E]."""
+    return torch.empty((b * (5 * e + f) + SMALL_MAX_ROWS * e,), dtype=torch.float32, device=dev)
+
+
 def _launch_multi(cur, k_cache, v_cache, ck, cv, mem_bias, emb, pe, weights, *, heads,
-                  l_view, i0, n_tok, seq, poison, tok_out, start_id, end_id, pad_id):
-    """One launch of ``n_tok`` greedy tokens from position ``i0`` (csrc/
-    decode_multi.cu): a window's raw argmax chain into ``tok_out`` [B, n_tok],
-    or (``seq``) the whole caption into ``tok_out`` [B, max_len]."""
+                  l_view, i0, n_tok, seq, poison, tok_out, start_id, end_id, pad_id,
+                  route: int = -1):
+    """One launch of ``n_tok`` greedy tokens from position ``i0``: a window's
+    raw argmax chain into ``tok_out`` [B, n_tok] (``vct_multi_step``:
+    ``route`` -1 by ``multi_step_plan``, 0 ``decode_multi_kernel``, 1 the
+    small-row kernel of csrc/small_step.cu), or (``seq``) the whole caption
+    into ``tok_out`` [B, max_len] (``decode_multi_kernel``)."""
     from vct_tpu_torch.ops._build import load_library
 
     dt, dev = ck.dtype, ck.device
@@ -412,16 +535,22 @@ def _launch_multi(cur, k_cache, v_cache, ck, cv, mem_bias, emb, pe, weights, *, 
     if cur is not None:
         _expect(cur, "cur", (b,), torch.int32, dev, vector_loads=False)
     keys = torch.zeros((n_tok, b), dtype=torch.int64, device=dev)  # below every real key
-    scratch = torch.empty((b * (5 * e + f),), dtype=torch.float32, device=dev)
+    scratch = _scratch(b, e, f, dev)
     ptrs = _step_pointers(None, k_cache, v_cache, ck, cv, mem_bias, weights["stacked"],
                           weights, None, scratch, keys, emb, pe, cur, tok_out)
     lib = load_library()
     with torch.cuda.device(dev):
-        err = lib.vct_decode_multi(
-            _DTYPE_CODE[dt], ctypes.cast(ptrs, ctypes.c_void_p), b, e, heads, f, nl, big_l,
-            tm, v, l, n_emb, int(i0), int(n_tok), int(seq), int(poison), int(start_id),
-            int(end_id), int(pad_id), tok_out.shape[1], _stream(dev))
-    _raise_on(err, "decode_multi kernel")
+        if seq:
+            err = lib.vct_decode_multi(
+                _DTYPE_CODE[dt], ctypes.cast(ptrs, ctypes.c_void_p), b, e, heads, f, nl, big_l,
+                tm, v, l, n_emb, int(i0), int(n_tok), 1, int(poison), int(start_id),
+                int(end_id), int(pad_id), tok_out.shape[1], _stream(dev))
+        else:
+            err = lib.vct_multi_step(
+                _DTYPE_CODE[dt], ctypes.cast(ptrs, ctypes.c_void_p), b, e, heads, f, nl, big_l,
+                tm, v, l, n_emb, int(i0), int(n_tok), int(poison), int(pad_id),
+                tok_out.shape[1], int(route), _stream(dev))
+    _raise_on(err, "decode_multi kernel" if seq else "multi_step kernel")
 
 
 # ---------------------------------------------------------------------------
@@ -448,10 +577,11 @@ def _launch_layers_step(x, k_cache, v_cache, ck, cv, mem_bias, weights, idx: int
                         heads: int, l_view: Optional[int] = None, _route: int = -1):
     """``fused_layers_step``'s launch -> x_out. ``_route`` -1 leaves the
     choice to the launcher's plan (``stack_step_plan``), as the wrapper
-    does; only checks set it, to time or test ``decode_step_kernel`` (0) on
-    bfloat16 inputs."""
+    does; only checks set it, to time or test ``decode_step_kernel`` (0),
+    ``stack_step_kernel`` (1) or the small-row kernel (2) on bfloat16
+    inputs."""
     return _launch_step(x, k_cache, v_cache, ck, cv, mem_bias, weights, idx, heads, l_view,
-                        None, stack_route=_route)
+                        None, route=_route)
 
 
 def fused_whole_step(x, k_cache, v_cache, ck, cv, mem_bias, weights, idx: int, *,
@@ -464,10 +594,20 @@ def fused_whole_step(x, k_cache, v_cache, ck, cv, mem_bias, weights, idx: int, *
     if not _on_cuda(x, "fused_whole_step"):
         return fused_whole_step_reference(x, k_cache, v_cache, ck, cv, mem_bias,
                                           weights, idx, heads=heads, l_view=l_view)
-    tok = _launch_step(x, k_cache, v_cache, ck, cv, mem_bias, weights["stacked"], idx,
-                       heads, l_view, weights)
+    tok = _launch_whole_step(x, k_cache, v_cache, ck, cv, mem_bias, weights, idx,
+                             heads=heads, l_view=l_view)
     fused_whole_step.launches += 1
     return tok, k_cache, v_cache
+
+
+def _launch_whole_step(x, k_cache, v_cache, ck, cv, mem_bias, weights, idx: int, *,
+                       heads: int, l_view: Optional[int] = None, _route: int = -1):
+    """``fused_whole_step``'s launch -> tokens. ``_route`` -1 leaves the
+    choice to the launcher's plan (``whole_step_plan``), as the wrapper does;
+    only checks set it, to time or test ``decode_step_kernel`` (0) or the
+    small-row kernel (1)."""
+    return _launch_step(x, k_cache, v_cache, ck, cv, mem_bias, weights["stacked"], idx, heads,
+                        l_view, weights, route=_route)
 
 
 def split_hi_lo(yn: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -681,7 +821,8 @@ def fused_layer_step(x, k_cache, v_cache, ck, cv, mem_bias, weights, idx: int, *
         return fused_layer_step_reference(x, k_cache, v_cache, ck, cv, mem_bias, weights,
                                           idx, heads=heads)
     out = _launch_step(x, k_cache.unsqueeze(0), v_cache.unsqueeze(0), ck.unsqueeze(0),
-                       cv.unsqueeze(0), mem_bias, _as_stack(weights), idx, heads, None, None)
+                       cv.unsqueeze(0), mem_bias, _as_stack(weights), idx, heads, None, None,
+                       route=0)
     fused_layer_step.launches += 1
     return out, k_cache, v_cache
 
