@@ -21,7 +21,9 @@ CUDA card.
                                            one beside the script: its stack
                                            kernel's time at B=128 and 256 rows,
                                            the small-row kernels' at B=1, 32
-                                           and 64 (u=4 at 32), its route checks
+                                           and 64 (u=4 at 32; the sequence
+                                           kernel at 32 and 1, the layer step
+                                           at 32), its route checks
                                            and the bf16 beam loop checks, and
                                            per-phase times if its library
                                            exports vct_stack_stamps or
@@ -85,13 +87,20 @@ Phases, each of which must pass:
               then its tensor-core route at B = 1, 65, 128, 200, 256 and k =
               1, 4, 32 on a ragged vocab against the plain version and the
               kernel it replaced, with ties across slabs),
-              fused_layer_step at B=32,
+              fused_layer_step (the stack's launch at NL = 1) at B = 1, 32,
+              64 (small-row kernel), 65 and 256 (stack_step_kernel) against
+              its plain version and the kernel it replaced, the same bits
+              twice, fused_layers_step's bits at NL = 1, an idx past the
+              cache refused on every route;
               fused_multi_step at B = 1, 7, 32 and 64, u=2 and 4, over
               several windows against the plain version and the kernel it
               replaced, the same bits twice, the per-token whole step along
               its chain bit for bit, the window poison on both routes;
-              fused_sequence_decode at B=1 and 32 with end tokens that stop
-              rows and the whole batch early
+              fused_sequence_decode (small-row kernel) at B=1 and 32, free
+              running, with end tokens that stop rows and the whole batch
+              early, and with every row done at step 1 (the pad fill): the
+              per-token kernel loop's bits, the same bits twice, against the
+              plain loop and the kernel it replaced but at near-ties
   9. eval     vct_tpu_torch.cli.eval's main on the synthetic dataset (160
               videos, eval batch 64) and the seeded .pth: greedy, --beam 4
               (256 beam rows) and --beam 1; predictions and metrics files
@@ -104,13 +113,15 @@ Phases, each of which must pass:
               width raises
  10. multi    greedy_generate_fused(multi_step=2 and 4) and a beam of 1
               token-equal, bit for bit, to the per-token kernel loop at B=1,
-              32 and 64 (the beam also at 65); (sequence_kernel=True) and a
-              29-token decode at B=32 with the stack run layer by layer
-              through fused_layer_step, which keep decode_token's sums,
-              against the plain greedy chain but at near-ties
+              32 and 64 (the beam also at 65), and so are
+              (sequence_kernel=True) at B=1 and 32 and a 29-token decode at
+              B=32 with the stack run layer by layer through
+              fused_layer_step; the per-token loop against the plain greedy
+              chain but at near-ties at B=1 and 32
  11. timings  kernel, plain and library-call times with each kernel's bound
-              (the whole step at B = 32, 1 and 64, the u=4 window at B=32 and
-              the stack at 1-64 rows against the kernels they replaced),
+              (the whole step at B = 32, 1 and 64, the u=4 window at B=32,
+              the sequence kernel at B = 32 and 1, fused_layer_step at B=32
+              and the stack at 1-64 rows against the kernels they replaced),
               ms per token of both decode paths at B=1, 32 and 128,
               captions/s of the server phase, the loss routes at N=1984 and
               N=7936, the generator's padded copy against the bare cast, ms
@@ -167,8 +178,8 @@ device alone), used for the generator + argmax kernel, the top-k kernel, the
 attention forward and (``backward_timer``) backward, the three loss kernels
 (at N=1984 and, in ``*_n4096``, N=4096) and their library calls, the stack
 kernel (at B=128 and, in ``*_b256``, 256 beam rows; at 1-64 rows in
-``*_b1``, ``*_b32``, ``*_b64``), the whole step (B=32; ``*_b1``, ``*_b64``)
-and the multi-token window,
+``*_b1``, ``*_b32``, ``*_b64``), the whole step (B=32; ``*_b1``, ``*_b64``),
+the multi-token window, the sequence kernel (B=32; ``*_b1``) and the layer step,
 because their wrappers' host code outlasts the kernels or, for the backward,
 because autograd's host loop is no clock of its kernels; ``eager_ms`` is the
 loop's reading of the same call (for the backward, forward + backward minus
@@ -236,10 +247,9 @@ REPLACES = {
 BEAM_REPLACES = {
     "fused_norm_generator_topk": ("vct_tpu/ops/pallas_decode.py:721",
                                   "vct_tpu_torch/csrc/gen_topk.cu"),
-    "fused_layer_step": ("vct_tpu/ops/pallas_decode.py:211", SOURCE),
+    "fused_layer_step": ("vct_tpu/ops/pallas_decode.py:211", SMALL_SOURCE),
     "fused_multi_step": ("vct_tpu/ops/pallas_decode.py:1289", SMALL_SOURCE),
-    "fused_sequence_decode": ("vct_tpu/ops/pallas_decode.py:997",
-                              "vct_tpu_torch/csrc/decode_multi.cu"),
+    "fused_sequence_decode": ("vct_tpu/ops/pallas_decode.py:997", SMALL_SOURCE),
 }
 # Top-k values and logsumexp: kernel and plain version form float32 logits
 # from the same float32 LayerNorm output and bfloat16 weights and differ by
@@ -262,6 +272,8 @@ RECORDED_PREVIOUS_MS = {
     "fused_layers_step": {"b128": 0.8744, "b256": 1.3138},
     "fused_whole_step": 0.6746,
     "fused_multi_step": 2.8116,
+    "fused_sequence_decode": 21.9150,
+    "fused_layer_step": 0.1622,
     "sce_backward_tiles": 4.5906,
 }
 BEAM_ROWS, BEAM_K = 256, 4   # eval batch 64 x beam 4
@@ -613,7 +625,8 @@ def check_stack_routes(fw, heads, tm, means):
 
 
 def check_small_plans(fw, heads):
-    """whole_step_plan and multi_step_plan against the launchers' plans."""
+    """whole_step_plan, multi_step_plan and sequence_decode_plan against the
+    launchers' plans."""
     import ctypes
 
     from vct_tpu_torch.ops import decode_kernels as dk
@@ -622,9 +635,10 @@ def check_small_plans(fw, heads):
     st = fw["stacked"]
     e, f, v = st["wqkv"].shape[1], st["w1"].shape[-1], fw["wg"].shape[1]
     for entry, plan_fn in (("vct_whole_step_plan", dk.whole_step_plan),
-                           ("vct_multi_step_plan", dk.multi_step_plan)):
+                           ("vct_multi_step_plan", dk.multi_step_plan),
+                           ("vct_sequence_decode_plan", dk.sequence_decode_plan)):
         for dtype, b, (we, wh, wf), wv, route in itertools.product(
-                (torch.bfloat16, torch.float32), (1, 7, 64, 65),
+                (torch.bfloat16, torch.float32), (1, 7, 32, 33, 64, 65),
                 ((e, heads, f), (128, 4, 256), (96, 12, 256), (1280, 8, 2048), (768, 2, 2048),
                  (768, 8, 2560)), (v, 1020), (-1, 0, 1)):
             try:
@@ -1150,25 +1164,64 @@ def check_topk_routes(fw, x, logits):
 
 
 def check_layer_step(fw, heads, tm):
-    """fused_layer_step at B=32 on layer 1's un-stacked weights."""
+    """fused_layer_step on layer 1's un-stacked weights, the stack's launch at
+    NL = 1: at B=32 (the small-row kernel, route 2) at idx 0, 11 and 31, and
+    at B = 1 and 64 (route 2), 65 and 256 (stack_step_kernel, route 1) at idx
+    12: x_out and the fresh cache rows against the plain version and against
+    decode_step_kernel (route 0), which it replaced; the same bits twice; the
+    bits of fused_layers_step at NL = 1 on the same layer; an idx past the
+    cache refused on every route."""
     from vct_tpu_torch.ops import decode_kernels as dk
 
     err, means = 0.0, []
-    for idx, with_bias in ((0, True), (11, False), (31, True)):
-        a = step_inputs(fw, 32, idx, tm, gen=6000 + idx)
-        w1 = {k: v[1] for k, v in fw["stacked"].items()}
+    st = fw["stacked"]
+    e, f, dt = st["wqkv"].shape[1], st["w1"].shape[-1], st["wqkv"].dtype
+    w1 = {k: v[1] for k, v in st.items()}
+    one = {k: v[1:2] for k, v in st.items()}   # the same layer as a stack of one
+    for b, idx, with_bias in ((32, 0, True), (32, 11, False), (32, 31, True), (1, 12, True),
+                              (64, 12, False), (65, 12, True), (256, 12, True)):
+        route = dk.stack_step_plan(b, e, heads, f, dt).route
+        if route != (2 if b <= dk.SMALL_MAX_ROWS else 1):
+            fail(f"fused_layer_step B={b}: the plan takes route {route}")
+        a = step_inputs(fw, b, idx, tm, gen=6000 + idx + (0 if b == 32 else b))
         mb = a["mem_bias"] if with_bias else None
-        k1, v1, k2, v2 = (a[c][1].clone() for c in ("kc", "vc", "kc", "vc"))
-        x_k, _, _ = dk.fused_layer_step(a["x"], k1, v1, a["ck"][1], a["cv"][1], mb, w1, idx,
-                                        heads=heads)
-        x_r, _, _ = dk.fused_layer_step_reference(a["x"], k2, v2, a["ck"][1], a["cv"][1], mb,
-                                                  w1, idx, heads=heads)
+        x, ck, cv = a["x"], a["ck"][1], a["cv"][1]
+        runs = {}
+        for label, fn in (
+                ("kernel", lambda k, v: dk.fused_layer_step(x, k, v, ck, cv, mb, w1, idx,
+                                                            heads=heads)[0]),
+                ("again", lambda k, v: dk.fused_layer_step(x, k, v, ck, cv, mb, w1, idx,
+                                                           heads=heads)[0]),
+                ("replaced", lambda k, v: dk._launch_layer_step(x, k, v, ck, cv, mb, w1, idx,
+                                                                heads=heads, _route=0)),
+                ("plain", lambda k, v: dk.fused_layer_step_reference(x, k, v, ck, cv, mb, w1,
+                                                                     idx, heads=heads)[0]),
+                ("stack", lambda k, v: dk.fused_layers_step(
+                    x, k[None], v[None], ck[None], cv[None], mb, one, idx, heads=heads)[0])):
+            k, v = a["kc"][1].clone(), a["vc"][1].clone()
+            runs[label] = (fn(k, v), k[idx], v[idx])
         torch.cuda.synchronize()
-        name = f"fused_layer_step B=32 idx={idx} bias={with_bias}"
-        err = max(err, compare_float(name + " x_out", x_k, x_r, means),
-                  compare_float(name + " k row", k1[idx], k2[idx], means),
-                  compare_float(name + " v row", v1[idx], v2[idx], means))
-        say(f"  ok {name}")
+        name = f"fused_layer_step route {route} B={b} idx={idx} bias={with_bias}"
+        if not all(torch.equal(p, q) for p, q in zip(runs["kernel"], runs["again"])):
+            fail(f"{name}: two calls gave different bits")
+        if not all(torch.equal(p, q) for p, q in zip(runs["kernel"], runs["stack"])):
+            fail(f"{name}: other bits than fused_layers_step at NL = 1")
+        for ref in ("plain", "replaced"):
+            for part, got, want in zip(("x_out", "k row", "v row"), runs["kernel"], runs[ref]):
+                d = compare_float(f"{name} {part} against the {ref}", got, want, means)
+                if ref == "plain":
+                    err = max(err, d)
+        say(f"  ok {name}: against the plain version and the replaced kernel; same bits twice; "
+            f"the stack's bits at NL = 1")
+    big_l = a["kc"].shape[1]
+    for route in (-1, 0, 1, 2):
+        try:
+            dk._launch_layer_step(a["x"], a["kc"][1].clone(), a["vc"][1].clone(), a["ck"][1],
+                                  a["cv"][1], None, w1, big_l, heads=heads, _route=route)
+        except ValueError:
+            continue
+        fail(f"fused_layer_step route {route}: idx {big_l} past the cache was not refused")
+    say(f"  ok fused_layer_step: idx {big_l}, past the cache, refused on every route")
     return err
 
 
@@ -1319,43 +1372,55 @@ def eval_inputs(b, dev, seed):
 
 
 def check_sequence(model, fw):
-    """fused_sequence_decode at B=1 and 32 against the plain loop: free
-    running, with an end token that finishes rows early (at B=1 the whole
-    batch, so the kernel leaves its loop), and with a generator biased to the
-    end token (every row finishes at step 1)."""
-    from vct_tpu_torch.decode_fast import _prep_decode
+    """fused_sequence_decode at B=1 and 32 (the small-row kernel by its plan):
+    free running, with an end token that finishes rows early (at B=1 the
+    whole batch, so the kernel leaves its loop), and with a generator biased
+    to the end token (every row finishes at step 1, the pad fill after it).
+    Each case bit for bit against the per-token kernel loop, the same bits
+    twice, against the plain loop but at near-ties; decode_multi_kernel
+    (route 0), which it replaced, against the plain loop the same way."""
+    from vct_tpu_torch.decode_fast import _decode_loop, _prep_decode
     from vct_tpu_torch.ops import decode_kernels as dk
 
     err, heads = 0.0, fw["heads"]
     dev = fw["wg"].device
+    st = fw["stacked"]
+    e, f, v = st["wqkv"].shape[1], st["w1"].shape[-1], fw["wg"].shape[1]
     for b in (1, 32):
+        if dk.sequence_decode_plan(b, e, heads, f, v, fw["wg"].dtype).route != 1:
+            fail(f"fused_sequence_decode B={b}: the plan keeps the replaced kernel")
         feats, masks = eval_inputs(b, dev, SEED + 10 + b)
         _, cks, cvs, mem_bias = _prep_decode(model, feats, masks, 30, fw)
         kw = dict(heads=heads, max_len=30, start_id=101, pad_id=0)
-        free, gaps = plain_chain(fw, cks, cvs, mem_bias, heads, 30, 101, -1, 0)
-        got = dk.fused_sequence_decode(fw["emb"], fw["pe"], cks, cvs, mem_bias, fw,
-                                       end_id=-1, **kw)
-        torch.cuda.synchronize()
-        err = max(err, chain_err(f"fused_sequence_decode B={b}", got, free, gaps,
-                                 NEAR_TIE_SAME))
-        end_id = int(free[0, 3])
-        want, gaps = plain_chain(fw, cks, cvs, mem_bias, heads, 30, 101, end_id, 0)
-        got = dk.fused_sequence_decode(fw["emb"], fw["pe"], cks, cvs, mem_bias, fw,
-                                       end_id=end_id, **kw)
-        torch.cuda.synchronize()
-        err = max(err, chain_err(f"fused_sequence_decode B={b} end_id={end_id}", got, want,
-                                 gaps, NEAR_TIE_SAME))
-        if b == 1 and not bool((want[0, 4:] == 0).all()):
-            fail("fused_sequence_decode: the plain loop did not stop at the end token")
+        free, _ = plain_chain(fw, cks, cvs, mem_bias, heads, 30, 101, -1, 0)
         biased = dict(fw, bg=fw["bg"].clone())
         biased["bg"][102] = 1e3
-        got = dk.fused_sequence_decode(fw["emb"], fw["pe"], cks, cvs, mem_bias, biased,
-                                       end_id=102, **kw)
-        torch.cuda.synchronize()
-        if got.cpu().tolist() != [[101, 102] + [0] * 28] * b:
-            fail(f"fused_sequence_decode B={b}: every row finished at step 1, got {got[0]}")
-        say(f"  ok fused_sequence_decode B={b}: free running, end_id={end_id}, and every "
-            f"row finished at once")
+        for w, end_id in ((fw, -1), (fw, int(free[0, 3])), (biased, 102)):
+            name = f"fused_sequence_decode B={b} end_id={end_id}" + (
+                " (biased generator)" if w is biased else "")
+            want, gaps = plain_chain(w, cks, cvs, mem_bias, heads, 30, 101, end_id, 0)
+            loop = _decode_loop(w, cks, cvs, mem_bias, max_len=30, start_id=101, end_id=end_id,
+                                pad_id=0, single_kernel=True)
+            sargs = (w["emb"], w["pe"], cks, cvs, mem_bias, w)
+            got = dk.fused_sequence_decode(*sargs, end_id=end_id, **kw)
+            again = dk.fused_sequence_decode(*sargs, end_id=end_id, **kw)
+            old = dk._launch_sequence_decode(*sargs, end_id=end_id, _route=0, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                fail(f"{name}: two calls gave different bits")
+            if not torch.equal(got, loop):
+                rows = (got != loop).any(1).nonzero().flatten().tolist()
+                fail(f"{name}: rows {rows} differ from the per-token kernel loop")
+            err = max(err, chain_err(name, got, want, gaps, NEAR_TIE_SAME))
+            chain_err(f"{name} (replaced kernel)", old, want, gaps, NEAR_TIE_SAME)
+            if w is biased and not (got.cpu().tolist() == old.cpu().tolist()
+                                    == [[101, 102] + [0] * 28] * b):
+                fail(f"{name}: every row finished at step 1, got {got[0]} and {old[0]}")
+            if b == 1 and end_id == int(free[0, 3]) and not bool((want[0, 4:] == 0).all()):
+                fail(f"{name}: the plain loop did not stop at the end token")
+        say(f"  ok fused_sequence_decode B={b}: free running, end_id={int(free[0, 3])}, every "
+            f"row finished at once; the per-token loop's bits, same bits twice, the plain "
+            f"chain and the replaced kernel's but at near-ties")
     return err
 
 
@@ -1704,15 +1769,15 @@ def per_layer_decode(fw, cks, cvs, mem_bias, max_len=30, start_id=101, pad_id=0)
 
 def run_multi(model, fw):
     """The opt-in greedy modes against the per-token kernel loop at B = 1, 32
-    and 64: multi_step=2 and 4 (the small-row kernel, which sums as the whole
-    step) token for token, bit for bit; a beam of 1 (fused_layers_step + the
-    top-k kernel) token for token at B = 1, 32, 64 and 65, across the
-    boundary where greedy decode leaves the whole-step kernel. The sequence
-    kernel and, at B=32, a 29-token decode whose stack runs layer by layer
-    through fused_layer_step keep decode_token's summation order: each is
-    held to the plain greedy chain, parting only at its near-ties (they may
-    part from the per-token loop where its order and theirs round a near-tie
-    apart) -> launches, counted from 0."""
+    and 64, token for token, bit for bit: multi_step=2 and 4 (the small-row
+    kernel, which sums as the whole step); the sequence kernel at B = 1 and
+    32 (the same token in its loop); at B=32 a 29-token decode whose stack
+    runs layer by layer through fused_layer_step (the stack's launch at NL =
+    1); a beam of 1 (fused_layers_step + the top-k kernel) at B = 1, 32, 64
+    and 65, across the boundary where greedy decode leaves the whole-step
+    kernel. At B = 1 and 32 the per-token loop, and so every route that
+    gives its bits, is also held to the plain greedy chain, parting only at
+    its near-ties -> launches, counted from 0."""
     from vct_tpu_torch.decode_fast import _prep_decode, beam_generate_fused, greedy_generate_fused
     from vct_tpu_torch.ops import decode_kernels as dk
 
@@ -1729,20 +1794,21 @@ def run_multi(model, fw):
             feats, masks = eval_inputs(b, dev, SEED + 20 + b)
             kw = dict(max_len=30, start_id=101, end_id=-1, fw=fw)
             base, _ = greedy_generate_fused(model, feats, masks, **kw)
+            if b in plain:   # and so every route below that gives its bits
+                chain_err(f"multi B={b} per-token loop", base, *plain[b], NEAR_TIE_SAME)
             exact = [("beam of 1", lambda: beam_generate_fused(model, feats, masks, beam_size=1,
                                                                 **kw)[0])]
-            near = []
             if b <= dk.SMALL_MAX_ROWS:
                 exact += [(str(mode), lambda mode=mode: greedy_generate_fused(
                     model, feats, masks, **mode, **kw)[0])
                     for mode in (dict(multi_step=2), dict(multi_step=4))]
             if b <= dk.SEQUENCE_MAX_B:
-                near.append(("{'sequence_kernel': True}", lambda: greedy_generate_fused(
+                exact.append(("{'sequence_kernel': True}", lambda: greedy_generate_fused(
                     model, feats, masks, sequence_kernel=True, **kw)[0]))
             if b == 32:
                 _, cks, cvs, mem_bias = _prep_decode(model, feats, masks, 30, fw)
-                near.append(("one fused_layer_step per layer",
-                             lambda: per_layer_decode(fw, cks, cvs, mem_bias)))
+                exact.append(("one fused_layer_step per layer",
+                              lambda: per_layer_decode(fw, cks, cvs, mem_bias)))
             for label, run in exact:
                 got = run()
                 torch.cuda.synchronize()
@@ -1751,13 +1817,6 @@ def run_multi(model, fw):
                     fail(f"multi B={b} {label}: rows {rows} differ from the per-token loop, "
                          f"which sums alike")
                 say(f"  ok B={b} {label}: {b}/{b} rows equal to the per-token kernel loop")
-            for label, run in near:   # these sum as decode_token: held to the plain chain
-                got = run()
-                torch.cuda.synchronize()
-                chain_err(f"multi B={b} {label}", got, *plain[b], NEAR_TIE_SAME)
-                same = int((got == base).all(dim=1).sum())
-                say(f"  ok B={b} {label}: against the plain chain but at near-ties; {same}/{b} "
-                    f"rows token-equal to the per-token kernel loop")
     launches = read_launches()
     for name in ("fused_multi_step", "fused_sequence_decode", "fused_layer_step"):
         if launches[name] == 0:
@@ -1826,10 +1885,24 @@ def time_beam_kernels(model, fw, heads, tm, card):
     # the step at idx 12 attends cache rows 0..12
     bnd = bound_ms(nbytes(*w1.values(), a["x"], largs[1][:13], largs[2][:13], *largs[3:6])
                    + nbytes(a["x"]), 2.0 * 32 * sum(m.numel() for m in mats), dt)
+    # the stack's launch at NL = 1 (the small-row kernel at 32 rows) and
+    # decode_step_kernel, which it replaced, by graph replay in turns (kernel,
+    # replaced, replaced, kernel): the wrapper's host code outlasts the kernel
+    fns = {"kernel": lambda: dk.fused_layer_step(*largs, 12, heads=heads),
+           "previous": lambda: dk._launch_layer_step(*largs, 12, heads=heads, _route=0)}
+    t = {k: [] for k in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for which in order:
+            t[which].append(device_time(fns[which]))
     out["fused_layer_step"] = {
-        "ms": cuda_time(lambda: dk.fused_layer_step(*largs, 12, heads=heads)),
+        "timer": "graph_replay", "ms": min(t["kernel"]),
+        "previous_same_run_ms": min(t["previous"]), "eager_ms": cuda_time(fns["kernel"]),
         "plain_ms": cuda_time(lambda: dk.fused_layer_step_reference(*largs, 12, heads=heads)),
         "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
+    say(f"  fused_layer_step [small-row kernel at NL = 1, graph replay] B=32 idx 12: "
+        f"{out['fused_layer_step']['ms']:.4f} ms (replaced kernel "
+        f"{out['fused_layer_step']['previous_same_run_ms']:.4f}, recorded earlier by cuda_time "
+        f"{RECORDED_PREVIOUS_MS['fused_layer_step']:.4f})")
 
     # several tokens per launch at B=32: every input once for ``bound_ms``;
     # ``restream_bound_ms`` counts the weights once per token instead, since a
@@ -1841,20 +1914,29 @@ def time_beam_kernels(model, fw, heads, tm, card):
     ks = torch.zeros((cks.shape[0], 32, b, cks.shape[3]), dtype=dt, device=x.device)
     vs = torch.zeros_like(ks)
     cur = torch.full((b,), 101, dtype=torch.int32, device=x.device)
-    stack = {"x": a["x"], "kc": ks, "vc": vs, "ck": cks, "cv": cvs, "mem_bias": mem_bias}
-    per_token = step_bound(fw, stack, b, 8, True)
     weights = nbytes(*fw["stacked"].values(), fw["wg"], fw["bg"], fw["norm_s"], fw["norm_b"])
-    mat_ops = 2.0 * b * (sum(fw["stacked"][k].numel()
-                             for k in ("wqkv", "wo", "wcq", "wco", "w1", "w2"))
-                         + fw["wg"].numel())
+    mat_elems = sum(fw["stacked"][k].numel() for k in ("wqkv", "wo", "wcq", "wco", "w1", "w2")) \
+        + fw["wg"].numel()
 
-    def once_bound(n_tok, rows):
-        moved = weights + nbytes(cks, cvs, mem_bias) + 2 * nbytes(ks[:, :rows]) \
-            + n_tok * b * (fw["emb"].shape[1] * 2 * 2 + 4)
-        return bound_ms(moved, n_tok * mat_ops, dt)
+    def once_bound(n_tok, rows, cks, cvs, mem_bias):
+        """Every input once, ``rows`` rows of both caches, the tokens'
+        embedding and position rows and ids."""
+        rb = cks.shape[2]
+        moved = weights + nbytes(cks, cvs, mem_bias) + 2 * rows * nbytes(cks[:, :1]) \
+            + n_tok * rb * (fw["emb"].shape[1] * 2 * 2 + 4)
+        return bound_ms(moved, n_tok * 2.0 * rb * mat_elems, dt)
+
+    def per_token(cks, cvs, mem_bias):
+        """A token's bound with the weights re-streamed (the window of 8 rows)."""
+        rb, e = cks.shape[2], cks.shape[3]
+        stack = {"x": torch.empty((rb, e), dtype=dt, device=cks.device),
+                 "kc": torch.empty((cks.shape[0], 8, rb, e), dtype=dt, device=cks.device),
+                 "ck": cks, "cv": cvs, "mem_bias": mem_bias}
+        stack["vc"] = stack["kc"]
+        return step_bound(fw, stack, rb, 8, True)[0]
 
     margs = (cur, ks, vs, cks, cvs, mem_bias, fw["emb"], fw["pe"], fw)
-    bnd = once_bound(u, 8)
+    bnd = once_bound(u, 8, cks, cvs, mem_bias)
     # the small-row kernel's window and decode_multi_kernel, which it replaced,
     # by graph replay in turns (kernel, replaced, replaced, kernel)
     tok = torch.empty((b, u), dtype=torch.int32, device=x.device)
@@ -1873,20 +1955,42 @@ def time_beam_kernels(model, fw, heads, tm, card):
         "plain_ms": cuda_time(lambda: dk.fused_multi_step_reference(
             *margs, 1, heads=heads, unroll=u, pad_id=0, l_view=8), iters=5),
         "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
-        "restream_bound_ms": u * per_token[0]}
+        "restream_bound_ms": u * per_token(cks, cvs, mem_bias)}
     say(f"  fused_multi_step [small-row kernel, graph replay] B={b} u={u}: "
         f"{out['fused_multi_step']['ms']:.4f} ms (replaced kernel "
         f"{out['fused_multi_step']['previous_same_run_ms']:.4f}, recorded earlier by cuda_time "
         f"{RECORDED_PREVIOUS_MS['fused_multi_step']:.4f})")
-    sargs = (fw["emb"], fw["pe"], cks, cvs, mem_bias, fw)
+    # the whole caption (29 tokens, end_id=-1: this run's data needs all of
+    # them) on the small-row kernel and on decode_multi_kernel, which it
+    # replaced, by graph replay in turns (kernel, replaced, replaced, kernel)
+    # at B=32 and B=1
     skw = dict(heads=heads, max_len=30, start_id=101, end_id=-1, pad_id=0)
-    bnd = once_bound(29, 32)  # end_id=-1: this run's data needs all 29 tokens
-    out["fused_sequence_decode"] = {
-        "ms": cuda_time(lambda: dk.fused_sequence_decode(*sargs, **skw), iters=5),
-        "plain_ms": cuda_time(lambda: dk.fused_sequence_decode_reference(*sargs, **skw),
-                              iters=2),
-        "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
-        "restream_bound_ms": 29 * per_token[0]}
+    row = {"timer": "graph_replay", "library_ms": None}
+    for rb in (32, 1):
+        if rb != b:
+            feats, masks = eval_inputs(rb, x.device, SEED + 61)
+            _, cks, cvs, mem_bias = _prep_decode(model, feats, masks, 30, fw)
+        sargs = (fw["emb"], fw["pe"], cks, cvs, mem_bias, fw)
+        fns = {"kernel": lambda: dk.fused_sequence_decode(*sargs, **skw),
+               "previous": lambda: dk._launch_sequence_decode(*sargs, _route=0, **skw)}
+        t = {k: [] for k in fns}
+        for order in (list(fns), list(fns)[::-1]):
+            for which in order:
+                t[which].append(device_time(fns[which], iters=5))
+        bnd = once_bound(29, 32, cks, cvs, mem_bias)
+        sfx = "" if rb == 32 else f"_b{rb}"
+        row.update({f"ms{sfx}": min(t["kernel"]), f"previous_same_run_ms{sfx}": min(t["previous"]),
+                    f"eager_ms{sfx}": cuda_time(fns["kernel"], iters=5),
+                    f"plain_ms{sfx}": cuda_time(
+                        lambda: dk.fused_sequence_decode_reference(*sargs, **skw), iters=2),
+                    f"bound_ms{sfx}": bnd[0], f"bound_by{sfx}": bnd[1],
+                    f"restream_bound_ms{sfx}": 29 * per_token(cks, cvs, mem_bias)})
+    out["fused_sequence_decode"] = row
+    say(f"  fused_sequence_decode [small-row kernel, graph replay] 29 tokens: B=32 "
+        f"{row['ms']:.4f} ms (replaced kernel {row['previous_same_run_ms']:.4f}, recorded earlier "
+        f"by cuda_time {RECORDED_PREVIOUS_MS['fused_sequence_decode']:.4f}; host loop "
+        f"{row['eager_ms']:.4f}), B=1 {row['ms_b1']:.4f} ms (replaced kernel "
+        f"{row['previous_same_run_ms_b1']:.4f})")
     for name, t in out.items():
         lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
         extra = f", re-streamed bound {t['restream_bound_ms']:.4f} ms" \
@@ -2756,6 +2860,16 @@ def stack_variant(root, model, fw, heads, tm, card):
     small["multi B=32 u=4"] = device_time(lambda: dk.fused_multi_step(
         cur, ks, vs, a["ck"], a["cv"], a["mem_bias"], fw["emb"], fw["pe"], fw, 1, heads=heads,
         unroll=4, pad_id=0, l_view=8))
+    skw = dict(heads=heads, max_len=30, start_id=101, end_id=-1, pad_id=0)
+    for b in (32, 1):
+        sa = step_inputs(fw, b, 0, tm, gen=4200 + b)
+        small[f"sequence B={b}"] = device_time(lambda: dk.fused_sequence_decode(
+            fw["emb"], fw["pe"], sa["ck"], sa["cv"], sa["mem_bias"], fw, **skw), iters=3)
+    la = step_inputs(fw, 32, 12, tm, gen=4300)
+    w1 = {k: v[1] for k, v in fw["stacked"].items()}
+    small["layer_step B=32"] = device_time(lambda: dk.fused_layer_step(
+        la["x"], la["kc"][1], la["vc"][1], la["ck"][1], la["cv"][1], la["mem_bias"], w1, 12,
+        heads=heads))
     say("  small-row kernels (graph replay): "
         + ", ".join(f"{k} {v:.4f} ms" for k, v in small.items()))
     means = []
@@ -2786,6 +2900,20 @@ def stack_variant(root, model, fw, heads, tm, card):
         labels[-1] = "ln3+split"
         say("  whole step at B=32, µs per phase (block 0, median of 5, after each barrier): "
             + "; ".join(f"{k} {v:.1f}" for k, v in zip(labels + ["walk"], med)))
+        # the sequence kernel's first tokens: the embedding pass, 11 phases a
+        # layer, the split and the walk
+        sa = step_inputs(fw, 32, 0, tm, gen=4232)
+        dk.fused_sequence_decode(fw["emb"], fw["pe"], sa["ck"], sa["cv"], sa["mem_bias"], fw,
+                                 **skw)
+        torch.cuda.synchronize()
+        if lib.vct_small_stamps(stamps) != 0:
+            fail("vct_small_stamps failed")
+        per_tok = 2 + 11 * fw["stacked"]["wqkv"].shape[0]
+        ts = [stamps[i + 1] for i in range(int(stamps[0]))]
+        say("  sequence kernel at B=32, µs per token (block 0's stamps, tokens 0-"
+            f"{(len(ts) - 1) // per_tok - 1}): "
+            + ", ".join(f"{(ts[(j + 1) * per_tok] - ts[j * per_tok]) / 1e3:.1f}"
+                        for j in range((len(ts) - 1) // per_tok)))
     if not hasattr(lib, "vct_stack_stamps"):
         return
     nl = fw["stacked"]["wqkv"].shape[0]

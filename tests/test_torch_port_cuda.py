@@ -1278,9 +1278,10 @@ def test_greedy_modes_and_a_beam_of_one_give_the_same_tokens(cuda, b):
 @pytest.mark.cuda
 def test_small_plans_match_the_launcher(cuda):
     for entry, fn in (("vct_whole_step_plan", dk.whole_step_plan),
-                      ("vct_multi_step_plan", dk.multi_step_plan)):
+                      ("vct_multi_step_plan", dk.multi_step_plan),
+                      ("vct_sequence_decode_plan", dk.sequence_decode_plan)):
         for dt in (torch.float32, torch.bfloat16):
-            for b in (1, 7, 64, 65):
+            for b in (1, 7, 32, 33, 64, 65):
                 for e, heads, f in ((768, 8, 2048), (128, 4, 256), (96, 12, 256),
                                     (1280, 8, 2048), (768, 2, 2048), (768, 8, 2560)):
                     for v in (V_PAD, 1020):
@@ -1291,3 +1292,118 @@ def test_small_plans_match_the_launcher(cuda):
                                 plan = None
                             assert plan == _plan_or_none(entry, dk._DTYPE_CODE[dt], b, e, heads,
                                                          f, v, route, n=7), (entry, dt, b, e, f)
+
+
+# ---------------------------------------------------------------------------
+# fused_sequence_decode and fused_layer_step on the tensor-core token paths:
+# the sequence kernel in bfloat16 at 1-32 rows is the small-row kernel's
+# token in a loop, fused_layer_step the stack's launch at NL = 1, so both give
+# the per-token loop's and the stack's bits
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths", SMALL_WIDTHS)
+@pytest.mark.parametrize("b", [1, 7, 32])
+def test_sequence_decode_small_row_route(cuda, b, widths):
+    """The bf16 sequence kernel gives the per-token greedy loop's tokens bit
+    for bit: free running, with an end token that stops some rows (all at
+    B=1, so the kernel leaves its loop early), and with every row stopping at
+    step 1 (the pad fill). Two calls give the same bits; decode_multi_kernel
+    (route 0) stays reachable, and at this file's widths parts from the
+    chain only at near-ties."""
+    from vct_tpu_torch.decode_fast import _decode_loop
+
+    e, heads, f, _ = widths
+    assert dk.sequence_decode_plan(b, e, heads, f, V_PAD, torch.bfloat16).route == 1
+    fw, (_, _, _, ck, cv, mb) = _small_inputs(cuda, b, widths, 0, seed=70 + b + e)
+    kw = dict(max_len=30, start_id=101, pad_id=0)
+    free = _decode_loop(fw, ck, cv, mb, end_id=-1, single_kernel=True, **kw)
+    biased = dict(fw, bg=fw["bg"].clone())
+    biased["bg"][5] = 1e3
+    launches = dk.fused_sequence_decode.launches
+    for w, end_id in ((fw, -1), (fw, int(free[0, 3])), (biased, 5)):
+        base = _decode_loop(w, ck, cv, mb, end_id=end_id, single_kernel=True, **kw)
+        sargs = (w["emb"], w["pe"], ck, cv, mb, w)
+        got = [dk.fused_sequence_decode(*sargs, heads=heads, end_id=end_id, **kw)
+               for _ in range(2)]
+        old = dk._launch_sequence_decode(*sargs, heads=heads, end_id=end_id, _route=0, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], got[1]) and torch.equal(got[0], base), (end_id, got[0], base)
+        assert old.shape == (b, 30) and bool((old[:, 0] == 101).all())
+        if end_id == 5:
+            assert base.tolist() == old.tolist() == [[101, 5] + [0] * 28] * b
+            continue
+        if end_id >= 0 and b == 1:   # the only row is done: the pad fill from position 4
+            assert bool((base[0, 4:] == 0).all())
+        if e == E:
+            nl = ck.shape[0]
+            ks = torch.zeros((nl, 32, b, e), dtype=torch.bfloat16, device=cuda)
+            vs = torch.zeros_like(ks)
+            gaps = []
+            for i in range(29):
+                x = dk._embed_step(w["emb"], w["pe"], base[:, i], i, 0)
+                gaps.append(_gaps(dk._stack_reference(x, ks, vs, ck, cv, mb, w["stacked"], i,
+                                                      heads, 32), w))
+            gaps = torch.stack(gaps, dim=1)
+            _assert_chain(old[:, 1:], base[:, 1:], lambda r: gaps[r])
+    assert dk.fused_sequence_decode.launches == launches + 6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths", [STACK_WIDTHS[2], SMALL_WIDTHS[1]])
+@pytest.mark.parametrize("b", [1, 32, 64, 65, 256])
+def test_layer_step_takes_the_stack_routes(cuda, b, widths):
+    """fused_layer_step in bfloat16 is the stack's launch at NL = 1: the
+    small-row kernel at 1-64 rows, stack_step_kernel at 65-256. Each layer
+    equals fused_layers_step at NL = 1 bit for bit, twice the same bits; run
+    layer by layer (decode_fast.layers_step_per_layer, on the stack's layer
+    views) it equals the stack; decode_step_kernel (route 0) stays reachable
+    and within the bf16 tolerance of the plain version; an idx past the cache
+    is refused on every route."""
+    from vct_tpu_torch.decode_fast import layers_step_per_layer
+
+    e, heads, f, nl = widths
+    assert dk.stack_step_plan(b, e, heads, f, torch.bfloat16).route == (2 if b <= 64 else 1)
+    w, (x, kc, vc, ck, cv, mb) = _stack_inputs(cuda, b, e, heads, f, nl, idx=12,
+                                               seed=600 + b + e)
+    launches = dk.fused_layer_step.launches
+    for li in range(nl):
+        one = {k: v[li:li + 1] for k, v in w.items()}
+        layer = {k: v[li] for k, v in w.items()}
+        k1, v1 = kc[li:li + 1].clone(), vc[li:li + 1].clone()
+        want, _, _ = dk.fused_layers_step(x, k1, v1, ck[li:li + 1], cv[li:li + 1], mb, one, 12,
+                                          heads=heads)
+        runs = []
+        for _ in range(2):
+            k2, v2 = kc[li].clone(), vc[li].clone()
+            out, _, _ = dk.fused_layer_step(x, k2, v2, ck[li], cv[li], mb, layer, 12,
+                                            heads=heads)
+            runs.append((out, k2, v2))
+        k3, v3 = kc[li].clone(), vc[li].clone()
+        old = dk._launch_layer_step(x, k3, v3, ck[li], cv[li], mb, layer, 12, heads=heads,
+                                    _route=0)
+        k4, v4 = kc[li].clone(), vc[li].clone()
+        ref, _, _ = dk.fused_layer_step_reference(x, k4, v4, ck[li], cv[li], mb, layer, 12,
+                                                  heads=heads)
+        torch.cuda.synchronize()
+        for a, c in zip(runs[0], runs[1]):
+            assert torch.equal(a, c)
+        out, k2, v2 = runs[0]
+        assert torch.equal(out, want) and torch.equal(k2, k1[0]) and torch.equal(v2, v1[0])
+        for got, r in ((out, ref), (k2[12], k4[12]), (old, ref), (k3[12], k4[12])):
+            torch.testing.assert_close(got.float(), r.float(), **TOL[torch.bfloat16])
+    assert dk.fused_layer_step.launches == launches + 2 * nl
+    ks, vs, ks2, vs2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    stack, _, _ = dk.fused_layers_step(x, ks, vs, ck, cv, mb, w, 12, heads=heads)
+    per, _, _ = layers_step_per_layer(x, ks2, vs2, ck, cv, mb, w, 12, heads=heads)
+    torch.cuda.synchronize()
+    assert torch.equal(per, stack) and torch.equal(ks2, ks) and torch.equal(vs2, vs)
+    layer = {k: v[0] for k, v in w.items()}
+    for route in (-1, 0, 1, 2) if b <= 64 else (-1, 0, 1):
+        with pytest.raises(ValueError, match="no row"):
+            dk._launch_layer_step(x, kc[0].clone(), vc[0].clone(), ck[0], cv[0], mb, layer,
+                                  kc.shape[1], heads=heads, _route=route)
+    with pytest.raises(ValueError, match="no row"):
+        dk.fused_layer_step(x, kc[0].clone(), vc[0].clone(), ck[0], cv[0], mb, layer,
+                            kc.shape[1], heads=heads)

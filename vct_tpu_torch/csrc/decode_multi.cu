@@ -1,12 +1,13 @@
 // Several greedy tokens per launch for Hopper (sm_90a), bound through a plain
 // C interface (ctypes). Python side: vct_tpu_torch/ops/decode_kernels.py.
 //
-// decode_multi_kernel runs fused_sequence_decode (every dtype) and the
-// fused_multi_step windows that small_step.cu's plan (multi_step_plan) leaves
-// to it: float32, rows above 64, widths it refuses; vct_multi_step reaches it
-// by route 0 for same-run timing. In bfloat16 it sums in another order than
-// the small-row kernel, so the sequence mode's tokens may part from the
-// per-token loop's at near-ties.
+// decode_multi_kernel runs the fused_multi_step windows and the
+// fused_sequence_decode captions that small_step.cu's plans
+// (multi_step_plan, sequence_decode_plan) leave to it: float32, rows above
+// 64, widths they refuse; vct_multi_step and vct_sequence_decode reach it by
+// route 0 for same-run timing. In bfloat16 it sums in another order than the
+// small-row kernel, so its tokens may part from the per-token loop's at
+// near-ties.
 //
 // Replaces (vct_tpu/ops/pallas_decode.py):
 //   * fused_multi_step      (:1289, _multi_step_kernel :1144) - u tokens of a

@@ -2,12 +2,13 @@
 // interface (ctypes). Python side: vct_tpu_torch/ops/decode_kernels.py.
 //
 // decode_step_kernel is the CUDA-core route. In bfloat16 the tensor-core
-// kernels took its main work: small_step.cu (fused_whole_step and
-// fused_layers_step at 1-64 rows, launched through vct_whole_step /
-// vct_stack_step) and stack_step.cu (fused_layers_step at 65-2048 rows). It
-// still runs float32, fused_layer_step, and bfloat16 rows or widths outside
-// those kernels' plans (whole_step_plan, stack_step_plan name the rule by
-// ``why``), and stays reachable by route 0 for same-run timing.
+// kernels took its main work: small_step.cu (fused_whole_step,
+// fused_layers_step and fused_layer_step at 1-64 rows, launched through
+// vct_whole_step / vct_stack_step) and stack_step.cu (fused_layers_step and
+// fused_layer_step at 65-2048 rows). It still runs float32 and bfloat16 rows
+// or widths outside those kernels' plans (whole_step_plan, stack_step_plan
+// name the rule by ``why``), and stays reachable by route 0 for same-run
+// timing.
 //
 // Replaces (vct_tpu/ops/pallas_decode.py), on the routes above:
 //   * fused_layers_step   (:516, _layers_step_kernel :373 via _stack_layers :322)

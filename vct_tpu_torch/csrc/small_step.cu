@@ -1,19 +1,26 @@
 // The bfloat16 decode token at 1-64 rows on tensor cores for Hopper (sm_90a),
 // generator included, bound through a plain C interface (ctypes). Python
 // side: vct_tpu_torch/ops/decode_kernels.py (``fused_whole_step``,
-// ``fused_multi_step``, ``fused_layers_step`` at 64 rows and fewer;
-// ``whole_step_plan``, ``multi_step_plan``, ``stack_step_plan``).
+// ``fused_multi_step``, ``fused_sequence_decode``, ``fused_layers_step`` and
+// ``fused_layer_step`` at 64 rows and fewer; ``whole_step_plan``,
+// ``multi_step_plan``, ``sequence_decode_plan``, ``stack_step_plan``).
 //
 // Replaces (vct_tpu/ops/pallas_decode.py), in bfloat16 at 1-64 rows:
 //   * fused_whole_step (:581, _whole_step_kernel :397): small_step_kernel with
 //     the generator phase, one cooperative launch per token;
 //   * fused_multi_step (:1289, _multi_step_kernel :1144), window mode:
 //     small_multi_kernel, the same token in a loop of ``unroll`` tokens;
-//   * fused_layers_step (:516) at 64 rows and fewer: small_step_kernel without
-//     the generator, so that beam search at width 1 sums as greedy decode.
-// float32, the sequence mode of fused_multi_step (fused_sequence_decode),
-// fused_layer_step and shapes outside the plans keep decode_token
-// (decode_common.cuh), which stays reachable by route 0 for same-run timing.
+//   * fused_sequence_decode (:997, _sequence_decode_kernel :858), at 1-32
+//     rows: small_multi_kernel in sequence mode, the whole caption from the
+//     start token with each row's done flag inside;
+//   * fused_layers_step (:516) at 64 rows and fewer, and fused_layer_step
+//     (:211, _layer_step_kernel :155) as the stack at NL = 1:
+//     small_step_kernel without the generator, so that beam search at width 1
+//     and a decode run layer by layer sum as greedy decode.
+// Every greedy route at 1-64 rows (the per-token loop, windows, the sequence
+// kernel, a beam of 1, the layer-by-layer decode) thus gives the same tokens.
+// float32 and shapes outside the plans keep decode_token (decode_common.cuh),
+// which stays reachable by route 0 for same-run timing.
 //
 // What bounds it on an H100: bytes. At 64 rows and fewer a token is a chain
 // of matrix-vector products over 13.4 MB of weights a layer and the 47.2 MB
@@ -599,19 +606,33 @@ struct SmallMultiArgs {
   StepArgs s;          // x unused; idx unused (positions are i0 + j); gen = 1
   const bf16* emb;     // [n_emb, E]
   const bf16* pe;      // [>= i0 + n_tok, E]
-  const int* cur;      // [B] the window's first input tokens
-  int* tok_out;        // [B, out_ld]: the window's raw argmax chain
+  const int* cur;      // [B] the window's first input tokens (sequence mode: unused)
+  int* tok_out;        // window: [B, out_ld], the raw argmax chain; sequence:
+                       // [B, out_ld] from column 1, column 0 and the pad fill
+                       // written by the wrapper
   int n_emb, i0, n_tok, poison, pad_id, out_ld;
+  int seq;             // 1: the whole caption from start_id, done flags inside
+  int start_id, end_id;
 };
 
-// fused_multi_step's window: n_tok tokens from position i0, each token's
-// argmax fed into the next one's embedding without a further barrier
+// fused_multi_step's window (seq 0): n_tok tokens from position i0, each
+// token's argmax fed into the next one's embedding without a further
+// barrier. fused_sequence_decode (seq 1): the same loop from start_id at
+// position 0; a row's done flag is set once it emits end_id, and every block
+// computes the same flags from the same keys, so all leave the loop after
+// the token at which every row is done. The later positions keep the
+// wrapper's pad fill. The caches are the launch's own: token j writes row j
+// before it attends rows 0..j, so no row is read before it is written.
 __global__ void __launch_bounds__(NTHREADS, 1) small_multi_kernel(SmallMultiArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int cur_s[SS_MAX_ROWS];
+  __shared__ int done_s[SS_MAX_ROWS];
   cg::grid_group grid = cg::this_grid();
   const int B = a.s.B, E = a.s.E;
-  for (int b = threadIdx.x; b < B; b += NTHREADS) cur_s[b] = a.cur[b];
+  for (int b = threadIdx.x; b < B; b += NTHREADS) {
+    cur_s[b] = a.seq ? a.start_id : a.cur[b];
+    done_s[b] = 0;
+  }
   __syncthreads();
   small_stamp(true);
   EmbSrc e = {a.emb, a.pe, cur_s, a.n_emb, a.pad_id};
@@ -622,12 +643,25 @@ __global__ void __launch_bounds__(NTHREADS, 1) small_multi_kernel(SmallMultiArgs
     e.pe_row = a.pe + (size_t)(a.i0 + j) * E;
     small_token<true>(a.s, grid, smem, a.i0 + j, &e, keys, j + 1 < a.n_tok);
     // the keys of token j are complete: every block resolves the next input
+    int mine_done = 1;
     for (int b = threadIdx.x; b < B; b += NTHREADS) {
       const int nxt = key_index(__ldcg(keys + b));
       cur_s[b] = nxt;
-      if (blockIdx.x == 0) a.tok_out[(size_t)b * a.out_ld + j] = a.poison ? -1 : nxt;
+      if (a.seq) {
+        done_s[b] |= nxt == a.end_id;
+        mine_done &= done_s[b];
+      }
+      if (blockIdx.x == 0)
+        a.tok_out[(size_t)b * a.out_ld + (a.seq ? j + 1 : j)] = a.poison ? -1 : nxt;
     }
-    __syncthreads();
+    // also publishes cur_s; the same value in every thread of every block
+    const int all_done = __syncthreads_and(mine_done);
+    if (a.seq && all_done) {
+      // the token's last product asked for the next token's first slice:
+      // let it land before the block leaves
+      cp_async_wait<0>();
+      break;
+    }
   }
 }
 
@@ -644,8 +678,12 @@ __global__ void __launch_bounds__(NTHREADS, 1) small_multi_kernel(SmallMultiArgs
 // 2 float32; 3 rows outside [1, SS_MAX_ROWS]; 4 a width (E or F) that is not a
 // multiple of 64; 5 E above SK_EMAX; 6 a head width that is not a multiple of
 // 8 or is above SK_DMAX; 7 F above SS_MAX_K (one unit's slice outgrows a
-// slot). False for what neither route takes.
+// slot). False for what neither route takes; the sequence kernel takes
+// neither past SEQ_MAX_B rows.
 // ---------------------------------------------------------------------------
+
+// fused_sequence_decode's batch rule, kept from the reference: one batch tile
+constexpr int SEQ_MAX_B = 32;
 
 struct SmallPlan {
   int route, bm, bn, bk, stages, smem, why;
@@ -670,6 +708,36 @@ static bool small_plan(int dtype, int B, int E, int H, int F, int V, int route, 
   return true;
 }
 
+// decode_multi_kernel's shared memory: decode_step_kernel's, then the rows'
+// token ids and done flags
+static int multi_smem0(int B, int E, int F) {
+  return (int)(step_smem_bytes(E, F) + sizeof(float) * (((2 * B + 3) / 4) * 4));
+}
+
+static int plan_out(const SmallPlan& p, int* out) {
+  const int vals[7] = {p.route, p.bm, p.bn, p.bk, p.stages, p.smem, p.why};
+  for (int i = 0; i < 7; ++i) out[i] = vals[i];
+  return 0;
+}
+
+// small_multi_kernel: tensors as vct_decode_multi takes them (keys [n_tok,
+// B]); the caller has checked the plan
+static int launch_small_multi(void* const* t, int B, int E, int H, int F, int NL, int L, int Tm,
+                              int V, int l_view, int n_emb, int i0, int n_tok, int poison,
+                              int pad_id, int out_ld, int seq, int start_id, int end_id,
+                              void* stream) {
+  if (Tm > LMAX || l_view > LMAX) return (int)cudaErrorInvalidValue;
+  SmallMultiArgs a;
+  fill_step_args(a.s, t);
+  a.s.B = B; a.s.E = E; a.s.H = H; a.s.F = F; a.s.NL = NL; a.s.L = L; a.s.Tm = Tm;
+  a.s.V = V; a.s.idx = 0; a.s.l_view = l_view; a.s.gen = 1;
+  a.emb = (const bf16*)t[31]; a.pe = (const bf16*)t[32]; a.cur = (const int*)t[33];
+  a.tok_out = (int*)t[34];
+  a.n_emb = n_emb; a.i0 = i0; a.n_tok = n_tok; a.poison = poison; a.pad_id = pad_id;
+  a.out_ld = out_ld; a.seq = seq; a.start_id = start_id; a.end_id = end_id;
+  return (int)launch_cooperative(small_multi_kernel, a, (size_t)SS_SMEM, (cudaStream_t)stream, 1);
+}
+
 extern "C" {
 
 int vct_decode_step(int dtype, void* const* t, int B, int E, int H, int F, int NL, int L,
@@ -684,18 +752,23 @@ int vct_whole_step_plan(int dtype, int B, int E, int H, int F, int V, int route,
   SmallPlan p;
   if (!small_plan(dtype, B, E, H, F, V, route, (int)step_smem_bytes(E, F), &p))
     return (int)cudaErrorInvalidValue;
-  const int vals[7] = {p.route, p.bm, p.bn, p.bk, p.stages, p.smem, p.why};
-  for (int i = 0; i < 7; ++i) out[i] = vals[i];
-  return 0;
+  return plan_out(p, out);
 }
 
 int vct_multi_step_plan(int dtype, int B, int E, int H, int F, int V, int route, int* out) {
   SmallPlan p;
-  const int smem0 = (int)(step_smem_bytes(E, F) + sizeof(float) * (((2 * B + 3) / 4) * 4));
-  if (!small_plan(dtype, B, E, H, F, V, route, smem0, &p)) return (int)cudaErrorInvalidValue;
-  const int vals[7] = {p.route, p.bm, p.bn, p.bk, p.stages, p.smem, p.why};
-  for (int i = 0; i < 7; ++i) out[i] = vals[i];
-  return 0;
+  if (!small_plan(dtype, B, E, H, F, V, route, multi_smem0(B, E, F), &p))
+    return (int)cudaErrorInvalidValue;
+  return plan_out(p, out);
+}
+
+// the multi-step rule at 1 to SEQ_MAX_B rows; route 0 is decode_multi_kernel
+// in sequence mode
+int vct_sequence_decode_plan(int dtype, int B, int E, int H, int F, int V, int route, int* out) {
+  SmallPlan p;
+  if (B > SEQ_MAX_B || !small_plan(dtype, B, E, H, F, V, route, multi_smem0(B, E, F), &p))
+    return (int)cudaErrorInvalidValue;
+  return plan_out(p, out);
 }
 
 // small_step_kernel: tensors as vct_decode_step takes them; gen 1 writes
@@ -735,16 +808,27 @@ int vct_multi_step(int dtype, void* const* t, int B, int E, int H, int F, int NL
   if (p.route == 0)
     return vct_decode_multi(dtype, t, B, E, H, F, NL, L, Tm, V, l_view, n_emb, i0, n_tok, 0,
                             poison, 0, -1, pad_id, out_ld, stream);
-  if (Tm > LMAX || l_view > LMAX) return (int)cudaErrorInvalidValue;
-  SmallMultiArgs a;
-  fill_step_args(a.s, t);
-  a.s.B = B; a.s.E = E; a.s.H = H; a.s.F = F; a.s.NL = NL; a.s.L = L; a.s.Tm = Tm;
-  a.s.V = V; a.s.idx = 0; a.s.l_view = l_view; a.s.gen = 1;
-  a.emb = (const bf16*)t[31]; a.pe = (const bf16*)t[32]; a.cur = (const int*)t[33];
-  a.tok_out = (int*)t[34];
-  a.n_emb = n_emb; a.i0 = i0; a.n_tok = n_tok; a.poison = poison; a.pad_id = pad_id;
-  a.out_ld = out_ld;
-  return (int)launch_cooperative(small_multi_kernel, a, (size_t)SS_SMEM, (cudaStream_t)stream, 1);
+  return launch_small_multi(t, B, E, H, F, NL, L, Tm, V, l_view, n_emb, i0, n_tok, poison,
+                            pad_id, out_ld, 0, 0, -1, stream);
+}
+
+// fused_sequence_decode: tensors as vct_decode_multi takes them (keys
+// [n_tok, B], cur unused, tok_out [B, out_ld] with column 0 and the pad fill
+// written); n_tok tokens from position 0; route -1 by the plan, 0
+// decode_multi_kernel, 1 small_multi_kernel. scratch as vct_whole_step's.
+int vct_sequence_decode(int dtype, void* const* t, int B, int E, int H, int F, int NL, int L,
+                        int Tm, int V, int l_view, int n_emb, int n_tok, int start_id,
+                        int end_id, int pad_id, int out_ld, int route, void* stream) {
+  SmallPlan p;
+  // tokens go to columns 1 .. n_tok
+  if (B > SEQ_MAX_B || !small_plan(dtype, B, E, H, F, V, route, 0, &p) || n_tok < 1 ||
+      n_tok >= out_ld)
+    return (int)cudaErrorInvalidValue;
+  if (p.route == 0)
+    return vct_decode_multi(dtype, t, B, E, H, F, NL, L, Tm, V, l_view, n_emb, 0, n_tok, 1, 0,
+                            start_id, end_id, pad_id, out_ld, stream);
+  return launch_small_multi(t, B, E, H, F, NL, L, Tm, V, l_view, n_emb, 0, n_tok, 0, pad_id,
+                            out_ld, 1, start_id, end_id, stream);
 }
 
 #ifdef VCT_SMALL_STAMPS

@@ -1,12 +1,13 @@
 // The bfloat16 decoder-stack step on tensor cores for Hopper (sm_90a), bound
 // through a plain C interface (ctypes). Python side:
 // vct_tpu_torch/ops/decode_kernels.py (``fused_layers_step``,
-// ``stack_step_plan``).
+// ``fused_layer_step``, ``stack_step_plan``).
 //
 // Replaces (vct_tpu/ops/pallas_decode.py): fused_layers_step (:516,
-// _layers_step_kernel :373 via _stack_layers :322) in bfloat16, where
-// decode_step.cu's decode_step_kernel served it with products on the CUDA
-// cores. float32, and any shape past the plan's limits, keep that kernel
+// _layers_step_kernel :373 via _stack_layers :322) in bfloat16, and
+// fused_layer_step (:211, _layer_step_kernel :155) as the stack at NL = 1,
+// where decode_step.cu's decode_step_kernel served them with products on the
+// CUDA cores. float32, and any shape past the plan's limits, keep that kernel
 // (route 0), which also stays reachable for same-run timing.
 //
 // What bounds it on an H100: one token through NL = 3 layers at the MSVD
@@ -295,12 +296,13 @@ __global__ void __launch_bounds__(NTHREADS, 1) stack_step_kernel(StepArgs a) {
 // dynamic shared memory, why}. Route 1 is stack_step_kernel, route 2 the
 // small-row kernel (small_step.cu without the generator: units of an m16 row
 // tile x 8 columns, A chunks of 256 k), route 0 decode_step_kernel. Route -1
-// (what fused_layers_step passes) takes route 2 for bfloat16 at 1-64 rows and
-// route 1 at 65-2048 when every limit below holds, and says by ``why`` which
-// did not: 0 route 1 or 2 by the rule; 1 route 0 asked for; 2 float32; 3 rows
-// above STACK_MAX_ROWS; 4 a width (E or F) that is not a multiple of 64; 5 E
-// above SK_EMAX; 6 a head width that is not a multiple of 8 or is above
-// SK_DMAX; 7 at 64 rows and fewer, F above SS_MAX_K. Route 1 asked for runs at
+// (what fused_layers_step and fused_layer_step pass) takes route 2 for
+// bfloat16 at 1-64 rows and route 1 at 65-2048 when every limit below holds,
+// and says by ``why`` which did not: 0 route 1 or 2 by the rule; 1 route 0
+// asked for; 2 float32; 3 rows above STACK_MAX_ROWS; 4 a width (E or F) that
+// is not a multiple of 64; 5 E above SK_EMAX; 6 a head width that is not a
+// multiple of 8 or is above SK_DMAX; 7 at 64 rows and fewer, F above
+// SS_MAX_K. Route 1 asked for runs at
 // 1-2048 rows, route 2 at 1-64, each within its limits.
 // ---------------------------------------------------------------------------
 
@@ -354,10 +356,11 @@ int vct_stack_step_plan(int dtype, int B, int E, int H, int F, int route, int* o
   return 0;
 }
 
-// fused_layers_step: tensors as vct_decode_step takes them (the generator's
-// null); route -1 by the plan, 0 decode_step_kernel, 1 stack_step_kernel, 2
-// the small-row kernel. scratch: float32 [B * (5E + F)], of which routes 1
-// and 2 use B * (18E + 2F) bytes.
+// fused_layers_step, and fused_layer_step at NL = 1: tensors as
+// vct_decode_step takes them (the generator's null); route -1 by the plan,
+// 0 decode_step_kernel, 1 stack_step_kernel, 2 the small-row kernel.
+// scratch: float32 [B * (5E + F)], of which routes 1 and 2 use B * (18E +
+// 2F) bytes.
 int vct_stack_step(int dtype, void* const* t, int B, int E, int H, int F, int NL, int L, int Tm,
                    int idx, int l_view, int route, void* stream) {
   StackPlan p;

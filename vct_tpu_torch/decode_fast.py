@@ -128,8 +128,12 @@ def layers_step_per_layer(x, ks, vs, cks, cvs, mem_bias, stacked: dict, idx: int
     """The decoder stack's step as one ``fused_layer_step`` launch per layer
     -> (x_out, ks, vs): what ``fused_layers_step`` computes over the whole
     cache window, layer by layer, so that a stack that disagrees can be
-    narrowed to the layer at fault. No decode entry point takes this route
-    (the reference has none for its kernel either); checks drive it."""
+    narrowed to the layer at fault. Each launch is the stack's at NL = 1 by
+    the same plan, so on the card the result has ``fused_layers_step``'s
+    bits (at 1-64 rows in bfloat16 the per-token greedy loop's). The layer
+    views ``ks[li]`` are passed as they are, without a copy. No decode entry
+    point takes this route (the reference has none for its kernel either);
+    checks drive it."""
     for li in range(ks.shape[0]):
         x, _, _ = fused_layer_step(x, ks[li], vs[li], cks[li], cvs[li], mem_bias,
                                    {k: w[li] for k, w in stacked.items()}, idx, heads=heads)

@@ -104,6 +104,10 @@ def load_library() -> ctypes.CDLL:
     lib.vct_multi_step_plan.restype = _I
     lib.vct_decode_multi.argtypes = [_I, _P] + [_I] * 18 + [_P]
     lib.vct_decode_multi.restype = _I
+    lib.vct_sequence_decode.argtypes = [_I, _P] + [_I] * 16 + [_P]
+    lib.vct_sequence_decode.restype = _I
+    lib.vct_sequence_decode_plan.argtypes = [_I] * 7 + [_IP]
+    lib.vct_sequence_decode_plan.restype = _I
     lib.vct_gen_topk_blocks.argtypes = [_I]
     lib.vct_gen_topk_blocks.restype = _I
     lib.vct_gen_topk.argtypes = [_I] + [_P] * 12 + [_I] * 5 + [_P]

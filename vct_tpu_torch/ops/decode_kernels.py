@@ -18,15 +18,18 @@ Port of the kernels in ``vct_tpu/ops/pallas_decode.py``:
   vocab projection, per-row top-k (lowest id wins ties) and logsumexp
   without storing logits: beam search's candidates;
 * ``fused_layer_step`` (``pallas_decode.py:211``) — one decoder layer's step
-  on un-stacked weights and [L, B, E] caches;
+  on un-stacked weights and [L, B, E] caches: ``fused_layers_step``'s launch
+  at NL = 1 by the same plan, so a decode run layer by layer gives the
+  stack's bits;
 * ``fused_multi_step`` (``pallas_decode.py:1289``) — ``unroll`` greedy tokens
   per launch, embedding and argmax feedback inside; tokens are -1 when the
   window reaches past ``l_view``. In bfloat16 at 1-64 rows the small-row
   kernel's token in a loop (``multi_step_plan``), so a window gives the
   per-token loop's tokens;
 * ``fused_sequence_decode`` (``pallas_decode.py:997``) — the whole greedy
-  caption in one launch (B <= 32), on ``decode_multi_kernel``: its sums run
-  in another order than the per-token loop's in bfloat16.
+  caption in one launch (B <= 32). In bfloat16 the small-row kernel's token
+  in a loop with the done flags inside (``sequence_decode_plan``), so it
+  gives the per-token loop's tokens.
 
 The public functions keep the reference's argument layout: caches
 [NL, L, B, E], cross K/V [NL, Tm, B, E], memory bias [B, Tm] float32 (or
@@ -399,13 +402,14 @@ def stack_step_plan(b: int, e: int, heads: int, f: int, dtype, route: int = -1) 
 
 class SmallPlan(NamedTuple):
     """How ``csrc/small_step.cu`` launches ``fused_whole_step``
-    (``whole_step_plan``) or a window of ``fused_multi_step``
-    (``multi_step_plan``), field for field what ``vct_whole_step_plan`` /
-    ``vct_multi_step_plan`` report. ``route`` 1 is the small-row tensor-core
-    kernel: 1 to ``SMALL_MAX_ROWS`` rows padded to m16 tiles of ``rows``,
-    products in units of ``cols`` output columns over the whole K, the A
-    operand in chunks of ``kstep`` through ``stages`` ring stages, the
-    generator inside. ``route`` 0 is the kernel it replaced
+    (``whole_step_plan``), a window of ``fused_multi_step``
+    (``multi_step_plan``) or ``fused_sequence_decode``
+    (``sequence_decode_plan``), field for field what ``vct_whole_step_plan``
+    / ``vct_multi_step_plan`` / ``vct_sequence_decode_plan`` report.
+    ``route`` 1 is the small-row tensor-core kernel: 1 to ``SMALL_MAX_ROWS``
+    rows padded to m16 tiles of ``rows``, products in units of ``cols``
+    output columns over the whole K, the A operand in chunks of ``kstep``
+    through ``stages`` ring stages, the generator inside. ``route`` 0 is the kernel it replaced
     (``decode_step_kernel`` / ``decode_multi_kernel``: units of ``rows`` x
     ``cols`` on the CUDA cores). ``why`` is the rule that decided, a key of
     ``SMALL_WHY``."""
@@ -457,15 +461,32 @@ def whole_step_plan(b: int, e: int, heads: int, f: int, v: int, dtype,
     return _small_plan(b, e, heads, f, v, dtype, route, _step_smem(e, f))
 
 
+def _multi_smem(b: int, e: int, f: int) -> int:
+    """decode_multi_kernel's shared memory: decode_step_kernel's, then the
+    rows' token ids and done flags."""
+    return _step_smem(e, f) + 4 * ((2 * b + 3) // 4 * 4)
+
+
 def multi_step_plan(b: int, e: int, heads: int, f: int, v: int, dtype,
                     route: int = -1) -> SmallPlan:
     """The launch plan of a ``fused_multi_step`` window, as the C launcher
     forms it: the rule of ``whole_step_plan`` (the same token path in a loop,
     at the same 1 to ``SMALL_MAX_ROWS`` rows); route 0 is
     ``decode_multi_kernel``, whose shared memory adds the rows' token ids and
-    done flags. ``fused_sequence_decode`` keeps ``decode_multi_kernel``."""
-    return _small_plan(b, e, heads, f, v, dtype, route,
-                       _step_smem(e, f) + 4 * ((2 * b + 3) // 4 * 4))
+    done flags."""
+    return _small_plan(b, e, heads, f, v, dtype, route, _multi_smem(b, e, f))
+
+
+def sequence_decode_plan(b: int, e: int, heads: int, f: int, v: int, dtype,
+                         route: int = -1) -> SmallPlan:
+    """The launch plan of ``fused_sequence_decode``, as the C launcher
+    (``vct_sequence_decode_plan``) forms it: the rule of ``multi_step_plan``
+    (the same token loop, its done flags inside) at 1 to ``SEQUENCE_MAX_B``
+    rows; route 0 is ``decode_multi_kernel`` in sequence mode. Raises past
+    ``SEQUENCE_MAX_B`` rows, where neither route runs."""
+    if b > SEQUENCE_MAX_B:
+        raise ValueError(f"sequence kernel takes B <= {SEQUENCE_MAX_B}, got {b}")
+    return _small_plan(b, e, heads, f, v, dtype, route, _multi_smem(b, e, f))
 
 
 def _launch_step(x, k_cache, v_cache, ck, cv, mem_bias, stacked, idx, heads, l_view,
@@ -515,9 +536,11 @@ def _launch_multi(cur, k_cache, v_cache, ck, cv, mem_bias, emb, pe, weights, *, 
                   route: int = -1):
     """One launch of ``n_tok`` greedy tokens from position ``i0``: a window's
     raw argmax chain into ``tok_out`` [B, n_tok] (``vct_multi_step``:
-    ``route`` -1 by ``multi_step_plan``, 0 ``decode_multi_kernel``, 1 the
-    small-row kernel of csrc/small_step.cu), or (``seq``) the whole caption
-    into ``tok_out`` [B, max_len] (``decode_multi_kernel``)."""
+    ``route`` -1 by ``multi_step_plan``), or (``seq``, ``i0`` 0) the whole
+    caption into ``tok_out`` [B, max_len] from column 1
+    (``vct_sequence_decode``: ``route`` -1 by ``sequence_decode_plan``).
+    Route 0 is ``decode_multi_kernel``, 1 the small-row kernel of
+    csrc/small_step.cu."""
     from vct_tpu_torch.ops._build import load_library
 
     dt, dev = ck.dtype, ck.device
@@ -541,16 +564,16 @@ def _launch_multi(cur, k_cache, v_cache, ck, cv, mem_bias, emb, pe, weights, *, 
     lib = load_library()
     with torch.cuda.device(dev):
         if seq:
-            err = lib.vct_decode_multi(
+            err = lib.vct_sequence_decode(
                 _DTYPE_CODE[dt], ctypes.cast(ptrs, ctypes.c_void_p), b, e, heads, f, nl, big_l,
-                tm, v, l, n_emb, int(i0), int(n_tok), 1, int(poison), int(start_id),
-                int(end_id), int(pad_id), tok_out.shape[1], _stream(dev))
+                tm, v, l, n_emb, int(n_tok), int(start_id), int(end_id), int(pad_id),
+                tok_out.shape[1], int(route), _stream(dev))
         else:
             err = lib.vct_multi_step(
                 _DTYPE_CODE[dt], ctypes.cast(ptrs, ctypes.c_void_p), b, e, heads, f, nl, big_l,
                 tm, v, l, n_emb, int(i0), int(n_tok), int(poison), int(pad_id),
                 tok_out.shape[1], int(route), _stream(dev))
-    _raise_on(err, "decode_multi kernel" if seq else "multi_step kernel")
+    _raise_on(err, "sequence_decode kernel" if seq else "multi_step kernel")
 
 
 # ---------------------------------------------------------------------------
@@ -816,15 +839,35 @@ def fused_layer_step(x, k_cache, v_cache, ck, cv, mem_bias, weights, idx: int, *
     """One decoder layer's decode step -> (x_out [B, E], k_cache, v_cache with
     row ``idx`` written). Caches [L, B, E], cross K/V [Tm, B, E], ``mem_bias``
     [B, Tm] float32 or None, ``weights`` one layer's un-stacked set (wqkv
-    [E, 3E], ..., n3b [E]); the whole cache is the window."""
+    [E, 3E], ..., n3b [E]); the whole cache is the window, so ``idx`` must be
+    one of its rows (0 <= idx < L): either version raises otherwise. On the
+    card it is ``fused_layers_step``'s launch at NL = 1, by the same plan
+    (``stack_step_plan``)."""
+    _check_layer_idx(idx, k_cache)
     if not _on_cuda(x, "fused_layer_step"):
         return fused_layer_step_reference(x, k_cache, v_cache, ck, cv, mem_bias, weights,
                                           idx, heads=heads)
-    out = _launch_step(x, k_cache.unsqueeze(0), v_cache.unsqueeze(0), ck.unsqueeze(0),
-                       cv.unsqueeze(0), mem_bias, _as_stack(weights), idx, heads, None, None,
-                       route=0)
+    out = _launch_layer_step(x, k_cache, v_cache, ck, cv, mem_bias, weights, idx, heads=heads)
     fused_layer_step.launches += 1
     return out, k_cache, v_cache
+
+
+def _check_layer_idx(idx: int, k_cache) -> None:
+    if not 0 <= idx < k_cache.shape[0]:
+        raise ValueError(f"idx {idx} is no row of the {k_cache.shape[0]}-row cache")
+
+
+def _launch_layer_step(x, k_cache, v_cache, ck, cv, mem_bias, weights, idx: int, *,
+                       heads: int, _route: int = -1):
+    """``fused_layer_step``'s launch -> x_out: the stack's launch at NL = 1
+    over views of one layer's tensors (no copy). ``_route`` -1 leaves the
+    choice to the launcher's plan, as the wrapper does; only checks set it,
+    to time or test ``decode_step_kernel`` (0), ``stack_step_kernel`` (1) or
+    the small-row kernel (2) on bfloat16 inputs."""
+    _check_layer_idx(idx, k_cache)
+    return _launch_step(x, k_cache.unsqueeze(0), v_cache.unsqueeze(0), ck.unsqueeze(0),
+                        cv.unsqueeze(0), mem_bias, _as_stack(weights), idx, heads, None, None,
+                        route=_route)
 
 
 def fused_multi_step(cur, k_cache, v_cache, ck, cv, mem_bias, emb, pe, weights, w_idx: int,
@@ -862,12 +905,14 @@ def fused_multi_step(cur, k_cache, v_cache, ck, cv, mem_bias, emb, pe, weights, 
 def fused_sequence_decode(emb, pe, ck, cv, mem_bias, weights, *, heads: int, max_len: int,
                           start_id: int, end_id: int, pad_id: int = 0) -> torch.Tensor:
     """The whole greedy generation in one launch -> tokens [B, max_len] int32,
-    B <= ``SEQUENCE_MAX_B``. Same tokens as the per-token loop: once every
-    row has emitted ``end_id`` the remaining positions are ``pad_id`` (the
-    kernel leaves its token loop there). The self-attention caches are
-    scratch of the launch: a token attends only rows already written, so
-    they are left as allocated (the reference zeroes them first)."""
-    nl, _, b, e = ck.shape
+    B <= ``SEQUENCE_MAX_B``. Once every row has emitted ``end_id`` the
+    remaining positions are ``pad_id`` (the kernel leaves its token loop
+    there). In bfloat16 within ``sequence_decode_plan``'s rule it runs the
+    small-row kernel's token, so it gives the per-token loop's tokens bit for
+    bit. The self-attention caches are scratch of the launch: a token attends
+    only rows already written, so they are left as allocated (the reference
+    zeroes them first)."""
+    b = ck.shape[2]
     if b > SEQUENCE_MAX_B:
         raise ValueError(f"sequence kernel takes B <= {SEQUENCE_MAX_B}, got {b}")
     if max_len < 2:
@@ -877,6 +922,20 @@ def fused_sequence_decode(emb, pe, ck, cv, mem_bias, weights, *, heads: int, max
                                                heads=heads, max_len=max_len,
                                                start_id=start_id, end_id=end_id,
                                                pad_id=pad_id)
+    tokens = _launch_sequence_decode(emb, pe, ck, cv, mem_bias, weights, heads=heads,
+                                     max_len=max_len, start_id=start_id, end_id=end_id,
+                                     pad_id=pad_id)
+    fused_sequence_decode.launches += 1
+    return tokens
+
+
+def _launch_sequence_decode(emb, pe, ck, cv, mem_bias, weights, *, heads: int, max_len: int,
+                            start_id: int, end_id: int, pad_id: int = 0, _route: int = -1):
+    """``fused_sequence_decode``'s launch -> tokens. ``_route`` -1 leaves the
+    choice to the launcher's plan (``sequence_decode_plan``), as the wrapper
+    does; only checks set it, to time or test ``decode_multi_kernel`` (0) or
+    the small-row kernel (1)."""
+    nl, _, b, e = ck.shape
     l_pad = _round_up8(max_len)
     ks = torch.empty((nl, l_pad, b, e), dtype=ck.dtype, device=ck.device)
     vs = torch.empty_like(ks)
@@ -884,8 +943,8 @@ def fused_sequence_decode(emb, pe, ck, cv, mem_bias, weights, *, heads: int, max
     tokens[:, 0] = start_id
     _launch_multi(None, ks, vs, ck, cv, mem_bias, emb, pe, weights, heads=heads,
                   l_view=l_pad, i0=0, n_tok=max_len - 1, seq=True, poison=False,
-                  tok_out=tokens, start_id=start_id, end_id=end_id, pad_id=pad_id)
-    fused_sequence_decode.launches += 1
+                  tok_out=tokens, start_id=start_id, end_id=end_id, pad_id=pad_id,
+                  route=_route)
     return tokens
 
 
