@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training and evaluation paths once on one
-CUDA card.
+"""Drive the PyTorch port's serving, training, evaluation and video paths
+once on one CUDA card.
 
     python3 chip_smoke.py                  every phase below
     python3 chip_smoke.py --profile-train  build, then a torch.profiler
@@ -170,6 +170,26 @@ Phases, each of which must pass:
               F.scaled_dot_product_attention with the same mask (timed only,
               the port never calls it); ms per long train step with the
               attention kernels on and off
+ 17. video    a seeded ViT-B/32 at full width (OpenAI keys, .pt) and seeded
+              .avi files: the tower's features on the card against the CPU
+              in float32; vct_tpu_torch.cli.predict's main -v (uni_12) on
+              phase 4's checkpoint: fused_whole_step once per generated
+              token, the tokens against the module path on the tower's
+              features; --beam 4: fused_layers_step and
+              fused_norm_generator_topk once per beam token; --vis_attn:
+              predict.attn [29, layers, 1, 13] from the module path (and the
+              heatmap where matplotlib is installed); the server with
+              --clip_weights answers 8 concurrent /v1/caption_video, each
+              batch against the module path; tower and request ms
+ 18. cross-train  a seeded full-width CLIP text tower (.pt) and a synthetic
+              BPE vocab: configs/msvd.json with train.task cross through
+              vct_tpu_torch.cli.train's main (20 train steps, validation,
+              eval decode, checkpoint): every loss finite, the total falls,
+              the three loss kernels once per train step; step 0's cap_loss
+              and match_loss on the card against the CPU (dropout off) in
+              float32 and bfloat16; ms per cross train step; a Trainer with
+              caption_decoder.univl importing a seeded UniVL decoder at the
+              MSVD widths, each weight equal to its source
 
 Times: every row of the ``kernels`` line names its ``timer``. ``cuda_events``
 is ``cuda_time``, CUDA events around a Python loop of calls. ``graph_replay``
@@ -191,12 +211,15 @@ run on the same inputs by the same timer. ``cold_weight_ms`` replays the
 generator kernel on two copies of the weight in turn (94 MB against 50 MB of
 L2), so that no call finds its weight left in L2 by the call before.
 
-Launch counts are set to 0 just before phases 4, 5, 7, 9, 10, 13 and 14 and
-read just after each: the server must have launched the whole-step kernel,
+Launch counts are set to 0 just before phases 4, 5, 7, 9, 10, 13, 14, 17 and
+18 (each predict run and the video server in 17) and read just after each:
+the server must have launched the whole-step kernel,
 the B=128 decode the other two decode kernels, training the three loss
 kernels, the beam eval the stack and top-k kernels once per beam token, the
 multi phase the other three, the long training the trainable attention kernel
-forward and backward, the long eval the inference attention kernel. The line
+forward and backward, the long eval the inference attention kernel, the video
+path the whole step (greedy, served) and the stack and top-k (beam), cross
+training the three loss kernels. The line
 before the last is a JSON object with one entry per kernel; the last line is
 {"ok": true, "device": {...}}, printed only when every phase passed. Any
 failure exits 1 before it.
@@ -866,16 +889,16 @@ def time_kernels(fw, heads, tm):
 # ---------------------------------------------------------------------------
 
 
-def check_against_module(model, feats, masks, got, what):
+def check_against_module(model, feats, masks, got, what, near_tie=NEAR_TIE_MODULE):
     from vct_tpu_torch.decode import first_mismatch_gaps, greedy_generate
 
     want, _ = greedy_generate(model, feats, masks, max_len=got.shape[1],
                               start_id=101, end_id=102)
     mism = first_mismatch_gaps(model, feats, masks, got, want)
     for row, pos, gap in mism:
-        if gap >= NEAR_TIE_MODULE:
+        if gap >= near_tie:
             fail(f"{what}: row {row} parts from the module path at position {pos} "
-                 f"with top-2 gap {gap} >= {NEAR_TIE_MODULE}")
+                 f"with top-2 gap {gap} >= {near_tie}")
     say(f"  {what}: {len(got) - len(mism)}/{len(got)} rows equal to the module path, "
         f"{len(mism)} part at near-ties (max gap "
         f"{max([g for _, _, g in mism], default=0.0):.4g})")
@@ -2704,10 +2727,20 @@ def make_trainer(repo, root, vocab, dev, **tpu):
 
 
 def first_batch(trainer):
+    """The first train batch on the trainer's device, with its text features
+    when the task has a text encoder."""
     from vct_tpu_torch.train.step import batch_to_arrays
 
     trainer.loaders["train"].set_epoch(0)
-    return batch_to_arrays(next(iter(trainer.loaders["train"])), trainer.device)
+    return batch_to_arrays(next(iter(trainer.loaders["train"])), trainer.device,
+                           trainer.text_encoder)
+
+
+def caption_grads(model):
+    """name -> gradient of every parameter the caption loss reaches: all but
+    the matching head, which configs/msvd.json builds and the caption task
+    leaves out."""
+    return {k: p.grad for k, p in model.named_parameters() if not k.startswith("matching.")}
 
 
 def check_step0_routes(repo, root, vocab, dev):
@@ -2725,7 +2758,7 @@ def check_step0_routes(repo, root, vocab, dev):
         loss.backward()
         torch.cuda.synchronize()
         losses.append(float(loss.detach()))
-        grads.append({k: p.grad for k, p in tr.model.named_parameters()})
+        grads.append(caption_grads(tr.model))
     if abs(losses[0] - losses[1]) > 1e-3 * abs(losses[1]):
         fail(f"step 0: loss {losses[0]} on the kernel route, {losses[1]} on the chunked route")
     worst = 0.0
@@ -3378,7 +3411,7 @@ def check_long_step0_routes(repo, root, vocab, dev):
         torch.cuda.synchronize()
         counts.append(attention_counts())
         losses.append(float(loss.detach()))
-        grads.append({k: p.grad for k, p in tr.model.named_parameters()})
+        grads.append(caption_grads(tr.model))
     if counts[0] != {"fused_attention": 0, "fused_attention_trainable": 7,
                      "fused_attention_trainable_backward": 7} or any(counts[1].values()):
         fail(f"long step 0: attention launches {counts[0]} with the kernels on, "
@@ -3507,7 +3540,7 @@ def check_encoders(repo, vocab, dev):
             if got != (want if kernels else (0, 0)) or counts["fused_attention"]:
                 fail(f"encoders {label}: attention launches {counts} with kernels={kernels}")
             outs.append((float(loss.detach()),
-                         {k: p.grad for k, p in model.named_parameters()}))
+                         caption_grads(model)))
         if not math.isfinite(outs[0][0]) or abs(outs[0][0] - outs[1][0]) > 1e-3 * abs(outs[1][0]):
             fail(f"encoders {label}: loss {outs[0][0]} on the kernel route, {outs[1][0]} on "
                  f"the math route")
@@ -3737,6 +3770,461 @@ def time_long_train_steps(repo, root, vocab, dev, card):
     return report
 
 
+# ---------------------------------------------------------------------------
+# phases 17-18: the single-video path and the cross task
+# ---------------------------------------------------------------------------
+# The CLIP towers run in float32 on the card and on the CPU with TF32 off:
+# the two sum 768- and 3072-term products in other orders over 12 layers, a
+# few float32 units on features of magnitude ~1. The bound is the reference's
+# own tower tolerance (tests/test_clip.py).
+TOWER_ATOL = 2e-4
+CLIP_FRAMES = 12          # uni_12, the shipped checkpoints' sampling
+VIDEO_REQUESTS = 8
+# Step 0 of the cross task on the card against the CPU, dropout off. float32:
+# two devices sum in other orders, 1e-4 relative (the CPU tests' bound of the
+# two packages). bfloat16: every product rounds to 8 significant bits (2**-8
+# relative) and the card's loss kernels and cuBLAS round at other points than
+# the CPU's chunked loss, 2e-2 relative.
+# A float32 caption against the float32 module path: the kernels and the
+# module sum 768-term products in other orders (~1e-5 on the logits); rows may
+# part only at top-2 gaps below this.
+NEAR_TIE_F32 = 1e-3
+CROSS_REL = {"float32": 1e-4, "bfloat16": 2e-2}
+CROSS_TRAIN_STEPS = TRAIN_STEPS
+
+
+def write_video(path: Path, seed: int, n_frames: int = 40) -> None:
+    """A seeded MJPG .avi (as tests/test_pipeline.py writes them): a moving
+    rectangle of a seeded colour on seeded noise."""
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    colour = tuple(int(c) for c in rng.integers(0, 256, 3))
+    base = rng.integers(0, 80, (240, 320, 3)).astype(np.uint8)
+    x0 = int(rng.integers(0, 260))
+    w = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"MJPG"), 25.0, (320, 240))
+    for i in range(n_frames):
+        f = base.copy()
+        x = (x0 + 5 * i) % 260
+        cv2.rectangle(f, (x, 60), (x + 60, 160), colour, -1)
+        w.write(f)
+    w.release()
+
+
+def write_clip_vision(path: Path) -> int:
+    """A seeded ViT-B/32 at full width in OpenAI's key layout (``visual.*``),
+    as a .pt -> its parameter count."""
+    from vct_tpu_torch.clip.vision import CLIPVisionTower, init_clip_weights
+
+    tower = init_clip_weights(CLIPVisionTower(), torch.Generator().manual_seed(SEED + 17))
+    torch.save({f"visual.{k}": v for k, v in tower.state_dict().items()}, path)
+    return sum(v.numel() for v in tower.state_dict().values())
+
+
+def greedy_steps(tokens, end_id=102, max_len=30) -> int:
+    """Tokens the fused greedy loop generates for one caption: it tests for
+    the end once per 8-token stage (decode_fast._decode_loop)."""
+    ends = np.nonzero(np.asarray(tokens)[1:] == end_id)[0]
+    if not len(ends):
+        return max_len - 1
+    return min(-(-(int(ends[0]) + 1) // 8) * 8, max_len - 1)
+
+
+def run_video(repo: Path, root: Path, vocab: Path, cfg, ckpt: Path, model, card: str):
+    """Phase 17 -> ({kernel: launches}, report)."""
+    from vct_tpu_torch.cli import predict as pcli
+    from vct_tpu_torch.clip import preprocess_frames, sample_frames
+    from vct_tpu_torch.ops import decode_kernels as dk
+
+    dev = torch.device("cuda", 0)
+    weights = root / "clip_vit_b32_seeded.pt"
+    n_params = write_clip_vision(weights)
+    videos = [root / f"video{i}.avi" for i in range(VIDEO_REQUESTS)]
+    for i, v in enumerate(videos):
+        write_video(v, SEED + 100 + i)
+    cfg_path = str(train_config(repo, root, vocab, 1))
+    args = ["-c", cfg_path, "-m", str(ckpt), "-v", str(videos[0]), "--clip_weights",
+            str(weights), "--ext_type", f"uni_{CLIP_FRAMES}"]
+    say(f"  ViT-B/32 {n_params} parameters (seeded, OpenAI keys); {len(videos)} videos of "
+        f"40 frames 320x240")
+    report, launches = {}, {}
+
+    # the tower on the card against the same tower on the CPU, float32
+    t0 = time.perf_counter()
+    frames = sample_frames(str(videos[0]), f"uni_{CLIP_FRAMES}")
+    pixels = torch.from_numpy(preprocess_frames(frames))
+    host_ms = (time.perf_counter() - t0) * 1e3
+    tower = pcli.load_clip_tower(str(weights), dev)
+    with torch.no_grad():
+        feats = tower(pixels.to(dev)).float()
+        cpu = pcli.load_clip_tower(str(weights), torch.device("cpu"))(pixels)
+    err = max_err("video: tower on the card against the CPU", feats.cpu(), cpu, TOWER_ATOL)
+    if tuple(feats.shape) != (CLIP_FRAMES, 512):
+        fail(f"video: tower features of shape {tuple(feats.shape)}")
+    with torch.no_grad():
+        tower_ms = cuda_time(lambda: tower(pixels.to(dev)), iters=10)
+    report.update(video_tower_ms=tower_ms, video_host_ms=host_ms, video_tower_max_abs_err=err)
+    say(f"  tower, {CLIP_FRAMES} frames: {tower_ms:.3f} ms on the card (CUDA events), "
+        f"sampling + preprocessing {host_ms:.1f} ms on the host; card against CPU (float32) "
+        f"max abs difference {err:.3g} (bound {TOWER_ATOL}) [{card}]")
+    feats, masks = [feats[None]], [torch.zeros((1, CLIP_FRAMES), dtype=torch.bool, device=dev)]
+
+    # greedy, then --beam 4, each with the launch counts set to 0 just before
+    for label, extra in (("greedy", []), ("beam4", ["--beam", "4"])):
+        reset_launches()
+        t0 = time.perf_counter()
+        with no_plain_on_cuda(f"predict {label}", dk):
+            caption = pcli.main(args + extra)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = read_launches()
+        tokens = torch.from_numpy(pcli.predict.tokens)
+        if not isinstance(caption, str) or tokens.shape != (30,) or tokens[0] != 101:
+            fail(f"predict {label}: caption {caption!r}, tokens {tokens}")
+        if label == "greedy":
+            want = greedy_steps(tokens)
+            if got["fused_whole_step"] != want or any(
+                    v for k, v in got.items() if k != "fused_whole_step"):
+                fail(f"predict -v: launches {got}, expected {want} of fused_whole_step "
+                     f"(one per generated token)")
+            check_against_module(model, feats, masks, tokens[None].to(dev), "predict -v")
+            launches["fused_whole_step"] = got["fused_whole_step"]
+        else:
+            steps = got["fused_layers_step"]
+            if steps != got["fused_norm_generator_topk"] or steps not in (8, 16, 24, 29) \
+                    or got["fused_whole_step"] or got["fused_norm_generator_argmax"]:
+                fail(f"predict --beam 4: launches {got}, expected one fused_layers_step "
+                     f"and one fused_norm_generator_topk per beam token")
+            launches.update({k: got[k] for k in ("fused_layers_step",
+                                                 "fused_norm_generator_topk")})
+        report[f"predict_{label}_seconds"] = seconds
+        say(f"  predict -v {' '.join(extra) or '--greedy'}: {caption!r} in {seconds:.2f} s "
+            f"with loading; launches { {k: v for k, v in got.items() if v} } [{card}]")
+
+    # float32 (the triage rule's own setting): bf16 logits of a seeded random
+    # model tie often, float32 ones do not
+    from vct_tpu_torch.cli.common import make_trainer_pieces
+
+    cfg32_path = str(train_config(repo, root, vocab, 1, dtype="float32"))
+    model32, _ = make_trainer_pieces(pcli.load_config(cfg32_path), torch.device("cpu"))
+    model32.load_state_dict(torch.load(ckpt, weights_only=True))
+    model32 = model32.to(dev).to_compute_dtype()
+    reset_launches()
+    with no_plain_on_cuda("predict float32", dk):
+        caption = pcli.main(["-c", cfg32_path] + args[2:])
+    got = read_launches()
+    tokens = torch.from_numpy(pcli.predict.tokens)
+    if got["fused_whole_step"] != greedy_steps(tokens):
+        fail(f"predict -v float32: launches {got}")
+    check_against_module(model32, feats, masks, tokens[None].to(dev), "predict -v float32",
+                         near_tie=NEAR_TIE_F32)
+    say(f"  predict -v in float32: {caption!r}; launches "
+        f"{ {k: v for k, v in got.items() if v} } [{card}]")
+
+    # --vis_attn: the module path's per-token cross-attention
+    ns = pcli.build_parser().parse_args(args + ["--vis_attn"])
+    reset_launches()
+    pcli.predict(pcli.load_config(cfg_path), ns, device=dev, log=lambda *_: None)
+    want_shape = (29, cfg.model.caption_decoder.layer, 1, CLIP_FRAMES + 1)
+    attn = pcli.predict.attn
+    if attn is None or attn.shape != want_shape or not np.isfinite(attn).all() or \
+            any(read_launches().values()):
+        fail(f"predict --vis_attn: attn {None if attn is None else attn.shape}, want "
+             f"{want_shape} from the module path")
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        say(f"  --vis_attn: predict.attn {want_shape} from the module path; matplotlib is "
+            f"not installed on this machine, so the heatmap PNG is left to the CPU tests")
+    else:
+        from vct_tpu_torch.text.tokenizer import make_tokenizer
+
+        png = root / "attn.png"
+        pcli.visualize_attention(attn, pcli.predict.tokens,
+                                 make_tokenizer(cfg.tpu.vocab_path, cfg.model.tokenizer),
+                                 str(png))
+        if not png.is_file() or png.stat().st_size == 0:
+            fail("predict --vis_attn: no heatmap written")
+        say(f"  --vis_attn: predict.attn {want_shape}, heatmap {png.stat().st_size} bytes")
+
+    launches["video_server_fused_whole_step"], server_report = run_video_server(
+        cfg, ckpt, weights, videos, model, card)
+    report.update(server_report)
+    return launches, report
+
+
+def run_video_server(cfg, ckpt: Path, weights: Path, videos, model, card: str):
+    """The server with --clip_weights: concurrent /v1/caption_video requests,
+    each batch's tokens against the module path on the tower's features."""
+    from vct_tpu_torch.ops import decode_kernels as dk
+    from vct_tpu_torch.serve import serve
+
+    srv = serve(cfg, str(ckpt), device=torch.device("cuda", 0), host="127.0.0.1", port=0,
+                clip_weights=str(weights), max_batch=MAX_BATCH, batch_timeout_ms=20.0,
+                log=lambda *_: None)
+    records = []
+    decode = srv.service.decode_fn
+
+    def recording_decode(feats, masks):
+        tokens, aux = decode(feats, masks)
+        records.append((feats, masks, tokens))
+        return tokens, aux
+
+    srv.service.decode_fn = recording_decode
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    bodies = [v.read_bytes() for v in videos]
+    results, request_ms = [None] * len(bodies), [0.0] * len(bodies)
+
+    def post(i):
+        t0 = time.perf_counter()
+        conn = HTTPConnection("127.0.0.1", srv.server_address[1], timeout=300)
+        conn.request("POST", "/v1/caption_video", body=bodies[i])
+        resp = conn.getresponse()
+        results[i] = (resp.status, json.loads(resp.read()))
+        conn.close()
+        request_ms[i] = (time.perf_counter() - t0) * 1e3
+
+    with no_plain_on_cuda("video server", dk):
+        try:
+            reset_launches()
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=post, args=(i,)) for i in range(len(bodies))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            elapsed = time.perf_counter() - t0
+            launches = dk.fused_whole_step.launches
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            srv.service.close()
+            thread.join(timeout=30)
+    bad = [r for r in results if r is None or r[0] != 200
+           or not isinstance(r[1].get("caption"), str)]
+    if bad:
+        fail(f"video server: {len(bad)} requests failed, e.g. {bad[0]}")
+    if launches == 0:
+        fail("video server: fused_whole_step was never launched")
+    for feats, masks, tokens in records:
+        check_against_module(model, feats, masks, tokens, "served video batch")
+    ms = sorted(request_ms)
+    say(f"  server: {len(bodies)} concurrent /v1/caption_video answered 200 in "
+        f"{len(records)} batches, {elapsed * 1e3:.1f} ms for all; request ms p50 "
+        f"{ms[len(ms) // 2]:.1f}, max {ms[-1]:.1f}; fused_whole_step launches {launches} [{card}]")
+    return launches, {"video_requests_ms_all": elapsed * 1e3,
+                      "video_request_ms_p50": ms[len(ms) // 2],
+                      "video_request_ms_max": ms[-1]}
+
+
+# ---- phase 18: the cross task ----------------------------------------------
+
+
+def write_text_assets(root: Path):
+    """A seeded full-width CLIP text tower (OpenAI text keys, vocab 49408) as
+    a .pt, and a byte-level BPE vocab.json / merges.txt that encodes every
+    caption of the synthetic dataset -> (weights, vocab.json, merges.txt,
+    parameter count)."""
+    from vct_tpu_torch.clip.text import CLIPTextTower, _bytes_to_unicode
+    from vct_tpu_torch.clip.vision import init_clip_weights
+
+    tower = init_clip_weights(CLIPTextTower(), torch.Generator().manual_seed(SEED + 18))
+    weights = root / "clip_text_seeded.pt"
+    torch.save(tower.state_dict(), weights)
+    merges = [("w", "1"), ("w", "2"), ("1", "0</w>"), ("2", "5</w>")]
+    chars = list(_bytes_to_unicode().values())
+    tokens = chars + [c + "</w>" for c in chars] + ["".join(m) for m in merges]
+    tokens += ["<|startoftext|>", "<|endoftext|>"]
+    vocab_json, merges_txt = root / "bpe_vocab.json", root / "bpe_merges.txt"
+    vocab_json.write_text(json.dumps({t: i for i, t in enumerate(tokens)}))
+    merges_txt.write_text("#version: 0.2\n" + "\n".join(" ".join(m) for m in merges))
+    return weights, vocab_json, merges_txt, sum(v.numel() for v in tower.state_dict().values())
+
+
+def cross_config(repo: Path, root: Path, vocab: Path, assets, **tpu) -> Path:
+    """configs/msvd.json with train.task cross, the text encoder's assets and
+    the workspace's paths -> file."""
+    cfg = json.loads(Path(train_config(repo, root, vocab, 1)).read_text())
+    cfg["train"].update(task="cross", tag="cross", save_dir=str(root / "ckpt_cross"))
+    cfg["tpu"].update(clip_text_weights=str(assets[0]), clip_vocab_json=str(assets[1]),
+                      clip_merges_txt=str(assets[2]), **tpu)
+    path = root / ("cross" + "".join(f"_{k}{v}" for k, v in tpu.items()) + ".json")
+    path.write_text(json.dumps(cfg))
+    return path
+
+
+def run_cross(repo: Path, root: Path, vocab: Path, card: str):
+    """Phase 18 -> ({loss kernel: launches}, report)."""
+    import vct_tpu_torch.train.loop as loop
+    from vct_tpu_torch.cli import train as train_cli
+    from vct_tpu_torch.cli.common import load_config
+    from vct_tpu_torch.ops import decode_kernels as dk
+    from vct_tpu_torch.ops import loss_kernels as lk
+
+    assets = write_text_assets(root)
+    say(f"  CLIP text tower {assets[3]} parameters (seeded, vocab 49408, width 512, 12 "
+        f"layers, 8 heads, context 77), a {len(json.loads(assets[1].read_text()))}-entry BPE "
+        f"vocab")
+    metrics, make_train = [], loop.make_train_step
+
+    def recording_train(task):
+        step = make_train(task)
+
+        def wrapped(state, batch):
+            state, m = step(state, batch)
+            metrics.append(m)
+            return state, m
+
+        return wrapped
+
+    loop.make_train_step = recording_train
+    try:
+        with no_plain_on_cuda("cross train", lk):
+            for fn in lk.WRAPPERS + dk.WRAPPERS:
+                fn.launches = 0
+            t0 = time.perf_counter()
+            scores = train_cli.main(["-c", str(cross_config(repo, root, vocab, assets)),
+                                     "--no_tensorboard"])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = {fn.__name__: fn.launches for fn in lk.WRAPPERS}
+            decode_launches = dk.fused_whole_step.launches
+    finally:
+        loop.make_train_step = make_train
+    want = {"softmax_stats": CROSS_TRAIN_STEPS + VAL_STEPS,
+            "clipped_prob_stats": CROSS_TRAIN_STEPS + VAL_STEPS,
+            "sce_backward_tiles": CROSS_TRAIN_STEPS}
+    if launches != want:
+        fail(f"cross train: loss kernel launches {launches}, expected {want} "
+             f"(3 per train step, 2 per validation step)")
+    if len(metrics) != CROSS_TRAIN_STEPS or decode_launches == 0:
+        fail(f"cross train: {len(metrics)} train steps, eval decode launches {decode_launches}")
+    values = {k: [float(m[k]) for m in metrics] for k in ("loss", "cap_loss", "match_loss")}
+    if not all(math.isfinite(v) for vs in values.values() for v in vs):
+        fail("cross train: a loss is not finite")
+    head, tail = sum(values["loss"][:5]) / 5, sum(values["loss"][-5:]) / 5
+    if not tail < head:
+        fail(f"cross train: the loss did not fall: first five {head}, last five {tail}")
+    if not (root / "ckpt_cross" / "cross_latest.pt").is_file() or \
+            set(scores) < {"Bleu_4", "METEOR", "ROUGE_L", "CIDEr"}:
+        fail(f"cross train: no checkpoint or no scores ({scores})")
+    say(f"  {CROSS_TRAIN_STEPS} cross train steps + validation + eval decode + checkpoint in "
+        f"{seconds:.1f} s: loss {head:.4f} (first five) -> {tail:.4f} (last five); cap_loss "
+        f"{values['cap_loss'][0]:.4f} -> {values['cap_loss'][-1]:.4f}, match_loss "
+        f"{values['match_loss'][0]:.4f} -> {values['match_loss'][-1]:.4f}; launches "
+        f"{launches}; eval decode fused_whole_step launches {decode_launches} [{card}]")
+
+    # step 0 on the card against the CPU, dropout off
+    report = {"cross_train_seconds": seconds}
+    for dtype, rel in CROSS_REL.items():
+        outs = []
+        for device in (torch.device("cuda", 0), torch.device("cpu")):
+            tr = loop.Trainer(load_config(str(cross_config(repo, root, vocab, assets,
+                                                           dtype=dtype))),
+                              device=device, log=lambda *_: None)
+            batch = first_batch(tr)
+            tr.model.eval()
+            with torch.no_grad():
+                out = tr.model.cross_loss(batch["feats"], batch["masks"], batch["token_ids"],
+                                          batch["token_mask"], batch["text_feat"],
+                                          row_valid=batch["row_valid"])
+            outs.append(([float(v) for v in out], batch["text_feat"].cpu()))
+        text_err = max_err(f"cross {dtype}: text features on the card against the CPU",
+                           outs[0][1], outs[1][1], TOWER_ATOL)
+        for name, got, ref in zip(("loss", "cap_loss", "match_loss"), outs[0][0], outs[1][0]):
+            if not math.isfinite(got) or abs(got - ref) > rel * abs(ref):
+                fail(f"cross step 0 {dtype}: {name} {got} on the card, {ref} on the CPU "
+                     f"(bound {rel} relative)")
+        say(f"  step 0 {dtype}, card vs CPU: cap_loss {outs[0][0][1]:.6f} vs "
+            f"{outs[1][0][1]:.6f}, match_loss {outs[0][0][2]:.6f} vs {outs[1][0][2]:.6f} "
+            f"(bound {rel} relative); text features max abs difference {text_err:.3g}")
+
+    # ms per cross train step on a fixed batch, with its loss kernel launches
+    tr = loop.Trainer(load_config(str(cross_config(repo, root, vocab, assets))),
+                      device=torch.device("cuda", 0), log=lambda *_: None)
+    batch = first_batch(tr)
+    for _ in range(3):
+        tr.train_step(tr.state, batch)
+    torch.cuda.synchronize()
+    for fn in lk.WRAPPERS:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(10):
+        tr.train_step(tr.state, batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 100
+    per_step = {fn.__name__: fn.launches / 10 for fn in lk.WRAPPERS}
+    t0 = time.perf_counter()
+    for _ in range(10):
+        tr.text_encoder(["w1234 w2345 w3456 w4567"] * BATCH)
+    torch.cuda.synchronize()
+    text_ms = (time.perf_counter() - t0) * 100
+    report.update(cross_train_step_ms=step_ms, cross_text_encoder_ms=text_ms)
+    say(f"  cross train step (batch {BATCH}, text features given): {step_ms:.2f} ms, loss "
+        f"kernel launches per step {per_step}; text encoder on {BATCH} captions "
+        f"{text_ms:.2f} ms [{card}]")
+    report.update(run_univl(repo, root, vocab))
+    return launches, report
+
+
+def run_univl(repo: Path, root: Path, vocab: Path):
+    """One Trainer start with caption_decoder.univl: a seeded UniVL-keyed
+    decoder at the MSVD widths (512-row position table, as UniVL's) imported
+    on the card, each weight equal to its source."""
+    from vct_tpu_torch.cli.common import load_config
+    from vct_tpu_torch.convert import univl_to_reference_keys
+    from vct_tpu_torch.train.loop import Trainer
+
+    g = torch.Generator().manual_seed(SEED + 19)
+    e, ff, v, layers = 768, 2048, 30522, 3
+    sd = {}
+    for l in range(layers):
+        p = f"decoder.decoder.layer.{l}"
+        for attn in ("slf_attn", "enc_attn"):
+            for part in ("query", "key", "value"):
+                sd[f"{p}.{attn}.att.{part}.weight"] = torch.randn((e, e), generator=g)
+                sd[f"{p}.{attn}.att.{part}.bias"] = torch.randn((e,), generator=g)
+            sd[f"{p}.{attn}.output.dense.weight"] = torch.randn((e, e), generator=g)
+            for leaf in ("output.dense.bias", "output.LayerNorm.weight",
+                         "output.LayerNorm.bias"):
+                sd[f"{p}.{attn}.{leaf}"] = torch.randn((e,), generator=g)
+        sd[f"{p}.intermediate.dense.weight"] = torch.randn((ff, e), generator=g)
+        sd[f"{p}.intermediate.dense.bias"] = torch.randn((ff,), generator=g)
+        sd[f"{p}.output.dense.weight"] = torch.randn((e, ff), generator=g)
+        for leaf in ("output.dense.bias", "output.LayerNorm.weight", "output.LayerNorm.bias"):
+            sd[f"{p}.{leaf}"] = torch.randn((e,), generator=g)
+    for leaf, shape in (("decoder.embeddings.LayerNorm.weight", (e,)),
+                        ("decoder.embeddings.LayerNorm.bias", (e,)),
+                        ("decoder.embeddings.word_embeddings.weight", (v, e)),
+                        ("decoder.embeddings.position_embeddings.weight", (512, e)),
+                        ("decoder.classifier.cls.predictions.decoder.weight", (v, e)),
+                        ("decoder.classifier.cls.predictions.bias", (v,))):
+        sd[leaf] = torch.randn(shape, generator=g)
+    path = root / "univl_seeded.pt"
+    torch.save(sd, path)
+    cfg = json.loads(Path(train_config(repo, root, vocab, 1)).read_text())
+    cfg["model"]["caption_decoder"]["univl"] = str(path)
+    cfg_path = root / "univl.json"
+    cfg_path.write_text(json.dumps(cfg))
+    logs = []
+    t0 = time.perf_counter()
+    tr = Trainer(load_config(str(cfg_path)), device=torch.device("cuda", 0), log=logs.append)
+    seconds = time.perf_counter() - t0
+    got = tr.model.state_dict()
+    want = univl_to_reference_keys(sd)
+    for k, src in want.items():
+        dst = got[k][: src.shape[0]] if k.endswith("pos_embedding") else got[k]
+        if not torch.equal(dst.cpu(), src):
+            fail(f"univl: {k} differs from its source")
+    if not any("imported UniVL decoder" in line for line in logs):
+        fail(f"univl: the Trainer did not import the decoder ({logs})")
+    say(f"  univl: {len(want)} decoder tensors ({sum(t.numel() for t in want.values())} "
+        f"values) imported on the card, each equal to its source; Trainer built in "
+        f"{seconds:.1f} s")
+    return {"univl_trainer_seconds": seconds}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs a CUDA card")
@@ -3878,6 +4366,19 @@ def main() -> int:
         report.update(attn_report)
         report.update(time_long_train_steps(repo, long_work, vocab, dev, card))
 
+        say("phase video: vct_tpu_torch.cli.predict -v (greedy, --beam 4, --vis_attn) and "
+            f"{VIDEO_REQUESTS} concurrent /v1/caption_video with --clip_weights")
+        t0 = time.perf_counter()
+        video_launches, video_report = run_video(repo, work, vocab, cfg, ckpt, model, card)
+        report.update(video_report, video_phase_seconds=time.perf_counter() - t0)
+        say(f"phase cross-train: vct_tpu_torch.cli.train with train.task cross on "
+            f"{CROSS_TRAIN_STEPS} batches of {BATCH}, the CLIP text tower; a UniVL start")
+        t0 = time.perf_counter()
+        cross_launches, cross_report = run_cross(repo, work, vocab, card)
+        report.update(cross_report, cross_phase_seconds=time.perf_counter() - t0)
+        say(f"  phases video and cross-train took {report['video_phase_seconds']:.1f} s and "
+            f"{report['cross_phase_seconds']:.1f} s")
+
     say(json.dumps(report))
     sources = {**{k: SOURCE for k in REPLACES},
                "fused_layers_step": "vct_tpu_torch/csrc/stack_step.cu",
@@ -3891,7 +4392,14 @@ def main() -> int:
     extra = {"sce_backward_tiles": bwd_errs,
              "fused_attention_trainable": {
                  **attn_bwd_errs,
-                 "backward_launches": train_counts["fused_attention_trainable_backward"]}}
+                 "backward_launches": train_counts["fused_attention_trainable_backward"]},
+             "fused_whole_step": {
+                 "video_launches": video_launches["fused_whole_step"],
+                 "video_server_launches": video_launches["video_server_fused_whole_step"]},
+             **{k: {"video_beam_launches": video_launches[k]}
+                for k in ("fused_layers_step", "fused_norm_generator_topk")}}
+    for name, n in cross_launches.items():
+        extra[name] = {**extra.get(name, {}), "cross_train_launches": n}
     say(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name], "replaces": replaces,
          "launches": launches[name], "max_abs_err": errs[name], "timer": "cuda_events",

@@ -20,7 +20,14 @@ ALLOWED_REFERENCE = set()  # the port imports nothing of the JAX package
 COPIED = ["config.py", "text/tokenizer.py", "data/collate.py", "data/datasets.py",
           "data/loader.py", "data/native.py", "train/earlystop.py", "evalcap/bleu.py",
           "evalcap/cider.py", "evalcap/meteor.py", "evalcap/meteor_data.py", "evalcap/ptb.py",
-          "evalcap/rouge.py", "evalcap/scorer.py", "evalcap/stemmer.py"]
+          "evalcap/rouge.py", "evalcap/scorer.py", "evalcap/stemmer.py", "clip/frames.py"]
+# host definitions the port copied out of reference modules that import JAX:
+# relative path -> the top-level names (functions, classes, constants) copied
+COPIED_DEFINITIONS = {
+    "clip/text.py": ["CONTEXT_LENGTH", "_bytes_to_unicode", "_get_pairs", "_PAT",
+                     "_whitespace_clean", "CLIPBPETokenizer"],
+    "clip/vision.py": ["IMAGE_SIZE", "CLIP_MEAN", "CLIP_STD", "preprocess_frames"],
+}
 OK_LINE = '"ok": true'
 
 
@@ -48,10 +55,8 @@ def _clean_env():
     return env
 
 
-def _code_tree(path: Path, rename: bool) -> str:
-    """The module's syntax tree without docstrings, with ``vct_tpu.`` imports
-    renamed to ``vct_tpu_torch.`` when asked: what the code does, whatever its
-    comments and docstrings say."""
+def _stripped(path: Path) -> ast.Module:
+    """The module's syntax tree with its docstrings blanked."""
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
         body = getattr(node, "body", None)
@@ -60,6 +65,15 @@ def _code_tree(path: Path, rename: bool) -> str:
                 and isinstance(body[0].value, ast.Constant)
                 and isinstance(body[0].value.value, str)):
             body[0].value.value = ""
+    return tree
+
+
+def _code_tree(path: Path, rename: bool) -> str:
+    """The module's syntax tree without docstrings, with ``vct_tpu.`` imports
+    renamed to ``vct_tpu_torch.`` when asked: what the code does, whatever its
+    comments and docstrings say."""
+    tree = _stripped(path)
+    for node in ast.walk(tree):
         if rename and isinstance(node, ast.ImportFrom) and node.module \
                 and node.module.startswith("vct_tpu."):
             node.module = "vct_tpu_torch." + node.module[len("vct_tpu."):]
@@ -73,10 +87,33 @@ def test_copied_host_module_has_not_drifted(rel):
                                                               rename=True)
 
 
+def _definitions(path: Path, names):
+    """name -> the code of the top-level definition or assignment of that
+    name in ``path``, without docstrings."""
+    out = {}
+    for node in _stripped(path).body:
+        targets = ([node.name] if isinstance(node, (ast.FunctionDef, ast.ClassDef)) else
+                   [t.id for t in getattr(node, "targets", []) if isinstance(t, ast.Name)])
+        for name in targets:
+            if name in names:
+                out[name] = ast.dump(node)
+    return out
+
+
+@pytest.mark.parametrize("rel,name", [(rel, name) for rel, names in COPIED_DEFINITIONS.items()
+                                      for name in names])
+def test_copied_host_definition_has_not_drifted(rel, name):
+    """Each copied definition runs the same code as its original."""
+    got = _definitions(PORT / rel, {name})
+    want = _definitions(REPO / "vct_tpu" / rel, {name})
+    assert name in want and got == want
+
+
 def test_serving_path_loads_no_jax():
     code = ("import sys, vct_tpu_torch.serve, vct_tpu_torch.decode_fast, "
             "vct_tpu_torch.cli.common, vct_tpu_torch.cli.train, vct_tpu_torch.cli.eval, "
-            "vct_tpu_torch.train.loop; "
+            "vct_tpu_torch.train.loop, vct_tpu_torch.cli.predict, vct_tpu_torch.pipeline, "
+            "vct_tpu_torch.clip, vct_tpu_torch.clip.convert, vct_tpu_torch.models.matching; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN | {'vct_tpu'})!r}]; print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_clean_env(),

@@ -164,8 +164,10 @@ def test_bad_requests(server):
     assert status == 400 and "feature dim" in payload["error"]
     status, _ = _post(server, "/v1/nope", b"")
     assert status == 404
+    # no --clip_weights: the reference's refusal (the route itself is held in
+    # test_torch_port_pipeline.py)
     status, payload = _post(server, "/v1/caption_video", b"\x00\x01")
-    assert status == 400 and "CLIP tower not ported yet" in payload["error"]
+    assert status == 400 and "server started without --clip_weights" in payload["error"]
 
 
 def test_multimodal_npz(mm_server):

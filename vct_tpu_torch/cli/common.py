@@ -9,6 +9,7 @@ import json
 import warnings
 from typing import Dict, List
 
+import numpy as np
 import torch
 
 from vct_tpu_torch import config as _config
@@ -101,6 +102,21 @@ def load_checkpoint_into(model, path: str, log=print, cfg: Config = None) -> dic
     if advisory:
         log(advisory)
     return report
+
+
+def load_feature_files(paths: List[str]) -> List[np.ndarray]:
+    """``--features a.npy b.npy`` -> per-modality [1, T, E] arrays (reference
+    ``predict_video.py:115-116``; (E, T) arrays are transposed like
+    ``dataloader.py:382-385``)."""
+    feats = []
+    for p in paths:
+        a = np.load(p).astype(np.float32)
+        if a.ndim != 2:
+            raise ValueError(f"{p}: expected 2-D (T, E) features, got {a.shape}")
+        if a.shape[0] > a.shape[1]:  # stored (E, T) -> (T, E)
+            a = a.T
+        feats.append(a[None])
+    return feats
 
 
 def print_scores(scores: Dict[str, float]) -> None:

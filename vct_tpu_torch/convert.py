@@ -146,3 +146,61 @@ def load_state_dict_into(model: nn.Module,
         used.add(key)
     unexpected = [k for k in state_dict if k not in used]
     return {"missing": missing, "unexpected": unexpected}
+
+
+# ---------------------------------------------------------------------------
+# special importers (reference MMT4Caption.py:213-283)
+# ---------------------------------------------------------------------------
+
+
+def import_bert_embeddings(model: nn.Module,
+                           bert_state: Dict[str, Any]) -> Dict[str, List[str]]:
+    """``load_embedding_from_bert`` (``MMT4Caption.py:213-220``): BERT's word
+    embeddings -> ``tgt_to_emb``, its position embeddings -> the decoder's
+    ``positional_encoding`` buffer (a 512-row table fills the first rows).
+    In place -> the ``load_state_dict_into`` report of the two keys."""
+    return load_state_dict_into(model, {
+        "cap_decoder.tgt_to_emb.weight": bert_state["embeddings.word_embeddings.weight"],
+        "cap_decoder.positional_encoding.pos_embedding":
+            bert_state["embeddings.position_embeddings.weight"],
+    })
+
+
+def univl_to_reference_keys(univl: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """UniVL decoder checkpoint -> the reference's ``cap_decoder`` keys, by
+    the table at ``MMT4Caption.py:226-281`` (separate q/k/v weights are
+    concatenated into the packed ``in_proj`` layout)."""
+    src = {k: torch.as_tensor(np.asarray(v)) for k, v in univl.items()}
+    out: Dict[str, torch.Tensor] = {}
+    n_layers = 0
+    while f"decoder.decoder.layer.{n_layers}.slf_attn.att.query.weight" in src:
+        n_layers += 1
+    for l in range(n_layers):
+        theirs_l, ours_l = f"decoder.decoder.layer.{l}", f"cap_decoder.decoder.layers.{l}"
+        for wb in ("weight", "bias"):
+            for ours, theirs in (("self_attn", "slf_attn"), ("multihead_attn", "enc_attn")):
+                out[f"{ours_l}.{ours}.in_proj_{wb}"] = torch.cat(
+                    [src[f"{theirs_l}.{theirs}.att.{part}.{wb}"]
+                     for part in ("query", "key", "value")], dim=0)
+                out[f"{ours_l}.{ours}.out_proj.{wb}"] = src[
+                    f"{theirs_l}.{theirs}.output.dense.{wb}"]
+            out[f"{ours_l}.norm1.{wb}"] = src[f"{theirs_l}.slf_attn.output.LayerNorm.{wb}"]
+            out[f"{ours_l}.norm2.{wb}"] = src[f"{theirs_l}.enc_attn.output.LayerNorm.{wb}"]
+            out[f"{ours_l}.linear1.{wb}"] = src[f"{theirs_l}.intermediate.dense.{wb}"]
+            out[f"{ours_l}.linear2.{wb}"] = src[f"{theirs_l}.output.dense.{wb}"]
+            out[f"{ours_l}.norm3.{wb}"] = src[f"{theirs_l}.output.LayerNorm.{wb}"]
+    for wb in ("weight", "bias"):
+        out[f"cap_decoder.decoder.norm.{wb}"] = src[f"decoder.embeddings.LayerNorm.{wb}"]
+    out["cap_decoder.generator.weight"] = src["decoder.classifier.cls.predictions.decoder.weight"]
+    out["cap_decoder.generator.bias"] = src["decoder.classifier.cls.predictions.bias"]
+    out["cap_decoder.tgt_to_emb.weight"] = src["decoder.embeddings.word_embeddings.weight"]
+    out["cap_decoder.positional_encoding.pos_embedding"] = src[
+        "decoder.embeddings.position_embeddings.weight"]
+    return out
+
+
+def import_univl_decoder(model: nn.Module, univl: Dict[str, Any]) -> Dict[str, List[str]]:
+    """The UniVL decoder into ``model`` in place (``MMT4Caption.py:222-283``)
+    -> the ``load_state_dict_into`` report: nothing unexpected, and only keys
+    outside ``cap_decoder`` missing."""
+    return load_state_dict_into(model, univl_to_reference_keys(univl))

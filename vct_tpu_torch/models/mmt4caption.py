@@ -1,11 +1,15 @@
-"""MMT4Caption, caption task (port of ``vct_tpu/models/mmt4caption.py``):
-a video encoder (MME, HMME or SimpleSep by ``video_encoder.type``) plus the
-caption decoder, with the task forwards
-``caption_loss`` / ``caption_loss_parts`` / ``caption_logits`` and the
-decoding primitives ``encode`` / ``init_cache`` / ``decode_step``.
-``model.train()`` turns dropout on (rate ``config.dropout``) and
-``set_dropout_generator`` says where its masks come from. The matching head
-and the match/cross task forwards come with the matching slice."""
+"""MMT4Caption (port of ``vct_tpu/models/mmt4caption.py``): a video encoder
+(MME, HMME or SimpleSep by ``video_encoder.type``), the caption decoder and,
+when ``model.matching`` is configured, the matching head, built eagerly as
+the reference builds it (its checkpoints carry ``matching.*`` whatever the
+task). Task forwards: ``caption_loss`` / ``caption_loss_parts`` /
+``caption_logits``, ``match_loss``, ``cross_loss`` / ``cross_loss_parts``
+(``beta * cap + (1 - beta) * match``, ``MMT4Caption.py:143``); the text
+features of the match and cross tasks come from a frozen encoder outside the
+model (``vct_tpu_torch.clip.text.build_text_encoder``). Decoding primitives:
+``encode`` / ``init_cache`` / ``decode_step``. ``model.train()`` turns
+dropout on (rate ``config.dropout``) and ``set_dropout_generator`` says where
+its masks come from."""
 
 from __future__ import annotations
 
@@ -19,8 +23,19 @@ from vct_tpu_torch.config import ModelConfig, TPUConfig
 from vct_tpu_torch.models.decoder import CapDecoder
 from vct_tpu_torch.models.encoder import HMMEncoder, MultiModalEncoder, SimpleSepEncoder
 from vct_tpu_torch.models.layers import DropoutRng
+from vct_tpu_torch.models.matching import Matching
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def text_encoder_dim(text_enc_type: str) -> int:
+    """The frozen text encoder's feature width: CLIP ViT-B/32's text dim or
+    BERT's CLS dim (reference ``TextEncoder.py:16,22``)."""
+    if "CLIP" in text_enc_type:
+        return 512
+    if "bert" in text_enc_type:
+        return 768
+    raise ValueError(f"unsupported text_enc_type: {text_enc_type}")
 
 
 class MMT4Caption(nn.Module):
@@ -58,6 +73,12 @@ class MMT4Caption(nn.Module):
             sce_loss_alpha=cd.sce_loss_alpha, use_fused_loss=tpu.use_fused_loss,
             fused_loss_kernels=tpu.fused_loss_pallas,
             use_kernels=tpu.use_pallas_attention, dtype=dtype, device=device)
+        self.matching = None
+        if config.matching is not None:
+            m = config.matching
+            self.matching = Matching(config.embed_dim, text_encoder_dim(config.text_enc_type),
+                                     m.matching_loss, m.enable_tem, m.temperature,
+                                     dtype=dtype, device=device)
 
     def set_dropout_generator(self, generator: Optional[torch.Generator]) -> None:
         """Every dropout mask of this model is drawn from ``generator`` (on
@@ -69,7 +90,8 @@ class MMT4Caption(nn.Module):
         """Random weights from ``generator`` (a CPU generator; values are
         drawn on the host and copied, so a seed gives the same weights on
         every device). Xavier-uniform matrices, LeCun-normal vocab
-        projection, N(0, 1) embeddings, zero biases, unit LayerNorms."""
+        projection, N(0, 1) embeddings, zero biases, unit LayerNorms and
+        matching temperature."""
         for name, p in self.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
             parent = self.get_submodule(name.rsplit(".", 1)[0])
@@ -77,6 +99,8 @@ class MMT4Caption(nn.Module):
                 val = torch.ones(p.shape) if leaf == "weight" else torch.zeros(p.shape)
             elif "bias" in leaf:
                 val = torch.zeros(p.shape)
+            elif leaf == "temperature":
+                val = torch.ones(p.shape)
             elif isinstance(parent, nn.Embedding):
                 val = torch.randn(p.shape, generator=generator)
             elif name == "cap_decoder.generator.weight":
@@ -132,11 +156,40 @@ class MMT4Caption(nn.Module):
         return self.cap_decoder(memory, token_ids, token_pad_mask, mem_mask,
                                 return_attn=return_attn)
 
-    def match_loss(self, *args, **kwargs):
-        raise NotImplementedError("the match task comes with the matching slice of the port")
+    def _matching(self) -> Matching:
+        if self.matching is None:
+            raise ValueError("the match and cross tasks need model.matching in the config")
+        return self.matching
 
-    def cross_loss(self, *args, **kwargs):
-        raise NotImplementedError("the cross task comes with the matching slice of the port")
+    def match_loss(self, video_feats, video_masks, text_feat: torch.Tensor, *,
+                   row_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Match task (``MMT4Caption.py:123-130``): contrastive loss between
+        the frozen text features and the encoder's aggregate feature.
+        ``row_valid`` restricts anchors and negatives to the real sub-batch."""
+        matching = self._matching()
+        _, _, agg = self.video_encoder(video_feats, video_masks)
+        return matching(text_feat, agg, valid=row_valid)
+
+    def cross_loss(self, video_feats, video_masks, token_ids, token_pad_mask,
+                   text_feat: torch.Tensor, *, row_valid: Optional[torch.Tensor] = None):
+        """Cross task (``MMT4Caption.py:132-144``) -> (loss, cap_loss, match_loss)."""
+        matching = self._matching()
+        memory, mem_mask, agg = self.video_encoder(video_feats, video_masks)
+        _, cap_loss, _ = self.cap_decoder(memory, token_ids, token_pad_mask, mem_mask,
+                                          row_valid=row_valid, loss_only=True)
+        match_loss = matching(text_feat, agg, valid=row_valid)
+        beta = self.config.loss_beta
+        return beta * cap_loss + (1.0 - beta) * match_loss, cap_loss, match_loss
+
+    def cross_loss_parts(self, video_feats, video_masks, token_ids, token_pad_mask,
+                         text_feat: torch.Tensor, *, row_valid=None):
+        """-> (ce_sum, ce_n, rce_sum, rce_n, match_loss), for validation."""
+        matching = self._matching()
+        memory, mem_mask, agg = self.video_encoder(video_feats, video_masks)
+        _, parts, _ = self.cap_decoder(memory, token_ids, token_pad_mask, mem_mask,
+                                       row_valid=row_valid, return_parts=True,
+                                       loss_only=True)
+        return tuple(parts) + (matching(text_feat, agg, valid=row_valid),)
 
     # ---- decoding primitives ---------------------------------------------------
 

@@ -14,9 +14,15 @@ Endpoints (stdlib ``http.server``; JSON out):
                            (T, E_m) array per modality (keys = the config's
                            modal names, or ``modal_0``, ``modal_1``, ...)
                            -> {"caption": ...}
-  POST /v1/caption_video   400 until the CLIP tower is ported
+  POST /v1/caption_video   body = raw video bytes (OpenCV-decodable)
+                           -> {"caption": ...} (needs --clip_weights; models
+                           of one CLIP modality only, the one the tower
+                           makes): frames are sampled on the host (uni_12),
+                           the CLIP ViT-B/32 tower runs on the server's
+                           device, its features join the batcher's queue
 
-Run: ``python -m vct_tpu_torch.serve -c config.json -m ckpt.pth --port 8000``
+Run: ``python -m vct_tpu_torch.serve -c config.json -m ckpt.pth --port 8000
+[--clip_weights ViT-B-32.pt]``
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from __future__ import annotations
 import io
 import json
 import queue
+import tempfile
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -53,6 +60,7 @@ class CaptionService:
     one background batcher thread that owns the device work."""
 
     def __init__(self, cfg, ckpt_path: str, *, device: torch.device,
+                 clip_weights: Optional[str] = None,
                  max_batch: int = 32, batch_timeout_ms: float = 5.0,
                  max_queue: Optional[int] = None,
                  max_body_bytes: int = 64 * 1024 * 1024, log=print):
@@ -83,6 +91,14 @@ class CaptionService:
         warm_m = [torch.zeros((max_batch, cfg.tpu.max_frames), dtype=torch.bool,
                               device=self.device) for _ in cfg.model.modal_shape]
         self.decode_fn(warm_f, warm_m)[0].cpu()
+
+        self.tower = None
+        if clip_weights:
+            from vct_tpu_torch.cli.predict import load_clip_tower
+
+            self.tower = load_clip_tower(clip_weights, self.device)
+            # warm the tower at the default ext_type's frame count (uni_12)
+            self.tower_features(torch.zeros((12, 224, 224, 3)))
 
         self.max_queue = max_queue if max_queue is not None else 8 * max_batch
         self.max_body_bytes = max_body_bytes
@@ -136,8 +152,28 @@ class CaptionService:
             raise RuntimeError(req.error)
         return req.caption
 
-    def caption_video(self, video_bytes: bytes) -> str:
-        raise ValueError("CLIP tower not ported yet; send features to /v1/caption")
+    @torch.no_grad()
+    def tower_features(self, pixels: torch.Tensor) -> np.ndarray:
+        """CLIP-normalized frames [T, 224, 224, 3] -> features [T, 512]
+        float32, by the tower on the server's device."""
+        return self.tower(pixels.to(self.device)).float().cpu().numpy()
+
+    def caption_video(self, video_bytes: bytes, ext_type: str = "uni_12",
+                      timeout: float = 120.0) -> str:
+        if self.tower is None:
+            raise ValueError("server started without --clip_weights; "
+                             "send features to /v1/caption instead")
+        from vct_tpu_torch.clip import preprocess_frames, sample_frames
+
+        if len(self.cfg.model.modal_shape) != 1:
+            raise ValueError("/v1/caption_video serves single-CLIP-modality "
+                             "models; send per-modality features to /v1/caption")
+        with tempfile.NamedTemporaryFile(suffix=".mp4") as f:
+            f.write(video_bytes)
+            f.flush()
+            frames = sample_frames(f.name, ext_type)
+        feats = self.tower_features(torch.from_numpy(preprocess_frames(frames)))
+        return self.caption_features(feats, timeout=timeout)
 
     def close(self):
         self._stop.set()
@@ -297,11 +333,11 @@ class _Server(ThreadingHTTPServer):
 
 
 def serve(cfg, ckpt_path: str, *, device: torch.device, host="0.0.0.0",
-          port=8000, max_batch=32, batch_timeout_ms=5.0, max_queue=None,
-          max_body_bytes=64 * 1024 * 1024, log=print):
-    service = CaptionService(cfg, ckpt_path, device=device, max_batch=max_batch,
-                             batch_timeout_ms=batch_timeout_ms, max_queue=max_queue,
-                             max_body_bytes=max_body_bytes, log=log)
+          port=8000, clip_weights=None, max_batch=32, batch_timeout_ms=5.0,
+          max_queue=None, max_body_bytes=64 * 1024 * 1024, log=print):
+    service = CaptionService(cfg, ckpt_path, device=device, clip_weights=clip_weights,
+                             max_batch=max_batch, batch_timeout_ms=batch_timeout_ms,
+                             max_queue=max_queue, max_body_bytes=max_body_bytes, log=log)
     server = _Server((host, port), make_handler(service))
     server.service = service
     return server
@@ -318,6 +354,9 @@ def main(argv=None) -> None:
                    help="reference-format .pth state dict")
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8000)
+    p.add_argument("--clip_weights", type=str, default=None,
+                   help="CLIP ViT-B/32 weights (OpenAI .pt / HF .bin / .npz) for "
+                        "/v1/caption_video")
     p.add_argument("--max_batch", type=int, default=32)
     p.add_argument("--batch_timeout_ms", type=float, default=5.0)
     p.add_argument("--max_queue", type=int, default=None,
@@ -328,8 +367,9 @@ def main(argv=None) -> None:
     args = p.parse_args(argv)
 
     server = serve(load_config(args.config), args.model, device=resolve_device(args),
-                   host=args.host, port=args.port, max_batch=args.max_batch,
-                   batch_timeout_ms=args.batch_timeout_ms, max_queue=args.max_queue,
+                   host=args.host, port=args.port, clip_weights=args.clip_weights,
+                   max_batch=args.max_batch, batch_timeout_ms=args.batch_timeout_ms,
+                   max_queue=args.max_queue,
                    max_body_bytes=args.max_body_mb * 1024 * 1024)
     print(f"serving on {args.host}:{server.server_address[1]} "
           f"(max_batch={args.max_batch}, device={server.service.device})", flush=True)

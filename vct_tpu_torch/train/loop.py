@@ -5,10 +5,13 @@ losses -> caption-metric eval -> sample prediction -> logging -> metric/loss
 earlystop -> periodic save. Checkpoints are full resumable train states;
 ``Trainer.resume`` continues mid-run with the same save/stop/LR decisions.
 
-Ported: the caption task with the MME encoder, eval decoding on the decode
-kernels (greedy, or beam search when ``tpu.beam_size`` > 1). Left to later
-slices: device meshes and tensor parallelism (DDP), the match/cross tasks
-with their text encoder, and the UniVL decoder import.
+Ported: the caption, match and cross tasks (the last two with a frozen text
+encoder: the CLIP text tower from ``tpu.clip_text_weights`` /
+``clip_vocab_json`` / ``clip_merges_txt``, or one passed in), the UniVL
+decoder import (``caption_decoder.univl``, before ``pretrained_model``, the
+reference's load order), and eval decoding on the decode kernels (greedy, or
+beam search when ``tpu.beam_size`` > 1). Left to a later slice: device meshes
+and tensor parallelism (DDP).
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
@@ -56,19 +59,25 @@ CKPT_SUFFIX = ".pt"
 
 
 class Trainer:
-    def __init__(self, cfg: Config, *, device: torch.device, tokenizer=None, writer=None,
-                 log: Callable[[str], None] = print):
+    def __init__(self, cfg: Config, *, device: torch.device, tokenizer=None,
+                 text_encoder: Optional[Callable[[List[str]], torch.Tensor]] = None,
+                 writer=None, log: Callable[[str], None] = print):
         self.cfg = cfg
         self.log = log
         self.device = device
         self.task = cfg.train.task
-        if self.task in ("match", "cross"):
-            raise NotImplementedError(
-                f"the {self.task} task comes with the matching slice of the port")
-        if cfg.model.caption_decoder.univl:
-            raise NotImplementedError("the UniVL decoder import is not ported yet")
         if cfg.tpu.mesh_data > 1 or cfg.tpu.mesh_model > 1:
             raise NotImplementedError("multi-device training comes with the DDP slice")
+        self.text_encoder = text_encoder
+        if self.task in ("match", "cross") and text_encoder is None:
+            if not cfg.tpu.clip_text_weights:
+                raise ValueError("match/cross tasks need a text_encoder: pass one, or set "
+                                 "tpu.clip_text_weights/clip_vocab_json/clip_merges_txt")
+            from vct_tpu_torch.clip.text import build_text_encoder
+
+            self.text_encoder = build_text_encoder(
+                cfg.model.text_enc_type, device=device, clip_weights=cfg.tpu.clip_text_weights,
+                vocab_json=cfg.tpu.clip_vocab_json, merges_txt=cfg.tpu.clip_merges_txt)
         self.tokenizer = tokenizer or make_tokenizer(cfg.tpu.vocab_path, cfg.model.tokenizer)
         self.preprocessor = CaptionPreprocessor(self.tokenizer, cfg.tpu.max_caption_len)
 
@@ -81,6 +90,12 @@ class Trainer:
         self.model = MMT4Caption(model_cfg, cfg.tpu, dtype=DTYPES[cfg.tpu.dtype])
         self.model.init_weights(torch.Generator().manual_seed(cfg.tpu.seed))
         self.model.to(device)
+        if cfg.model.caption_decoder.univl:
+            from vct_tpu_torch.convert import import_univl_decoder
+
+            import_univl_decoder(self.model,
+                                 load_torch_state_dict(cfg.model.caption_decoder.univl))
+            self.log(f"imported UniVL decoder from {cfg.model.caption_decoder.univl}")
         if cfg.model.pretrained_model:
             self.load_pretrained(cfg.model.pretrained_model)
 
@@ -130,8 +145,8 @@ class Trainer:
         # step would stall the host on every step
         losses = []
         for batch in self._progress(loader, f"train e{epoch}"):
-            self.state, metrics = self.train_step(self.state,
-                                                  batch_to_arrays(batch, self.device))
+            self.state, metrics = self.train_step(
+                self.state, batch_to_arrays(batch, self.device, self.text_encoder))
             losses.append(metrics["loss"])
         if not losses:
             return 0.0
@@ -143,7 +158,8 @@ class Trainer:
         loader = self.loaders.get("validation")
         if loader is None:
             return {}
-        parts_list = [self.val_step(self.model, batch_to_arrays(batch, self.device))
+        parts_list = [self.val_step(self.model,
+                                    batch_to_arrays(batch, self.device, self.text_encoder))
                       for batch in loader]
         if not parts_list:
             return {}

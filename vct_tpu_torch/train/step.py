@@ -3,7 +3,9 @@
 The train step is eager PyTorch: forward in training mode (dropout from the
 state's generator), ``backward``, one optimizer update. With the fused loss
 on and an eligible shape on a CUDA device it launches the three loss kernels
-once each; the validation step launches the two forward ones. The loss the
+once each (caption and cross tasks); the validation step launches the two
+forward ones. The match and cross tasks take the batch's frozen text features
+(``text_feat``, from ``batch_to_arrays`` with a text encoder). The loss the
 train step returns stays on the device: callers fetch it when they need it.
 """
 
@@ -16,14 +18,27 @@ import torch
 
 from vct_tpu_torch.train.state import TrainState
 
-_LATER = "the {} task comes with the matching slice of the port"
+TASKS = ("caption", "match", "cross")
 
 
 def _check_task(task: str) -> None:
-    if task in ("match", "cross"):
-        raise NotImplementedError(_LATER.format(task))
-    if task != "caption":
+    if task not in TASKS:
         raise ValueError(f"unknown task {task}")
+
+
+def _task_loss(model, task: str, batch: Dict[str, Any]):
+    """-> (loss, metrics) of one task on one batch."""
+    feats, masks, valid = batch["feats"], batch.get("masks"), batch.get("row_valid")
+    if task == "caption":
+        loss = model.caption_loss(feats, masks, batch["token_ids"], batch["token_mask"],
+                                  row_valid=valid)
+        return loss, {"loss": loss, "cap_loss": loss}
+    if task == "match":
+        loss = model.match_loss(feats, masks, batch["text_feat"], row_valid=valid)
+        return loss, {"loss": loss, "match_loss": loss}
+    loss, cap, match = model.cross_loss(feats, masks, batch["token_ids"], batch["token_mask"],
+                                        batch["text_feat"], row_valid=valid)
+    return loss, {"loss": loss, "cap_loss": cap, "match_loss": match}
 
 
 def make_train_step(task: str) -> Callable[[TrainState, Dict[str, Any]],
@@ -34,13 +49,11 @@ def make_train_step(task: str) -> Callable[[TrainState, Dict[str, Any]],
         model, optimizer = state.model, state.optimizer
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        loss = model.caption_loss(batch["feats"], batch.get("masks"), batch["token_ids"],
-                                  batch["token_mask"], row_valid=batch.get("row_valid"))
+        loss, metrics = _task_loss(model, task, batch)
         loss.backward()
         optimizer.step()
         state.step += 1
-        loss = loss.detach()
-        return state, {"loss": loss, "cap_loss": loss}
+        return state, {k: v.detach() for k, v in metrics.items()}
 
     return step
 
@@ -54,10 +67,23 @@ def make_eval_step(task: str):
     @torch.no_grad()
     def step(model, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         model.eval()
-        ce_sum, ce_n, rce_sum, rce_n = model.caption_loss_parts(
-            batch["feats"], batch.get("masks"), batch["token_ids"], batch["token_mask"],
-            row_valid=batch.get("row_valid"))
-        return {"ce_sum": ce_sum, "ce_n": ce_n, "rce_sum": rce_sum, "rce_n": rce_n}
+        feats, masks, valid = batch["feats"], batch.get("masks"), batch.get("row_valid")
+        n_valid = (valid.float().sum() if valid is not None
+                   else torch.tensor(float(feats[0].shape[0]), device=feats[0].device))
+        if task == "match":
+            loss = model.match_loss(feats, masks, batch["text_feat"], row_valid=valid)
+            return {"match_sum": loss * n_valid, "match_n": n_valid}
+        if task == "caption":
+            parts = model.caption_loss_parts(feats, masks, batch["token_ids"],
+                                             batch["token_mask"], row_valid=valid)
+        else:
+            *parts, match = model.cross_loss_parts(feats, masks, batch["token_ids"],
+                                                   batch["token_mask"], batch["text_feat"],
+                                                   row_valid=valid)
+        out = dict(zip(("ce_sum", "ce_n", "rce_sum", "rce_n"), parts))
+        if task == "cross":
+            out.update(match_sum=match * n_valid, match_n=n_valid)
+        return out
 
     return step
 
@@ -82,8 +108,10 @@ def combine_eval_parts(task: str, agg: Dict[str, float], *, sce_alpha: float,
     return out
 
 
-def batch_to_arrays(batch, device: torch.device) -> Dict[str, Any]:
-    """collate.Batch -> the dict of tensors on ``device`` the steps consume."""
+def batch_to_arrays(batch, device: torch.device, text_encoder=None) -> Dict[str, Any]:
+    """collate.Batch -> the dict of tensors on ``device`` the steps consume;
+    with ``text_encoder`` (``List[str] -> [B, dim]``) also the captions' frozen
+    text features."""
 
     def put(a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(device, non_blocking=True)
@@ -100,4 +128,6 @@ def batch_to_arrays(batch, device: torch.device) -> Dict[str, Any]:
     if batch.token_ids is not None:
         out["token_ids"] = put(batch.token_ids)
         out["token_mask"] = put(batch.token_mask)
+    if text_encoder is not None:
+        out["text_feat"] = text_encoder(list(batch.captions)).to(device)
     return out
