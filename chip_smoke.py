@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, evaluation and video paths
-once on one CUDA card.
+"""Drive the PyTorch port's serving, training, evaluation, video and feature
+extraction paths once on one CUDA card.
 
     python3 chip_smoke.py                  every phase below
     python3 chip_smoke.py --profile-train  build, then a torch.profiler
@@ -190,6 +190,23 @@ Phases, each of which must pass:
               float32 and bfloat16; ms per cross train step; a Trainer with
               caption_decoder.univl importing a seeded UniVL decoder at the
               MSVD widths, each weight equal to its source
+ 19. i3d      seeded full-width Kinetics I3D state dicts (RGB, 3-channel stem;
+              flow, 2-channel) in the source checkpoint's keys and seeded
+              .avi files of 130 frames (two stacks) and 1 frame at 320x240:
+              each tower on a full 64 x 224 x 224 clip in float32, with
+              torch's default cudnn.allow_tf32 (on), against the same tower
+              in float64 on the card (I3D_F64_REL of the largest feature),
+              the same bits twice; vct_tpu_torch.cli.extract with
+              --i3d_stream both equal bit for bit to the rgb and flow runs,
+              the 1-frame video's flow, the CLIP arm at uni_12;
+              vct_tpu_torch.cli.predict's main -v --feat_type I3D
+              --i3d_stream both on a two-modality configs/msvd.json
+              captioner: fused_whole_step once per generated token and the
+              tokens against the module path in bfloat16 and float32,
+              --beam 4 with fused_layers_step and fused_norm_generator_topk
+              once per beam token; tower ms per clip with TF32 off and
+              allowed, its FLOPs and share of the float32 peak, host decode
+              + crop and flow ms, extract seconds per video
 
 Times: every row of the ``kernels`` line names its ``timer``. ``cuda_events``
 is ``cuda_time``, CUDA events around a Python loop of calls. ``graph_replay``
@@ -211,15 +228,17 @@ run on the same inputs by the same timer. ``cold_weight_ms`` replays the
 generator kernel on two copies of the weight in turn (94 MB against 50 MB of
 L2), so that no call finds its weight left in L2 by the call before.
 
-Launch counts are set to 0 just before phases 4, 5, 7, 9, 10, 13, 14, 17 and
-18 (each predict run and the video server in 17) and read just after each:
+Launch counts are set to 0 just before phases 4, 5, 7, 9, 10, 13, 14, 17, 18
+and 19 (each predict run and the video server in 17, each predict run in 19)
+and read just after each:
 the server must have launched the whole-step kernel,
 the B=128 decode the other two decode kernels, training the three loss
 kernels, the beam eval the stack and top-k kernels once per beam token, the
 multi phase the other three, the long training the trainable attention kernel
 forward and backward, the long eval the inference attention kernel, the video
 path the whole step (greedy, served) and the stack and top-k (beam), cross
-training the three loss kernels. The line
+training the three loss kernels, the I3D predict runs the whole step (greedy)
+and the stack and top-k (beam). The line
 before the last is a JSON object with one entry per kernel; the last line is
 {"ok": true, "device": {...}}, printed only when every phase passed. Any
 failure exits 1 before it.
@@ -4225,6 +4244,270 @@ def run_univl(repo: Path, root: Path, vocab: Path):
     return {"univl_trainer_seconds": seconds}
 
 
+# ---- phase 19: the I3D slice -----------------------------------------------
+
+I3D_FRAMES = 130           # two RGB stacks of 64; 129 flow fields, two stacks
+I3D_MODAL = ["i3d_rgb", "i3d_flow"]
+# The float32 tower against the same tower in float64, max abs difference
+# over the largest feature. float32 sums of up to 9,408 products in 27
+# layers part from float64 by a few 1e-7 of the result; TF32's 10-bit
+# operands part by about 1e-4 and more.
+I3D_F64_REL = 2e-5
+FLOAT32_PEAK = PEAK_OPS_PER_S[torch.float32]
+TF32_PEAK = 495e12         # NVIDIA's data sheet, dense
+
+
+def write_i3d(path: Path, in_channels: int, seed: int) -> None:
+    """A seeded full-width Kinetics InceptionI3d state dict in the source
+    checkpoint's keys (``conv3d.weight``, ``bn.*``), as tests/test_i3d.py
+    builds them, saved as a .pt; ``in_channels`` 3 for RGB, 2 for flow."""
+    from vct_tpu_torch.i3d.model import INCEPTION_CHANNELS
+
+    rng = np.random.RandomState(seed)
+    sd = {}
+
+    def unit(prefix, cin, cout, k):
+        sd[f"{prefix}.conv3d.weight"] = rng.randn(cout, cin, k, k, k).astype(np.float32) * 0.05
+        sd[f"{prefix}.bn.weight"] = rng.rand(cout).astype(np.float32) + 0.5
+        sd[f"{prefix}.bn.bias"] = rng.randn(cout).astype(np.float32) * 0.1
+        sd[f"{prefix}.bn.running_mean"] = rng.randn(cout).astype(np.float32) * 0.1
+        sd[f"{prefix}.bn.running_var"] = rng.rand(cout).astype(np.float32) + 0.5
+
+    unit("Conv3d_1a_7x7", in_channels, 64, 7)
+    unit("Conv3d_2b_1x1", 64, 64, 1)
+    unit("Conv3d_2c_3x3", 64, 192, 3)
+    cin = 192
+    for name, ch in INCEPTION_CHANNELS:
+        for branch, (i, o, k) in {"b0": (cin, ch[0], 1), "b1a": (cin, ch[1], 1),
+                                  "b1b": (ch[1], ch[2], 3), "b2a": (cin, ch[3], 1),
+                                  "b2b": (ch[3], ch[4], 3), "b3b": (cin, ch[5], 1)}.items():
+            unit(f"{name}.{branch}", i, o, k)
+        cin = ch[0] + ch[2] + ch[4] + ch[5]
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, path)
+
+
+def conv_flops(tower, x) -> int:
+    """Multiply-adds x 2 of every convolution of one call, from the layer
+    shapes (the pools' few operations left out)."""
+    flops = []
+
+    def count(mod, _inputs, out):
+        flops.append(2 * out.numel() * mod.in_channels * math.prod(mod.kernel_size))
+
+    hooks = [m.register_forward_hook(count) for m in tower.modules()
+             if isinstance(m, torch.nn.Conv3d)]
+    try:
+        with torch.no_grad():
+            tower(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return sum(flops)
+
+
+def i3d_config(repo: Path, root: Path, vocab: Path, dtype: str) -> str:
+    """configs/msvd.json with two 1024-wide I3D modalities (RGB, flow)."""
+    cfg = json.loads((repo / "configs" / "msvd.json").read_text())
+    cfg["model"].update(modal=I3D_MODAL, modal_shape=[1024, 1024])
+    cfg["tpu"].update(vocab_path=str(vocab), progress_bar=False, dtype=dtype)
+    path = root / f"msvd_i3d_{dtype}.json"
+    path.write_text(json.dumps(cfg))
+    return str(path)
+
+
+def check_i3d_towers(weights, clips, card: str) -> dict:
+    """Each stream's tower on one full clip: float32 with torch's default
+    TF32 switch (on) against float64 on the card, the same bits twice, and
+    ms per clip with TF32 off (the tower's own setting) and, for the record,
+    allowed."""
+    import copy
+
+    from vct_tpu_torch.cli.predict import load_i3d_tower
+
+    cudnn = torch.backends.cudnn
+    tf32_on = dict(enabled=True, benchmark=False, deterministic=True, allow_tf32=True)
+    report = {}
+    for stream, x in clips.items():
+        tower = load_i3d_tower(str(weights[stream]), torch.device("cuda", 0))
+        n_params = sum(p.numel() for p in tower.parameters())
+        cudnn.allow_tf32 = True  # torch's default, which the tower must not follow
+        try:
+            with torch.no_grad():
+                f32, again = tower(x), tower(x)
+                f64 = copy.deepcopy(tower).double()(x.double())
+                ms = cuda_time(lambda: tower(x), iters=5)
+                with cudnn.flags(**tf32_on):
+                    tf32 = tower._forward(x)
+                    tf32_ms = cuda_time(lambda: tower._forward(x), iters=5)
+        finally:
+            cudnn.allow_tf32 = False
+        if tuple(f32.shape) != (1, 1024) or not torch.isfinite(f32).all():
+            fail(f"i3d {stream}: features {tuple(f32.shape)}, finite {bool(torch.isfinite(f32).all())}")
+        if not torch.equal(f32, again):
+            fail(f"i3d {stream}: two calls of the float32 tower differ")
+        top = f64.abs().max().item()
+        rel = (f32.double() - f64).abs().max().item() / top
+        rel_tf32 = (tf32.double() - f64).abs().max().item() / top
+        if rel > I3D_F64_REL:
+            fail(f"i3d {stream}: float32 tower parts from float64 by {rel:.3g} of the largest "
+                 f"feature (bound {I3D_F64_REL}): TF32 or another rounding entered")
+        flops = conv_flops(tower, x)
+        bound = flops / FLOAT32_PEAK * 1e3
+        say(f"  tower {stream}: {n_params} parameters; one clip {tuple(x.shape)} {ms:.3f} ms "
+            f"float32 (CUDA events; {flops / 1e9:.2f} GFLOP, {bound / ms:.1%} of the "
+            f"{FLOAT32_PEAK / 1e12:.0f} TFLOP/s float32 peak), {tf32_ms:.3f} ms with TF32 "
+            f"allowed ({flops / TF32_PEAK * 1e3 / tf32_ms:.1%} of the "
+            f"{TF32_PEAK / 1e12:.0f} TFLOP/s TF32 peak); against float64 on the card "
+            f"{rel:.3g} of the largest feature {top:.4g} (bound {I3D_F64_REL}; TF32 "
+            f"{rel_tf32:.3g}); same bits twice [{card}]")
+        report.update({f"i3d_{stream}_parameters": n_params, f"i3d_{stream}_tower_ms": ms,
+                       f"i3d_{stream}_tower_tf32_ms": tf32_ms, f"i3d_{stream}_gflop": flops / 1e9,
+                       f"i3d_{stream}_float32_peak_share": bound / ms,
+                       f"i3d_{stream}_f64_rel_err": rel, f"i3d_{stream}_tf32_f64_rel_err": rel_tf32})
+    return report
+
+
+def run_i3d(repo: Path, root: Path, vocab: Path, card: str):
+    """Phase 19 -> ({kernel: launches}, report)."""
+    from vct_tpu_torch.cli import extract as xcli
+    from vct_tpu_torch.cli import predict as pcli
+    from vct_tpu_torch.cli.common import load_config, make_trainer_pieces
+    from vct_tpu_torch.clip import preprocess_frames, sample_frames
+    from vct_tpu_torch.i3d import flow_from_cropped, i3d_stacks, resize_center_crop, scale_i3d_frames
+    from vct_tpu_torch.ops import decode_kernels as dk
+
+    dev = torch.device("cuda", 0)
+    weights = {"rgb": root / "i3d_rgb_seeded.pt", "flow": root / "i3d_flow_seeded.pt"}
+    write_i3d(weights["rgb"], 3, SEED + 190)
+    write_i3d(weights["flow"], 2, SEED + 191)
+    vids = root / "i3d_videos"
+    vids.mkdir()
+    video, one = vids / "a.avi", vids / "one.avi"
+    write_video(video, SEED + 192, n_frames=I3D_FRAMES)
+    write_video(one, SEED + 193, n_frames=1)
+    say(f"  seeded Kinetics I3D state dicts (RGB, flow) in the source keys; MJPG videos of "
+        f"{I3D_FRAMES} and 1 frames at 320x240")
+
+    # host: decode + crop, then Farneback flow, of the long video
+    t0 = time.perf_counter()
+    cropped = resize_center_crop(sample_frames(str(video), "fix_1"))
+    decode_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    flow = flow_from_cropped(cropped)
+    flow_ms = (time.perf_counter() - t0) * 1e3
+    say(f"  host, one {I3D_FRAMES}-frame video: decode + crop {decode_ms:.1f} ms, Farneback "
+        f"flow ({len(flow)} fields) {flow_ms:.1f} ms [{card}]")
+    clips = {"rgb": torch.from_numpy(i3d_stacks(scale_i3d_frames(cropped))[:1]).to(dev),
+             "flow": torch.from_numpy(i3d_stacks(flow)[:1]).to(dev)}
+    report = {"i3d_host_decode_crop_ms": decode_ms, "i3d_host_flow_ms": flow_ms,
+              **check_i3d_towers(weights, clips, card)}
+
+    # the extract CLI: both streams in one pass against two single-stream runs
+    def extract(*argv) -> float:
+        t0 = time.perf_counter()
+        xcli.main(list(argv))
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    i3d = ["--feat_type", "I3D"]
+    rgb_w, flow_w = ["--i3d_weights", str(weights["rgb"])], str(weights["flow"])
+    extract("--videos", str(vids), "--out", str(root / "x_both_rgb"), "--out_flow",
+            str(root / "x_both_flow"), *i3d, "--i3d_stream", "both", *rgb_w,
+            "--i3d_flow_weights", flow_w)
+    extract("--videos", str(vids), "--out", str(root / "x_rgb"), *i3d, *rgb_w)
+    extract("--videos", str(vids), "--out", str(root / "x_flow"), *i3d, "--i3d_stream", "flow",
+            "--i3d_weights", flow_w)
+    for stream in ("rgb", "flow"):
+        for name, n in (("a", 2), ("one", 1)):
+            got = np.load(root / f"x_both_{stream}" / f"{name}.npy")
+            want = np.load(root / f"x_{stream}" / f"{name}.npy")
+            if got.shape != (n, 1024) or not np.isfinite(got).all() \
+                    or not np.array_equal(got, want):
+                fail(f"extract --i3d_stream both: {stream} {name}.npy {got.shape} is not the "
+                     f"single-stream run's {want.shape}")
+    rgb_s = extract("--videos", str(video), "--out", str(root / "t_rgb"), *i3d, *rgb_w)
+    both_s = extract("--videos", str(video), "--out", str(root / "t_both_rgb"), "--out_flow",
+                     str(root / "t_both_flow"), *i3d, "--i3d_stream", "both", *rgb_w,
+                     "--i3d_flow_weights", flow_w)
+    clip_weights = root / "clip_vit_b32_seeded.pt"
+    if not clip_weights.exists():
+        write_clip_vision(clip_weights)
+    clip_s = extract("--videos", str(vids), "--out", str(root / "x_clip"), "--ext_type",
+                     f"uni_{CLIP_FRAMES}", "--clip_weights", str(clip_weights))
+    got = np.load(root / "x_clip" / "a.npy")
+    with torch.no_grad():
+        want = pcli.load_clip_tower(str(clip_weights), dev)(torch.from_numpy(preprocess_frames(
+            sample_frames(str(video), f"uni_{CLIP_FRAMES}"))).to(dev)).cpu().numpy()
+    if got.shape != (CLIP_FRAMES, 512):
+        fail(f"extract (CLIP): a.npy {got.shape}")
+    max_err("extract (CLIP): a.npy against the tower", torch.from_numpy(got),
+            torch.from_numpy(want), TOWER_ATOL)
+    say(f"  extract: --i3d_stream both equals the rgb and flow runs bit for bit ((2, 1024) "
+        f"and (1, 1024) per stream, the 1-frame video's flow included); one {I3D_FRAMES}-frame "
+        f"video {rgb_s:.2f} s rgb, {both_s:.2f} s both, with the towers' load; CLIP arm "
+        f"uni_{CLIP_FRAMES} ({CLIP_FRAMES}, 512) for 2 videos in {clip_s:.2f} s [{card}]")
+    report.update(i3d_extract_rgb_seconds=rgb_s, i3d_extract_both_seconds=both_s,
+                  extract_clip_seconds=clip_s)
+
+    # predict -v --feat_type I3D --i3d_stream both: greedy and --beam 4 in
+    # bfloat16, greedy in float32, each against the module path
+    launches, feats = {}, None
+    for dtype in ("bfloat16", "float32"):
+        cfg_path = i3d_config(repo, root, vocab, dtype)
+        cfg = load_config(cfg_path)
+        ckpt = root / "msvd_i3d_seeded.pth"
+        if dtype == "bfloat16":
+            model, _ = make_trainer_pieces(cfg, torch.device("cpu"), seed=SEED + 194)
+            torch.save(model.state_dict(), ckpt)
+        else:
+            model, _ = make_trainer_pieces(cfg, torch.device("cpu"))
+            model.load_state_dict(torch.load(ckpt, weights_only=True))
+        model = model.to(dev).to_compute_dtype()
+        args = ["-c", cfg_path, "-m", str(ckpt), "-v", str(video), *i3d, "--i3d_stream",
+                "both", *rgb_w, "--i3d_flow_weights", flow_w]
+        if feats is None:  # the towers' features of the video, which predict computes
+            feats = [torch.from_numpy(f).to(dev) for f in pcli.i3d_features(
+                cfg, pcli.build_parser().parse_args(args), dev, log=lambda *_: None)]
+            masks = [torch.zeros(f.shape[:2], dtype=torch.bool, device=dev) for f in feats]
+        for label, extra in ((("greedy", []), ("beam4", ["--beam", "4"]))
+                             if dtype == "bfloat16" else (("greedy", []),)):
+            reset_launches()
+            t0 = time.perf_counter()
+            with no_plain_on_cuda(f"predict I3D {label} {dtype}", dk):
+                caption = pcli.main(args + extra)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            got = read_launches()
+            tokens = torch.from_numpy(pcli.predict.tokens)
+            if not isinstance(caption, str) or tokens.shape != (30,) or tokens[0] != 101:
+                fail(f"predict I3D {label} {dtype}: caption {caption!r}, tokens {tokens}")
+            if label == "greedy":
+                if got["fused_whole_step"] != greedy_steps(tokens) or any(
+                        v for k, v in got.items() if k != "fused_whole_step"):
+                    fail(f"predict I3D {dtype}: launches {got}, expected "
+                         f"{greedy_steps(tokens)} of fused_whole_step")
+                check_against_module(model, feats, masks, tokens[None].to(dev),
+                                     f"predict -v --feat_type I3D {dtype}",
+                                     near_tie=NEAR_TIE_MODULE if dtype == "bfloat16"
+                                     else NEAR_TIE_F32)
+                if dtype == "bfloat16":
+                    launches["fused_whole_step"] = got["fused_whole_step"]
+            else:
+                steps = got["fused_layers_step"]
+                if steps != got["fused_norm_generator_topk"] or steps not in (8, 16, 24, 29) \
+                        or got["fused_whole_step"] or got["fused_norm_generator_argmax"]:
+                    fail(f"predict I3D --beam 4: launches {got}, expected one "
+                         f"fused_layers_step and one fused_norm_generator_topk per beam token")
+                launches.update({k: got[k] for k in ("fused_layers_step",
+                                                     "fused_norm_generator_topk")})
+            report[f"i3d_predict_{label}_{dtype}_seconds"] = seconds
+            say(f"  predict -v --feat_type I3D --i3d_stream both {' '.join(extra) or '--greedy'}"
+                f" ({dtype}): {caption!r} in {seconds:.2f} s with loading; memory "
+                f"{[tuple(f.shape) for f in feats]}; launches "
+                f"{ {k: v for k, v in got.items() if v} } [{card}]")
+    return launches, report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs a CUDA card")
@@ -4376,8 +4659,15 @@ def main() -> int:
         t0 = time.perf_counter()
         cross_launches, cross_report = run_cross(repo, work, vocab, card)
         report.update(cross_report, cross_phase_seconds=time.perf_counter() - t0)
-        say(f"  phases video and cross-train took {report['video_phase_seconds']:.1f} s and "
-            f"{report['cross_phase_seconds']:.1f} s")
+        say("phase i3d: the Kinetics I3D towers (RGB, flow) against float64, "
+            "vct_tpu_torch.cli.extract (I3D both / rgb / flow, CLIP) and predict -v "
+            "--feat_type I3D --i3d_stream both (greedy, float32, --beam 4)")
+        t0 = time.perf_counter()
+        i3d_launches, i3d_report = run_i3d(repo, work, vocab, card)
+        report.update(i3d_report, i3d_phase_seconds=time.perf_counter() - t0)
+        say(f"  phases video, cross-train and i3d took {report['video_phase_seconds']:.1f} s, "
+            f"{report['cross_phase_seconds']:.1f} s and {report['i3d_phase_seconds']:.1f} s "
+            f"[{card}]")
 
     say(json.dumps(report))
     sources = {**{k: SOURCE for k in REPLACES},
@@ -4395,8 +4685,10 @@ def main() -> int:
                  "backward_launches": train_counts["fused_attention_trainable_backward"]},
              "fused_whole_step": {
                  "video_launches": video_launches["fused_whole_step"],
-                 "video_server_launches": video_launches["video_server_fused_whole_step"]},
-             **{k: {"video_beam_launches": video_launches[k]}
+                 "video_server_launches": video_launches["video_server_fused_whole_step"],
+                 "i3d_launches": i3d_launches["fused_whole_step"]},
+             **{k: {"video_beam_launches": video_launches[k],
+                    "i3d_beam_launches": i3d_launches[k]}
                 for k in ("fused_layers_step", "fused_norm_generator_topk")}}
     for name, n in cross_launches.items():
         extra[name] = {**extra.get(name, {}), "cross_train_launches": n}

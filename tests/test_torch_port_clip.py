@@ -164,26 +164,32 @@ def test_bpe_tokenizer_equals_the_reference(tmp_path):
 
 
 def test_text_encoder_equals_the_reference(tmp_path):
-    """The ids of ``_make_bpe_files`` run to one past the number of distinct
-    tokens (merge results repeat some byte tokens), so the table has max id
-    + 1 rows: the reference's lookup clamps an id past the table, the port's
-    raises (``ROADMAP.md`` §3)."""
+    """The table is sized as the reference's own test sizes it
+    (``tests/test_text_encoder_integration.py``): by the number of tokens in
+    ``vocab.json``. The ids of ``_make_bpe_files`` run past it (merge results
+    repeat some byte tokens), so the captions reach past the table, and both
+    lookups clamp such an id to the last row."""
     from tests.test_text_encoder_integration import _tiny_clip_text_npz
 
     vocab_json, merges_txt = _make_bpe_files(tmp_path)
-    n_vocab = max(json.loads((tmp_path / "vocab.json").read_text()).values()) + 1
+    vocab = json.loads((tmp_path / "vocab.json").read_text())
+    n_vocab = len(vocab)
+    assert max(vocab.values()) >= n_vocab
     _tiny_clip_text_npz(tmp_path / "t.npz", np.random.default_rng(0), vocab=n_vocab)
     kw = dict(clip_weights=str(tmp_path / "t.npz"), vocab_json=vocab_json,
               merges_txt=merges_txt)
     captions = ["hello world", "hello", "world hello world"]
+    assert (ptext.CLIPBPETokenizer.from_hf_files(vocab_json, merges_txt)
+            .tokenize(captions) >= n_vocab).any()
     want = jtext.build_text_encoder("CLIP", batch_pad=4, **kw)(captions)
     enc = ptext.build_text_encoder("CLIP", device=torch.device("cpu"), **kw)
     got = enc(captions)
     assert got.dtype == torch.float32 and got.shape == (3, 512)
     assert not enc.tower.training and not any(p.requires_grad for p in enc.tower.parameters())
     np.testing.assert_allclose(got.numpy(), want, **TOL)
-    with pytest.raises(IndexError):
-        enc.tower(torch.full((1, 77), n_vocab))
+    with torch.no_grad():
+        past, last = (enc.tower(torch.full((1, 77), i)) for i in (n_vocab, n_vocab - 1))
+    np.testing.assert_array_equal(past.numpy(), last.numpy())
     with pytest.raises(ValueError, match="clip_weights"):
         ptext.build_text_encoder("CLIP", device=torch.device("cpu"))
     with pytest.raises(ValueError, match="unsupported"):

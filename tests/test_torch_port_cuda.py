@@ -1407,3 +1407,61 @@ def test_layer_step_takes_the_stack_routes(cuda, b, widths):
     with pytest.raises(ValueError, match="no row"):
         dk.fused_layer_step(x, kc[0].clone(), vc[0].clone(), ck[0], cv[0], mb, layer,
                             kc.shape[1], heads=heads)
+
+
+# ---------------------------------------------------------------------------
+# the I3D tower (cuDNN convolutions, float32 with TF32 off)
+# ---------------------------------------------------------------------------
+
+
+def _seeded_i3d(in_channels, device):
+    from vct_tpu_torch.i3d import I3DTower
+
+    tower = I3DTower(in_channels)
+    g = torch.Generator().manual_seed(in_channels)
+    with torch.no_grad():
+        for name, p in tower.named_parameters():
+            if name.endswith("scale"):
+                p.copy_(1 + 0.1 * torch.randn(p.shape, generator=g))
+            else:
+                p.copy_(0.05 * torch.randn(p.shape, generator=g))
+    return tower.eval().to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("in_channels", [3, 2])
+def test_i3d_tower_on_the_card_equals_the_cpu(cuda, in_channels):
+    """The tower at (1, 9, 200, 200, C) on the card against its CPU run,
+    float32 at rtol = atol = 2e-4 (the CPU tests' bound against vct_tpu)."""
+    x = torch.rand((1, 9, 200, 200, in_channels), generator=torch.Generator().manual_seed(1))
+    x = x * 2 - 1
+    with torch.no_grad():
+        want = _seeded_i3d(in_channels, torch.device("cpu"))(x)
+        got = _seeded_i3d(in_channels, cuda)(x.to(cuda))
+    assert got.dtype == torch.float32 and got.shape == (1, 1024)
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_i3d_tower_runs_float32_with_the_global_tf32_switch_on(cuda):
+    """cuDNN runs a float32 conv3d in TF32 while ``cudnn.allow_tf32`` is on
+    (torch's default); the tower switches it off for its own forward. Against
+    float64 on the card its features part by under 2e-5 of the largest, and
+    the switch is as the caller left it afterwards."""
+    import copy
+
+    tower = _seeded_i3d(3, cuda)
+    x = (torch.rand((1, 9, 200, 200, 3), generator=torch.Generator().manual_seed(2)) * 2
+         - 1).to(cuda)
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with torch.no_grad():
+            got, again = tower(x), tower(x)
+            want = copy.deepcopy(tower).double()(x.double())
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+    assert torch.equal(got, again)
+    rel = (got.double() - want).abs().max() / want.abs().max()
+    assert rel < 2e-5, rel

@@ -20,13 +20,20 @@ ALLOWED_REFERENCE = set()  # the port imports nothing of the JAX package
 COPIED = ["config.py", "text/tokenizer.py", "data/collate.py", "data/datasets.py",
           "data/loader.py", "data/native.py", "train/earlystop.py", "evalcap/bleu.py",
           "evalcap/cider.py", "evalcap/meteor.py", "evalcap/meteor_data.py", "evalcap/ptb.py",
-          "evalcap/rouge.py", "evalcap/scorer.py", "evalcap/stemmer.py", "clip/frames.py"]
+          "evalcap/rouge.py", "evalcap/scorer.py", "evalcap/stemmer.py", "clip/frames.py",
+          "i3d/flow.py"]
 # host definitions the port copied out of reference modules that import JAX:
 # relative path -> the top-level names (functions, classes, constants) copied
 COPIED_DEFINITIONS = {
     "clip/text.py": ["CONTEXT_LENGTH", "_bytes_to_unicode", "_get_pairs", "_PAT",
                      "_whitespace_clean", "CLIPBPETokenizer"],
     "clip/vision.py": ["IMAGE_SIZE", "CLIP_MEAN", "CLIP_STD", "preprocess_frames"],
+    "i3d/model.py": ["FEATURE_DIM", "NUM_KINETICS_CLASSES", "STACK_SIZE", "STEP_SIZE",
+                     "IMAGE_SIZE", "INCEPTION_CHANNELS", "resize_center_crop",
+                     "scale_i3d_frames", "preprocess_i3d_frames", "i3d_stacks"],
+    "i3d/convert.py": ["BN_EPS", "_STEM", "_BRANCHES", "load_i3d_state_dict"],
+    "cli/extract.py": ["VIDEO_EXTS", "list_videos"],
+    "cli/predict.py": ["_order_i3d_streams"],
 }
 OK_LINE = '"ok": true'
 
@@ -88,12 +95,13 @@ def test_copied_host_module_has_not_drifted(rel):
 
 
 def _definitions(path: Path, names):
-    """name -> the code of the top-level definition or assignment of that
-    name in ``path``, without docstrings."""
+    """name -> the code of the top-level definition or assignment (annotated
+    or not) of that name in ``path``, without docstrings."""
     out = {}
     for node in _stripped(path).body:
         targets = ([node.name] if isinstance(node, (ast.FunctionDef, ast.ClassDef)) else
-                   [t.id for t in getattr(node, "targets", []) if isinstance(t, ast.Name)])
+                   [t.id for t in getattr(node, "targets", [getattr(node, "target", None)])
+                    if isinstance(t, ast.Name)])
         for name in targets:
             if name in names:
                 out[name] = ast.dump(node)
@@ -113,7 +121,8 @@ def test_serving_path_loads_no_jax():
     code = ("import sys, vct_tpu_torch.serve, vct_tpu_torch.decode_fast, "
             "vct_tpu_torch.cli.common, vct_tpu_torch.cli.train, vct_tpu_torch.cli.eval, "
             "vct_tpu_torch.train.loop, vct_tpu_torch.cli.predict, vct_tpu_torch.pipeline, "
-            "vct_tpu_torch.clip, vct_tpu_torch.clip.convert, vct_tpu_torch.models.matching; "
+            "vct_tpu_torch.clip, vct_tpu_torch.clip.convert, vct_tpu_torch.models.matching, "
+            "vct_tpu_torch.i3d, vct_tpu_torch.cli.extract; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN | {'vct_tpu'})!r}]; print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_clean_env(),

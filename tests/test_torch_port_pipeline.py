@@ -208,9 +208,11 @@ def test_predict_cli_refusals(workspace):
     base = ["-c", str(workspace / "config.json"), "-m", str(workspace / "model.pth"), "--cpu"]
     video = ["-v", str(workspace / "in.avi")]
     for extra, match in (
-            (video + ["--feat_type", "I3D"], "I3D slice"),
-            (video + ["--i3d_weights", "x.pt"], "I3D slice"),
-            (["-f", str(workspace / "feat.npy"), "--i3d_stream", "flow"], "I3D slice"),
+            (video + ["--feat_type", "I3D"], "needs --i3d_weights"),
+            (video + ["--feat_type", "I3D", "--i3d_stream", "both", "--i3d_weights", "x.pt"],
+             "needs --i3d_flow_weights"),
+            (video + ["--feat_type", "I3D", "--i3d_weights", "x.pt"],
+             r"produce 1 modality of dim 1024; config has modal=\('CLIP4Clip',\)"),
             (video, "--clip_weights"),
             (video + ["--beam", "2", "--vis_attn"], "requires --greedy"),
             (["-f", str(workspace / "feat.npy"), str(workspace / "feat.npy")],

@@ -52,7 +52,10 @@ class CLIPTextTower(nn.Module):
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """tokens [B, context_length] int -> [B, out_dim] (EOT-pooled)."""
         dt = self.dtype
-        x = self.token_embedding.weight[tokens.long()].to(dt) + self.positional_embedding[None].to(dt)
+        # an id past the table reads its last row, as the reference's gather
+        # clamps it (an unchecked index would fire a device-side assert)
+        ids = tokens.long().clamp(0, self.token_embedding.num_embeddings - 1)
+        x = self.token_embedding.weight[ids].to(dt) + self.positional_embedding[None].to(dt)
         t = tokens.shape[1]
         causal = torch.full((t, t), NEG_INF, device=x.device).triu(1)
         x = layer_norm(self.transformer(x, causal), self.ln_final, dt)
