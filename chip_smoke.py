@@ -13,6 +13,11 @@ extraction paths once on one CUDA card.
                                            each greedy mode
     python3 chip_smoke.py --profile-beam   build, then a torch.profiler
                                            reading of a beam-4 eval batch of 64
+    python3 chip_smoke.py --parallel       build, then phase 20 alone
+    python3 chip_smoke.py --torchrun-rank OUT ARGS...
+                                           phase 20's process under torchrun:
+                                           cli.train's run on ARGS, its record
+                                           written to OUT as JSON
     python3 chip_smoke.py --stack-variant ROOT
                                            the package under ROOT (a copy of
                                            vct_tpu_torch with a changed
@@ -207,6 +212,26 @@ Phases, each of which must pass:
               once per beam token; tower ms per clip with TF32 off and
               allowed, its FLOPs and share of the float32 peak, host decode
               + crop and flow ms, extract seconds per video
+ 20. parallel (a) ``torchrun --standalone --nproc_per_node 1`` of this
+              script's ``--torchrun-rank`` entry, which runs
+              vct_tpu_torch.cli.train's ``run`` in torchrun's group, on phase
+              7's config and dataset (NCCL at world size 1) and records the
+              Trainer's history: its per-step losses against two in-process
+              runs of the same CLI, bit for bit when those two agree bit for
+              bit, else within their spread; the loss kernels once per step
+              and the eval decode's whole step in the rank's launch counts;
+              (b) two ranks spawned on cuda:0 with gloo (the mesh's backend
+              argument), configs/msvd.json in float32 with dropout 0: 3 DDP
+              steps on their halves of one batch of 64 against one process
+              on the joined batch (loss rtol 2e-5, parameters atol 1e-3),
+              the loss kernels launched on each rank, ms per DDP step
+              against the in-process step; (c) the same two ranks decode
+              the 160 eval videos (each its rows of every batch, the tokens
+              gathered) with phase 4's seeded weights in bfloat16 and in
+              float32 against one process: tokens up to each row's end
+              token equal, or parting only at near-ties
+              (decode.first_mismatch_gaps: 0.0234 in bfloat16, 1e-3 in
+              float32) in at most 6 of the 192 rows; each rank's launches
 
 Times: every row of the ``kernels`` line names its ``timer``. ``cuda_events``
 is ``cuda_time``, CUDA events around a Python loop of calls. ``graph_replay``
@@ -228,9 +253,9 @@ run on the same inputs by the same timer. ``cold_weight_ms`` replays the
 generator kernel on two copies of the weight in turn (94 MB against 50 MB of
 L2), so that no call finds its weight left in L2 by the call before.
 
-Launch counts are set to 0 just before phases 4, 5, 7, 9, 10, 13, 14, 17, 18
-and 19 (each predict run and the video server in 17, each predict run in 19)
-and read just after each:
+Launch counts are set to 0 just before phases 4, 5, 7, 9, 10, 13, 14, 17, 18,
+19 and 20 (each predict run and the video server in 17, each predict run in
+19, each run and each rank in 20) and read just after each:
 the server must have launched the whole-step kernel,
 the B=128 decode the other two decode kernels, training the three loss
 kernels, the beam eval the stack and top-k kernels once per beam token, the
@@ -238,7 +263,8 @@ multi phase the other three, the long training the trainable attention kernel
 forward and backward, the long eval the inference attention kernel, the video
 path the whole step (greedy, served) and the stack and top-k (beam), cross
 training the three loss kernels, the I3D predict runs the whole step (greedy)
-and the stack and top-k (beam). The line
+and the stack and top-k (beam), the torchrun rank and each DDP rank the three
+loss kernels and the whole step. The line
 before the last is a JSON object with one entry per kernel; the last line is
 {"ok": true, "device": {...}}, printed only when every phase passed. Any
 failure exits 1 before it.
@@ -2672,8 +2698,8 @@ def run_training(repo: Path, root: Path, vocab: Path):
     losses, val_parts = [], []
     make_train, make_eval = loop.make_train_step, loop.make_eval_step
 
-    def recording_train(task):
-        step = make_train(task)
+    def recording_train(task, **kw):
+        step = make_train(task, **kw)
 
         def wrapped(state, batch):
             state, metrics = step(state, batch)
@@ -2682,8 +2708,8 @@ def run_training(repo: Path, root: Path, vocab: Path):
 
         return wrapped
 
-    def recording_eval(task):
-        step = make_eval(task)
+    def recording_eval(task, **kw):
+        step = make_eval(task, **kw)
 
         def wrapped(model, batch):
             parts = step(model, batch)
@@ -3355,8 +3381,8 @@ def run_long_training(repo: Path, root: Path, vocab: Path):
     losses = []
     make_train = loop.make_train_step
 
-    def recording_train(task):
-        step = make_train(task)
+    def recording_train(task, **kw):
+        step = make_train(task, **kw)
 
         def wrapped(state, batch):
             state, metrics = step(state, batch)
@@ -4087,8 +4113,8 @@ def run_cross(repo: Path, root: Path, vocab: Path, card: str):
         f"vocab")
     metrics, make_train = [], loop.make_train_step
 
-    def recording_train(task):
-        step = make_train(task)
+    def recording_train(task, **kw):
+        step = make_train(task, **kw)
 
         def wrapped(state, batch):
             state, m = step(state, batch)
@@ -4508,6 +4534,301 @@ def run_i3d(repo: Path, root: Path, vocab: Path, card: str):
     return launches, report
 
 
+# ---- phase 20: the parallel layer ---------------------------------------------
+
+DDP_STEPS, DDP_TIME_STEPS = 3, 10
+
+
+def ddp_config(repo: Path, root: Path, vocab: Path, tag: str, **model) -> Path:
+    """The training phase's config (one epoch: TRAIN_STEPS steps, validation,
+    eval decode) under its own checkpoint tag, with ``model`` fields changed."""
+    cfg = json.loads(train_config(repo, root, vocab, 1).read_text())
+    cfg["train"]["tag"] = tag
+    cfg["model"].update(model)
+    path = root / f"msvd_{tag}.json"
+    path.write_text(json.dumps(cfg))
+    return path
+
+
+def reset_all_launches():
+    from vct_tpu_torch.ops import attention_kernels as ak
+    from vct_tpu_torch.ops import decode_kernels as dk
+    from vct_tpu_torch.ops import loss_kernels as lk
+
+    for fn in lk.WRAPPERS + dk.WRAPPERS:
+        fn.launches = 0
+    ak.fused_attention.launches = ak.fused_attention_trainable.launches = 0
+    ak.fused_attention_trainable.backward_launches = 0
+
+
+def all_launches() -> dict:
+    """Launches of every kernel wrapper in this process since the last
+    ``reset_all_launches``."""
+    from vct_tpu_torch.ops import attention_kernels as ak
+    from vct_tpu_torch.ops import decode_kernels as dk
+    from vct_tpu_torch.ops import loss_kernels as lk
+
+    counts = {fn.__name__: fn.launches for fn in lk.WRAPPERS + dk.WRAPPERS}
+    counts.update(fused_attention=ak.fused_attention.launches,
+                  fused_attention_trainable=ak.fused_attention_trainable.launches,
+                  fused_attention_trainable_backward=(
+                      ak.fused_attention_trainable.backward_launches))
+    return counts
+
+
+def train_record(argv) -> dict:
+    """``vct_tpu_torch.cli.train`` on ``argv`` in this process (joining
+    torchrun's group when its environment names one) -> the run's mesh,
+    per-epoch history, scores and kernel launches."""
+    from vct_tpu_torch.cli import train as train_cli
+
+    reset_all_launches()
+    tr, scores = train_cli.run(train_cli.build_parser().parse_args(argv))
+    torch.cuda.synchronize()
+    return {"world": tr.mesh.world, "backend": tr.mesh.backend, "device": str(tr.device),
+            "epochs": tr.history, "scores": scores, "launches": all_launches()}
+
+
+def nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def run_torchrun(repo: Path, root: Path, vocab: Path, card: str) -> dict:
+    """(a) ``torchrun --standalone --nproc_per_node 1``: the training CLI's
+    ``run`` under torchrun's group (this script's ``--torchrun-rank`` entry),
+    NCCL at world size 1, the training phase's epoch, against two in-process
+    runs of the same CLI -> its launches."""
+    import os
+
+    cfg = ddp_config(repo, root, vocab, "ddp1")
+    argv = ["-c", str(cfg), "--no_tensorboard"]
+    runs = [train_record(argv) for _ in range(2)]
+    path = root / "record_torchrun.json"
+    env = {k: v for k, v in os.environ.items() if k not in ("RANK", "WORLD_SIZE")}
+    env["PYTHONPATH"] = str(repo)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                           "--nproc_per_node", "1", str(repo / "chip_smoke.py"),
+                           "--torchrun-rank", str(path), *argv],
+                          cwd=repo, env=env, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode:
+        fail(f"torchrun: exit {proc.returncode}\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    ran = json.loads(path.read_text())
+    if (ran["world"], ran["backend"], ran["device"]) != (1, "nccl", "cuda:0"):
+        fail(f"torchrun: world {ran['world']}, backend {ran['backend']}, {ran['device']}")
+    a, b, t = (r["epochs"][0]["step_losses"] for r in runs + [ran])
+    if not len(a) == len(b) == len(t) == TRAIN_STEPS:
+        fail(f"torchrun: {len(t)} steps, in-process {len(a)} and {len(b)}")
+    spread = max(abs(x - y) for x, y in zip(a, b))
+    diff = max(abs(x - y) for x, y in zip(t, a))
+    if diff > spread:
+        fail(f"torchrun: per-step losses {diff} from the in-process run's, whose two runs "
+             f"part by {spread}: {t} vs {a}")
+    val_diff = max(abs(ran["epochs"][0]["val"][k] - runs[0]["epochs"][0]["val"][k])
+                   for k in runs[0]["epochs"][0]["val"])
+    launches = ran["launches"]
+    want = {"softmax_stats": TRAIN_STEPS + VAL_STEPS,
+            "clipped_prob_stats": TRAIN_STEPS + VAL_STEPS, "sce_backward_tiles": TRAIN_STEPS}
+    if {k: launches[k] for k in want} != want or not launches["fused_whole_step"]:
+        fail(f"torchrun: launches {nonzero(launches)}, expected {want} and the eval decode's "
+             f"fused_whole_step")
+    say(f"  torchrun, NCCL, world size 1: {TRAIN_STEPS} steps, losses "
+        f"{'bit for bit' if diff == 0 else f'within {diff:.3g}'} of the in-process run's "
+        f"(two in-process runs part by {spread:.3g}), validation within {val_diff:.3g}, "
+        f"CIDEr {ran['scores']['CIDEr']:.4f} (in process {runs[0]['scores']['CIDEr']:.4f}); "
+        f"rank 0 launches {nonzero(launches)}; {seconds:.1f} s with start-up [{card}]")
+    return {"launches": launches, "seconds": seconds, "spread": spread, "diff": diff}
+
+
+def _ddp_rank(rank: int, repo: str, work: str, cfg_path: str, card: str) -> None:
+    """(b) and (c) as one of two ranks on cuda:0, gloo through the mesh's
+    backend argument."""
+    sys.path.insert(0, repo)
+    from vct_tpu_torch.cli.common import load_config
+    from vct_tpu_torch.decode import make_auto_greedy_fn
+    from vct_tpu_torch.parallel import mesh as pm
+    from vct_tpu_torch.train.loop import Trainer
+
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = pm.make_mesh(2, 1, device=dev, backend="gloo", rank=rank, world_size=2,
+                        init_method=f"file://{work}/rendezvous", timeout=600)
+    out = {"mesh": (mesh.backend, mesh.data, mesh.data_index)}
+    reset_all_launches()
+    tr = Trainer(load_config(cfg_path), device=dev, mesh=mesh, log=lambda *_: None)
+    batch = torch.load(f"{work}/ddp_batch.pt", map_location=dev, weights_only=False)
+    local = pm.shard_batch(mesh, batch)
+    out["losses"] = []
+    for _ in range(DDP_STEPS):
+        tr.state, metrics = tr.train_step(tr.state, local)
+        out["losses"].append(float(metrics["loss"]))
+    out["params"] = pm.full_state_dict(mesh, tr.model)
+    torch.cuda.synchronize()
+    out["train_launches"] = all_launches()
+    t0 = time.perf_counter()
+    for _ in range(DDP_TIME_STEPS):
+        tr.train_step(tr.state, local)
+    torch.cuda.synchronize()
+    out["step_ms"] = (time.perf_counter() - t0) * 1e3 / DDP_TIME_STEPS
+
+    reset_all_launches()
+    batches = torch.load(f"{work}/ddp_eval.pt", weights_only=False)
+    for dtype in DDP_DECODE_DTYPES:
+        decode = make_auto_greedy_fn(eval_model(cfg_path, dtype, dev), 30, 101, 102, mesh=mesh)
+        tokens = []
+        t0 = time.perf_counter()
+        for feats, masks in batches:
+            tokens.append(decode([f.to(dev) for f in feats],
+                                 [m.to(dev) for m in masks])[0].cpu())
+        torch.cuda.synchronize()
+        out[f"decode_seconds_{dtype}"] = time.perf_counter() - t0
+        out[f"tokens_{dtype}"] = tokens
+    out["decode_launches"] = all_launches()
+    torch.save(out, f"{work}/ddp_rank{rank}.pt")
+    pm.destroy()
+
+
+DDP_DECODE_DTYPES = ("bfloat16", "float32")
+# Two ranks against one process may part only at near-ties, and in few rows:
+# in bfloat16 one and two ranks parted in 2 of 192 rows at top-2 gaps up to
+# 0.0156 (one bfloat16 step at the logits' size), while ranks that decoded
+# in float32 against a bfloat16 reference parted in 80 rows at gaps up to
+# 0.0312; each bound sits between the two. float32 gave the one-process
+# tokens bit for bit.
+DDP_DECODE_NEAR_TIE = {"bfloat16": 0.0234, "float32": 1e-3}
+DDP_DECODE_MAX_PARTED = 6
+
+
+def eval_model(cfg_path, dtype: str, dev):
+    """The seeded MSVD captioner (phase 4's weights) in ``dtype`` on ``dev``."""
+    from vct_tpu_torch.cli.common import load_config, make_trainer_pieces
+
+    cfg = load_config(str(cfg_path))
+    cfg = cfg.replace(tpu=dataclasses.replace(cfg.tpu, dtype=dtype))
+    model, _ = make_trainer_pieces(cfg, torch.device("cpu"), seed=SEED)
+    return model.to(dev).to_compute_dtype()
+
+
+def run_ddp(repo: Path, root: Path, vocab: Path, card: str) -> dict:
+    """(b) two ranks on cuda:0 with gloo, float32, dropout 0: DDP_STEPS steps
+    against one process on the joined batch (loss rtol 2e-5, parameters atol
+    1e-3); (c) the sharded eval decode of the EVAL_VIDEOS videos at two ranks
+    against one, in bfloat16 and float32 (tokens up to each row's end token
+    equal, or parting only at near-ties, DDP_DECODE_NEAR_TIE, in at most
+    DDP_DECODE_MAX_PARTED rows)."""
+    from vct_tpu_torch.cli.common import load_config
+    from vct_tpu_torch.data.loader import build_dataloader
+    from vct_tpu_torch.decode import first_mismatch_gaps, make_auto_greedy_fn, through_end
+    from vct_tpu_torch.parallel.mesh import spawn
+
+    cfg_path = ddp_config(repo, root, vocab, "ddp2", dropout=0.0)
+    cfg_d = json.loads(cfg_path.read_text())
+    cfg_d["tpu"]["dtype"] = "float32"
+    cfg_path.write_text(json.dumps(cfg_d))
+    work = root / "ddp"
+    work.mkdir()
+    tr = make_trainer_from(cfg_path, torch.device("cuda", 0))
+    batch = first_batch(tr)
+    torch.save({k: ([t.cpu() for t in v] if isinstance(v, list) else v.cpu())
+                for k, v in batch.items()}, work / "ddp_batch.pt")
+    losses = []
+    for _ in range(DDP_STEPS):
+        tr.state, metrics = tr.train_step(tr.state, batch)
+        losses.append(float(metrics["loss"]))
+    params = {k: v.detach().cpu() for k, v in tr.model.state_dict().items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DDP_TIME_STEPS):
+        tr.train_step(tr.state, batch)
+    torch.cuda.synchronize()
+    one_ms = (time.perf_counter() - t0) * 1e3 / DDP_TIME_STEPS
+
+    cfg = load_config(str(eval_config(repo, root, vocab)))
+    _, loader = build_dataloader(cfg.data.eval, cfg.tpu)
+    eval_batches = [([torch.from_numpy(f) for f in b.feats],
+                     [torch.from_numpy(m) for m in b.masks]) for b in loader]
+    torch.save(eval_batches, work / "ddp_eval.pt")
+    dev = torch.device("cuda", 0)
+    models, want = {}, {}
+    for dtype in DDP_DECODE_DTYPES:
+        models[dtype] = eval_model(cfg_path, dtype, dev)
+        decode = make_auto_greedy_fn(models[dtype], 30, 101, 102)
+        want[dtype] = [decode([f.to(dev) for f in feats], [m.to(dev) for m in masks])[0].cpu()
+                       for feats, masks in eval_batches]
+
+    t0 = time.perf_counter()
+    spawn(_ddp_rank, 2, args=(str(repo), str(work), str(cfg_path), card), timeout=600)
+    seconds = time.perf_counter() - t0
+    ranks = [torch.load(work / f"ddp_rank{r}.pt", weights_only=False) for r in range(2)]
+    for r, got in enumerate(ranks):
+        if got["mesh"] != ("gloo", 2, r):
+            fail(f"ddp rank {r}: mesh {got['mesh']}")
+    got = ranks[0]
+    for i, (x, y) in enumerate(zip(got["losses"], losses)):
+        if not abs(x - y) <= 2e-5 * abs(y):
+            fail(f"ddp: step {i} loss {x} at two ranks, {y} in one process")
+    worst = 0.0
+    for k, v in params.items():
+        worst = max(worst, float((got["params"][k] - v).abs().max()))
+    if not worst <= 1e-3:
+        fail(f"ddp: parameters {worst} apart after {DDP_STEPS} steps (bound 1e-3)")
+    for r, rank in enumerate(ranks):
+        l = rank["train_launches"]
+        if not l["softmax_stats"] == l["clipped_prob_stats"] == l["sce_backward_tiles"] \
+                == DDP_STEPS:
+            fail(f"ddp rank {r}: loss kernel launches {nonzero(l)}, expected {DDP_STEPS} each")
+        if not rank["decode_launches"]["fused_whole_step"]:
+            fail(f"ddp rank {r}: the sharded decode never launched fused_whole_step")
+    say(f"  2 ranks on cuda:0 (gloo), float32: {DDP_STEPS} steps, losses "
+        f"{[f'{x:.6f}' for x in got['losses']]} vs {[f'{y:.6f}' for y in losses]} in one "
+        f"process, parameters within {worst:.3g}; DDP step {got['step_ms']:.2f} ms "
+        f"(rank 0; {ranks[1]['step_ms']:.2f} ms rank 1, {BATCH // 2} rows each) vs "
+        f"{one_ms:.2f} ms in one process ({BATCH} rows) [{card}]")
+    for r, rank in enumerate(ranks):
+        say(f"  rank {r} launches: train {nonzero(rank['train_launches'])}, decode "
+            f"{nonzero(rank['decode_launches'])}")
+    partings = {}
+    for dtype in DDP_DECODE_DTYPES:
+        near, gaps_all = 0.0, []
+        for (feats, masks), g, w in zip(eval_batches, got[f"tokens_{dtype}"], want[dtype]):
+            g, w = through_end(g, 102), through_end(w, 102)  # what the captions read
+            if torch.equal(g, w):
+                continue
+            gaps = first_mismatch_gaps(models[dtype], [f.to(dev) for f in feats],
+                                       [m.to(dev) for m in masks], g.to(dev), w.to(dev))
+            gaps_all += gaps
+            near = max([near] + [gap for _, _, gap in gaps])
+            if near > DDP_DECODE_NEAR_TIE[dtype]:
+                fail(f"ddp decode ({dtype}): tokens part from one process's at top-2 gaps "
+                     f"{gaps}")
+        if len(gaps_all) > DDP_DECODE_MAX_PARTED:
+            fail(f"ddp decode ({dtype}): {len(gaps_all)} rows part from one process's "
+                 f"(at most {DDP_DECODE_MAX_PARTED}): {gaps_all}")
+        partings[dtype] = len(gaps_all)
+        what = "the one-process tokens bit for bit" if not gaps_all else (
+            f"{len(gaps_all)} of {len(eval_batches) * BATCH} rows part from one process's at "
+            f"near-ties (top-2 gaps up to {near:.3g}, "
+            f"{sum(gap == 0 for _, _, gap in gaps_all)} of them 0)")
+        say(f"  sharded eval decode ({dtype}), {EVAL_VIDEOS} videos in {len(eval_batches)} "
+            f"batches of {BATCH} at 2 ranks: {what}; "
+            f"{ranks[0][f'decode_seconds_{dtype}']:.2f} s [{card}]")
+    say(f"  both ranks took {seconds:.1f} s with start-up [{card}]")
+    return {"ddp_step_ms": got["step_ms"], "one_process_step_ms": one_ms,
+            "ddp_phase_spawn_seconds": seconds,
+            **{f"ddp_decode_partings_{k}": v for k, v in partings.items()},
+            "ranks": [{"train": nonzero(r["train_launches"]),
+                       "decode": nonzero(r["decode_launches"])} for r in ranks]}
+
+
+def make_trainer_from(cfg_path: Path, dev):
+    from vct_tpu_torch.cli.common import load_config
+    from vct_tpu_torch.train.loop import Trainer
+
+    return Trainer(load_config(str(cfg_path)), device=dev, log=lambda *_: None)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs a CUDA card")
@@ -4515,6 +4836,10 @@ def main() -> int:
     if not (repo / "vct_tpu_torch" / "csrc").is_dir():
         fail(f"{repo} holds no vct_tpu_torch package: run from a checkout")
     sys.path.insert(0, str(repo))
+    if "--torchrun-rank" in sys.argv[1:]:  # (a)'s process, started by torchrun
+        at = sys.argv.index("--torchrun-rank")
+        Path(sys.argv[at + 1]).write_text(json.dumps(train_record(sys.argv[at + 2:])))
+        return 0
     variant = None
     if "--stack-variant" in sys.argv[1:]:
         variant = Path(sys.argv[sys.argv.index("--stack-variant") + 1]).resolve()
@@ -4578,6 +4903,10 @@ def main() -> int:
             return 0
         if variant is not None:
             stack_variant(variant, model, fw, heads, tm, card)
+            return 0
+        if "--parallel" in sys.argv[1:]:
+            run_torchrun(repo, work, vocab, card)
+            run_ddp(repo, work, vocab, card)
             return 0
         say(f"model: configs/msvd.json, {n_params} parameters and buffers, vocab "
             f"{model.config.vocab_size} (padded {fw['wg'].shape[1]}), {cfg.tpu.dtype}")
@@ -4668,6 +4997,18 @@ def main() -> int:
         say(f"  phases video, cross-train and i3d took {report['video_phase_seconds']:.1f} s, "
             f"{report['cross_phase_seconds']:.1f} s and {report['i3d_phase_seconds']:.1f} s "
             f"[{card}]")
+        say(f"phase parallel: torchrun at world size 1 (NCCL) against the in-process CLI; "
+            f"2 ranks on cuda:0 (gloo): {DDP_STEPS} float32 steps against one process on the "
+            f"joined batch, the sharded eval decode of {EVAL_VIDEOS} videos against 1 rank")
+        t0 = time.perf_counter()
+        torchrun = run_torchrun(repo, work, vocab, card)
+        ddp_report = run_ddp(repo, work, vocab, card)
+        report.update({k: v for k, v in ddp_report.items() if k != "ranks"},
+                      torchrun_seconds=torchrun["seconds"],
+                      torchrun_loss_diff=torchrun["diff"],
+                      in_process_loss_spread=torchrun["spread"],
+                      parallel_phase_seconds=time.perf_counter() - t0)
+        say(f"  phase parallel took {report['parallel_phase_seconds']:.1f} s [{card}]")
 
     say(json.dumps(report))
     sources = {**{k: SOURCE for k in REPLACES},
@@ -4692,6 +5033,11 @@ def main() -> int:
                 for k in ("fused_layers_step", "fused_norm_generator_topk")}}
     for name, n in cross_launches.items():
         extra[name] = {**extra.get(name, {}), "cross_train_launches": n}
+    for name in (*LOSS_REPLACES, "fused_whole_step"):
+        extra[name] = {**extra.get(name, {}),
+                       "torchrun_launches": torchrun["launches"][name],
+                       "ddp_rank_launches": [r["train"].get(name, 0) + r["decode"].get(name, 0)
+                                             for r in ddp_report["ranks"]]}
     say(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name], "replaces": replaces,
          "launches": launches[name], "max_abs_err": errs[name], "timer": "cuda_events",

@@ -130,6 +130,20 @@ def test_serving_path_loads_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_parallel_layer_loads_no_jax():
+    """``vct_tpu_torch.parallel`` and what drives it (the DDP step, the
+    Trainer on a mesh, the training CLI that spawns ranks) load no JAX and
+    nothing of ``vct_tpu``: every spawned rank imports them."""
+    code = ("import sys, vct_tpu_torch.parallel, vct_tpu_torch.parallel.mesh, "
+            "vct_tpu_torch.train.step, vct_tpu_torch.train.state, vct_tpu_torch.train.loop, "
+            "vct_tpu_torch.cli.train, vct_tpu_torch.decode; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{sorted(FORBIDDEN | {'vct_tpu'})!r}]; print(bad); sys.exit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_clean_env(),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_chip_smoke_fails_without_cuda():
     proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO, env=_clean_env(),
                           capture_output=True, text=True, timeout=120)

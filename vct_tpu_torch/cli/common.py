@@ -42,12 +42,16 @@ def load_config(path: str) -> Config:
 
 
 def add_device_args(parser: argparse.ArgumentParser) -> None:
-    """Reference device flags (``--cpu``/``--gpu``). ``--gpu`` (the default)
-    means the first CUDA device and fails when there is none: nothing moves to
-    the CPU unless ``--cpu`` asks for it."""
+    """Reference device flags (``--cpu``/``--gpu``/``--multi_gpu``). ``--gpu``
+    (the default) means the first CUDA device and fails when there is none:
+    nothing moves to the CPU unless ``--cpu`` asks for it. ``--multi_gpu``
+    means every visible card to the training CLI (``-ws -1``); the other CLIs
+    drive one device and accept it without effect, as the reference's do."""
     group = parser.add_mutually_exclusive_group()
     group.add_argument("--cpu", action="store_true", help="run on the host CPU")
     group.add_argument("--gpu", action="store_true", help="run on cuda:0 (default)")
+    group.add_argument("--multi_gpu", action="store_true",
+                       help="train data-parallel on every visible card (one process each)")
 
 
 def resolve_device(args: argparse.Namespace) -> torch.device:

@@ -10,6 +10,14 @@ early exit once per 8 steps, so the device is not stalled every token.
 Beam search is fixed-width with frozen finished beams and the GNMT length
 penalty; among equal candidates the lowest flat index wins, as
 ``jax.lax.top_k`` has it (``torch.topk`` promises no order among ties).
+
+Over a mesh (``parallel.mesh``): with ``mesh`` given, each data rank decodes
+its rows of the batch on the single-device route, with no collective inside
+the decode, and the tokens are gathered in batch order. A model whose LM head
+is split by vocab (tensor parallelism) decodes on the module path: greedy
+merges the shards' (max, argmax) with ties to the lowest vocab index, beam
+search the shards' top-k with the same rule, and the log-softmax takes its
+normaliser from every shard.
 """
 
 from __future__ import annotations
@@ -20,6 +28,78 @@ from typing import Callable, Dict, Iterable, Iterator, List, Optional, Sequence,
 import torch
 
 from vct_tpu_torch.ops.decode_kernels import NEG_INF, topk_first_win
+from vct_tpu_torch.parallel.mesh import (
+    all_reduce_max,
+    all_reduce_sum,
+    gather_rows,
+    gather_shards,
+    shard_batch,
+)
+
+
+def _head_tp(model):
+    """The mesh of a vocab-split LM head, or None."""
+    return model.cap_decoder.generator.tp
+
+
+def _is_split(model) -> bool:
+    """Whether tensor parallelism split any of the model's weights (the
+    kernels take whole weights)."""
+    return bool(getattr(model, "tp_split", None))
+
+
+def merge_argmax(vals: torch.Tensor, idxs: torch.Tensor) -> torch.Tensor:
+    """Per-shard (max [M, B], whole-vocab argmax [M, B]) in vocab order ->
+    the whole vocab's argmax [B]; among equal maxima the lowest shard, so the
+    lowest index, wins."""
+    best = torch.argmax(vals, dim=0, keepdim=True)  # first index of the max
+    return torch.gather(idxs, 0, best)[0]
+
+
+def merge_topk(vals: torch.Tensor, idxs: torch.Tensor, k: int):
+    """Candidates [B, N] (values, whole indices), each shard's top-k side by
+    side -> the top k (values, indices) [B, k] by value, ties to the lowest
+    index (``topk_first_win`` over the whole)."""
+    order = torch.sort(idxs, dim=1, stable=True).indices
+    vals, idxs = torch.gather(vals, 1, order), torch.gather(idxs, 1, order)
+    order = torch.sort(vals, dim=1, descending=True, stable=True).indices[:, :k]
+    return torch.gather(vals, 1, order), torch.gather(idxs, 1, order)
+
+
+def vocab_argmax(model, logits: torch.Tensor) -> torch.Tensor:
+    """argmax over the whole vocab (first index wins) of ``logits``, this
+    rank's vocab shard when the LM head is split."""
+    tp = _head_tp(model)
+    if tp is None:
+        return torch.argmax(logits, dim=-1)
+    val, idx = torch.max(logits.float(), dim=-1)  # first index of the max
+    idx = (idx + model.cap_decoder.generator.vocab_start).double()
+    return merge_argmax(gather_shards(val[None], 0, tp),
+                        gather_shards(idx[None], 0, tp)).long()
+
+
+def vocab_log_softmax(model, logits: torch.Tensor) -> torch.Tensor:
+    """float32 log-softmax over the whole vocab, for this rank's shard."""
+    tp = _head_tp(model)
+    z = logits.float()
+    if tp is None:
+        return torch.log_softmax(z, dim=-1)
+    m = all_reduce_max(z.max(dim=-1, keepdim=True).values, tp.model_group)
+    s = all_reduce_sum(torch.exp(z - m).sum(dim=-1, keepdim=True), tp.model_group)
+    return z - (m + torch.log(s))
+
+
+def _sharded_topk(model, cand: torch.Tensor, k: int):
+    """``topk_first_win`` over [B, K, V] candidates whose vocab axis is this
+    rank's shard -> (values [B, k], flat indices [B, k] over K x V_whole)."""
+    tp = _head_tp(model)
+    b, kk, v = cand.shape
+    vals, flat = topk_first_win(cand.reshape(b, kk * v), k)
+    if tp is None:
+        return vals, flat
+    whole = (flat // v) * (v * tp.model) + model.cap_decoder.generator.vocab_start + flat % v
+    return merge_topk(gather_shards(vals, 1, tp),
+                      gather_shards(whole.double(), 1, tp).long(), k)
 
 
 @torch.no_grad()
@@ -46,7 +126,7 @@ def greedy_generate(model, video_feats: Sequence[torch.Tensor],
     for i in range(max_len - 1):
         logits, caches, attn = model.decode_step(tokens[:, i], caches, i, mem_mask,
                                                  return_attn=collect_attn)
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        nxt = vocab_argmax(model, logits).to(torch.int32)
         nxt = torch.where(all_done, pad_id, nxt)
         if collect_attn:
             attn_buf[i] = torch.where(all_done, 0.0, attn[:, :, 0, :].float())
@@ -58,21 +138,47 @@ def greedy_generate(model, video_feats: Sequence[torch.Tensor],
     return tokens, attn_buf
 
 
+def _over_rows(fn: Callable, mesh, batch_dim_of_second: Optional[int]) -> Callable:
+    """``fn`` on this data rank's rows of the batch, its outputs gathered
+    whole in batch order (the second output along ``batch_dim_of_second``,
+    or passed as it is when None). A row's tokens up to its end token are
+    the one-process tokens; after it they are not part of the result (the
+    loop writes finished rows until every row of its own launch is done):
+    compare two decodes through ``through_end``."""
+    if mesh is None or mesh.data == 1:
+        return fn
+
+    def sharded(video_feats, video_masks):
+        feats = shard_batch(mesh, list(video_feats))
+        masks = shard_batch(mesh, list(video_masks)) if video_masks else video_masks
+        first, second = fn(feats, masks)
+        first = gather_rows(first.double(), mesh).to(first.dtype)
+        if second is not None and batch_dim_of_second is not None:
+            second = gather_rows(second.movedim(batch_dim_of_second, 0), mesh).movedim(
+                0, batch_dim_of_second)
+        return first, second
+
+    return sharded
+
+
 def make_auto_greedy_fn(model, max_len: int, start_id: int, end_id: int,
-                        collect_attn: bool = False) -> Callable:
+                        collect_attn: bool = False, mesh=None) -> Callable:
     """fn(feats, masks) -> (tokens, attn): the decode kernels
     (``decode_fast``; on CPU tensors their plain versions), or the module
-    path when attention maps are collected or the model has its kernels off
-    (``tpu.use_pallas_attention`` false). The kernel weights are extracted
-    once, at the first call: load the checkpoint before decoding."""
+    path when attention maps are collected, the model has its kernels off
+    (``tpu.use_pallas_attention`` false) or tensor parallelism split its
+    weights. The kernel weights are extracted once, at the first
+    call: load the checkpoint before decoding. With a ``mesh`` each data rank
+    decodes its rows (the batch must divide) and every rank gets the whole
+    batch's tokens."""
 
     def module_fn(video_feats, video_masks):
         return greedy_generate(model, video_feats, video_masks, max_len=max_len,
                                start_id=start_id, end_id=end_id,
                                collect_attn=collect_attn)
 
-    if collect_attn or not model.tpu.use_pallas_attention:
-        return module_fn
+    if collect_attn or not model.tpu.use_pallas_attention or _is_split(model):
+        return _over_rows(module_fn, mesh, 2)
 
     from vct_tpu_torch.decode_fast import extract_fast_weights, greedy_generate_fused
 
@@ -85,7 +191,7 @@ def make_auto_greedy_fn(model, max_len: int, start_id: int, end_id: int,
                                      start_id=start_id, end_id=end_id,
                                      fw=weights["fw"])
 
-    return fused_fn
+    return _over_rows(fused_fn, mesh, 2)
 
 
 # ---------------------------------------------------------------------------
@@ -169,17 +275,20 @@ def beam_generate(model, video_feats: Sequence[torch.Tensor],
     caches = model.init_cache(b * k, max_len, memory_k)
     tokens, scores, finished, lengths = beam_start(b, k, max_len, start_id, pad_id, dev)
     vocab = model.config.vocab_size
-    frozen = torch.full((vocab,), NEG_INF, dtype=torch.float32, device=dev)
-    frozen[pad_id] = 0.0
+    head = model.cap_decoder.generator
+    start, width = head.vocab_start, head.weight.shape[0]  # this rank's vocab columns
+    frozen = torch.full((width,), NEG_INF, dtype=torch.float32, device=dev)
+    if start <= pad_id < start + width:
+        frozen[pad_id - start] = 0.0
     batch_base = torch.arange(b, device=dev)[:, None] * k
 
     for i in range(max_len - 1):
         logits, caches, _ = model.decode_step(_flatten_beam(tokens)[:, i], caches, i,
                                               mem_mask_k)
-        logp = _unflatten_beam(torch.log_softmax(logits.float(), dim=-1), b, k)
+        logp = _unflatten_beam(vocab_log_softmax(model, logits), b, k)
         logp = torch.where(finished[..., None], frozen, logp)
-        cand = scores[..., None] + logp  # [B, K, V]
-        scores, top_idx = topk_first_win(cand.reshape(b, k * vocab), k)
+        cand = scores[..., None] + logp  # [B, K, V] (V: this rank's vocab shard)
+        scores, top_idx = _sharded_topk(model, cand, k)
         beam_idx = top_idx // vocab
         tok_idx = (top_idx % vocab).to(torch.int32)
         tokens, finished, lengths = beam_advance(tokens, finished, lengths, beam_idx,
@@ -208,7 +317,7 @@ def make_beam_fn(model, max_len: int, start_id: int, end_id: int, beam_size: int
 
 
 def make_auto_beam_fn(model, max_len: int, start_id: int, end_id: int, beam_size: int,
-                      length_penalty: float = 0.6) -> Callable:
+                      length_penalty: float = 0.6, mesh=None) -> Callable:
     """fn(feats, masks) -> (tokens, scores): beam search on the decode kernels
     (``decode_fast.beam_generate_fused``: one stack launch and one
     norm/generator/top-k launch per token; on CPU tensors their plain
@@ -216,10 +325,12 @@ def make_auto_beam_fn(model, max_len: int, start_id: int, end_id: int, beam_size
     (``tpu.use_pallas_attention`` false). On a card a beam wider than the
     top-k kernel carries raises ``ValueError``; it never falls to the module
     path. The kernel weights are extracted once, at the first call: load the
-    checkpoint before decoding. One process drives one device; the sharded
-    variants come with the multi-device slice."""
-    if not model.tpu.use_pallas_attention:
-        return make_beam_fn(model, max_len, start_id, end_id, beam_size, length_penalty)
+    checkpoint before decoding. A model whose weights tensor parallelism
+    split takes the module path. With a ``mesh`` each data rank searches its rows and
+    every rank gets the whole batch's tokens and scores."""
+    if not model.tpu.use_pallas_attention or _is_split(model):
+        return _over_rows(make_beam_fn(model, max_len, start_id, end_id, beam_size,
+                                       length_penalty), mesh, 0)
 
     from vct_tpu_torch.decode_fast import extract_fast_weights, make_fused_beam_fn
 
@@ -232,7 +343,7 @@ def make_auto_beam_fn(model, max_len: int, start_id: int, end_id: int, beam_size
                                                fw=extract_fast_weights(model))
         return weights["fn"](video_feats, video_masks)
 
-    return fn
+    return _over_rows(fn, mesh, 0)
 
 
 @torch.no_grad()
@@ -261,6 +372,14 @@ def first_mismatch_gaps(model, video_feats, video_masks, got: torch.Tensor,
             if int(first[r]) == i + 1:
                 gaps[r] = float(top[r, 0] - top[r, 1])
     return [(r, int(first[r]), gaps[r]) for r in rows]
+
+
+def through_end(tokens: torch.Tensor, end_id: int, pad_id: int = 0) -> torch.Tensor:
+    """``tokens`` with every position after a row's first ``end_id`` set to
+    ``pad_id``: what a caption reads (``decode_caption`` stops there)."""
+    ended = (tokens == end_id).to(torch.int32).cumsum(dim=1)
+    after = (ended - (tokens == end_id).to(torch.int32)) > 0
+    return tokens.masked_fill(after, pad_id)
 
 
 def detokenize_batch(tokenizer, tokens) -> List[str]:

@@ -12,13 +12,22 @@ from torch import nn
 
 from vct_tpu_torch.models.embeddings import PositionalEmbedding
 from vct_tpu_torch.models.layers import TransformerDecoder, linear
-from vct_tpu_torch.models.losses import cross_entropy_parts, sce_loss_parts
+from vct_tpu_torch.models.losses import (
+    cross_entropy_parts,
+    sce_loss_parts,
+    vocab_parallel_sce_parts,
+)
 from vct_tpu_torch.ops.attention import causal_bias, combine_bias, padding_bias
 from vct_tpu_torch.ops.fused_loss import linear_sce_parts
+from vct_tpu_torch.parallel.mesh import copy_to_model
 
 
 class LMHead(nn.Module):
-    """Vocab projection; keys ``generator.{weight [V, E], bias [V]}``."""
+    """Vocab projection; keys ``generator.{weight [V, E], bias [V]}``. With
+    ``tp`` set (``parallel.mesh.shard_train_state``) it holds the vocab rows
+    ``[vocab_start, vocab_start + V / model)`` and returns their logits."""
+
+    TP_PARAM = "weight"
 
     def __init__(self, in_dim: int, vocab_size: int, *, dtype=torch.float32,
                  device=None):
@@ -26,8 +35,15 @@ class LMHead(nn.Module):
         self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(vocab_size, in_dim, device=device))
         self.bias = nn.Parameter(torch.zeros(vocab_size, device=device))
+        self.tp = None
+
+    @property
+    def vocab_start(self) -> int:
+        return 0 if self.tp is None else self.tp.model_index * self.weight.shape[0]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            x = copy_to_model(x, self.tp)
         return linear(x, self.weight, self.bias, self.dtype)
 
 
@@ -68,13 +84,18 @@ class CapDecoder(nn.Module):
                 tgt_padding_mask: torch.Tensor,
                 memory_padding_mask: Optional[torch.Tensor] = None, *,
                 return_attn: bool = False, row_valid: Optional[torch.Tensor] = None,
-                return_parts: bool = False, loss_only: bool = False):
+                return_parts: bool = False, loss_only: bool = False,
+                rect_len: Optional[torch.Tensor] = None):
         """Teacher-forced forward. memory [B, T, E]; tgt [B, S] ids;
         tgt_padding_mask [B, S] True = pad; ``row_valid`` [B] bool excludes
         collate filler rows from the loss. -> (logits [B, S-1, V], loss, attn
         or None); with ``return_parts`` the loss slot is (ce_sum, ce_n,
         rce_sum, rce_n). With ``loss_only`` and the fused loss on, the logits
-        are never stored and their slot is None. Dropout follows
+        are never stored and their slot is None. ``rect_len`` is the longest
+        caption of the global batch when these rows are one rank's share of
+        it (default: of these rows). With a vocab-split generator the logits
+        are this rank's vocab shard and the loss parts are reduced over the
+        model group (the fused loss is not taken). Dropout follows
         ``self.training``."""
         tgt_input, tgt_out = tgt[:, :-1], tgt[:, 1:]
         tgt_bias = combine_bias(causal_bias(tgt_input.shape[1], device=tgt.device),
@@ -90,11 +111,12 @@ class CapDecoder(nn.Module):
         # positions inside the rectangle of the batch's longest caption: the
         # RCE term averages over that rectangle, pads included. Filler rows
         # copy real rows, so they never lengthen it.
-        batch_max = (~tgt_padding_mask).sum(dim=1).max()
+        batch_max = (~tgt_padding_mask).sum(dim=1).max() if rect_len is None else rect_len
         pos = torch.arange(tgt_out.shape[1], device=tgt.device)[None, :]
         rect = (pos < batch_max - 1).expand(tgt_out.shape).reshape(-1)
 
-        if loss_only and self.use_fused_loss:
+        tp = self.generator.tp
+        if loss_only and self.use_fused_loss and tp is None:
             logits = None
             keep_ce = (flat_labels != self.pad_id).float()
             m_rce = rect.float()
@@ -107,8 +129,13 @@ class CapDecoder(nn.Module):
                 with_rce=self.sce_loss_alpha != 1.0, use_kernels=self.fused_loss_kernels)
         else:
             logits = self.generator(outs)
-            flat_logits = logits.reshape(-1, self.vocab_size)
-            if self.sce_loss_alpha == 1.0:
+            flat_logits = logits.reshape(-1, logits.shape[-1])
+            if tp is not None:
+                parts = vocab_parallel_sce_parts(
+                    flat_logits, flat_labels, self.generator.vocab_start, tp,
+                    ignore_index=self.pad_id, rect_mask=rect, valid=valid_flat,
+                    with_rce=self.sce_loss_alpha != 1.0)
+            elif self.sce_loss_alpha == 1.0:
                 ce_sum, ce_n = cross_entropy_parts(flat_logits, flat_labels, self.pad_id,
                                                    valid_flat)
                 zero = torch.zeros((), device=tgt.device)

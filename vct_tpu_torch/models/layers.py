@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vct_tpu_torch.ops.attention import NEG_INF, dot_product_attention
+from vct_tpu_torch.parallel.mesh import copy_to_model, reduce_from_model
 
 Cache = Dict[str, torch.Tensor]
 LN_EPS = 1e-5
@@ -72,10 +73,37 @@ class Dropout(nn.Module):
         return torch.rand(tuple(shape), device=device,
                           generator=self.rng.generator) >= self.rate
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, shard: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        """``shard=(index, count)``: ``x`` is block ``index`` of ``count``
+        along its last dim; the mask is drawn for the whole width and this
+        block kept, so every shard draws the same stream as one device."""
         if not self.active:
             return x
-        return torch.where(self.draw_keep(x.shape, x.device), x / (1.0 - self.rate), 0.0)
+        if shard is None:
+            keep = self.draw_keep(x.shape, x.device)
+        else:
+            w = x.shape[-1]
+            keep = self.draw_keep(x.shape[:-1] + (w * shard[1],), x.device)
+            keep = keep[..., shard[0] * w:(shard[0] + 1) * w]
+        return torch.where(keep, x / (1.0 - self.rate), 0.0)
+
+
+def feed_forward(layer, x: torch.Tensor, dropout: bool) -> torch.Tensor:
+    """``linear2(dropout(act(linear1(x))))`` of an encoder or decoder layer.
+    With ``layer.tp`` set (``parallel.mesh.shard_train_state``) the layer
+    holds column-split ``linear1`` and row-split ``linear2`` shards: the
+    activation stays local and one all-reduce over the model group sums the
+    partial outputs, then ``linear2``'s bias is added once."""
+    dt, tp = layer.dtype, layer.tp
+    if tp is not None:
+        x = copy_to_model(x, tp)
+    h = layer.act(linear(x, layer.linear1.weight, layer.linear1.bias, dt))
+    if dropout:
+        h = layer.dropout(h, None if tp is None else (tp.model_index, tp.model))
+    if tp is None:
+        return linear(h, layer.linear2.weight, layer.linear2.bias, dt)
+    return (reduce_from_model(linear(h, layer.linear2.weight, None, dt), tp)
+            + layer.linear2.bias.to(dt))
 
 
 def activation_fn(name: str):
@@ -145,6 +173,8 @@ class MultiHeadAttention(nn.Module):
 class TransformerEncoderLayer(nn.Module):
     """Post-norm encoder layer: ``x = norm1(x + attn(x)); x = norm2(x + ff(x))``."""
 
+    TP_PARAM = "linear1.weight"  # split by tensor parallelism: see feed_forward
+
     def __init__(self, embed_dim: int, num_heads: int, dim_feedforward: int = 2048,
                  activation: str = "gelu", dropout_rate: float = 0.0, *,
                  rng: Optional[DropoutRng] = None, use_kernels: bool = False,
@@ -162,11 +192,10 @@ class TransformerEncoderLayer(nn.Module):
         self.dropout1 = Dropout(dropout_rate, rng)
         self.dropout2 = Dropout(dropout_rate, rng)
         self.act = activation_fn(activation)
+        self.tp = None
 
     def _ffn(self, x):
-        dt = self.dtype
-        h = self.dropout(self.act(linear(x, self.linear1.weight, self.linear1.bias, dt)))
-        return linear(h, self.linear2.weight, self.linear2.bias, dt)
+        return feed_forward(self, x, dropout=True)
 
     def forward(self, x: torch.Tensor, bias: Optional[torch.Tensor] = None):
         attn_out, _ = self.self_attn(x, bias=bias)
@@ -200,6 +229,8 @@ class TransformerDecoderLayer(nn.Module):
     """Post-norm decoder layer: self-attn -> norm1 -> cross-attn -> norm2 ->
     FFN -> norm3, with a KV-cached single-token ``decode_step``."""
 
+    TP_PARAM = "linear1.weight"
+
     def __init__(self, embed_dim: int, num_heads: int, dim_feedforward: int = 2048,
                  activation: str = "gelu", dropout_rate: float = 0.0, *,
                  rng: Optional[DropoutRng] = None, use_kernels: bool = False,
@@ -222,13 +253,10 @@ class TransformerDecoderLayer(nn.Module):
         self.norm2 = nn.LayerNorm(embed_dim, eps=LN_EPS, device=device)
         self.norm3 = nn.LayerNorm(embed_dim, eps=LN_EPS, device=device)
         self.act = activation_fn(activation)
+        self.tp = None
 
     def _ffn(self, x, dropout: bool = False):
-        dt = self.dtype
-        h = self.act(linear(x, self.linear1.weight, self.linear1.bias, dt))
-        if dropout:
-            h = self.dropout(h)
-        return linear(h, self.linear2.weight, self.linear2.bias, dt)
+        return feed_forward(self, x, dropout)
 
     def forward(self, tgt, memory, tgt_bias=None, memory_bias=None, *,
                 return_attn: bool = False):

@@ -22,6 +22,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from vct_tpu_torch.parallel.mesh import all_reduce_max, copy_to_model, reduce_from_model
+
 LOG_OFF = math.log(1e-4)  # log of the clamped one-hot's off-label value
 EPS = 1e-7                # softmax clip floor
 NEG_INF = -1e30           # large-finite mask value
@@ -59,6 +61,44 @@ def sce_loss_parts(logits: torch.Tensor, labels: torch.Tensor, *, ignore_index: 
     if valid is not None:
         m = m * valid.float()
     return ce_sum, ce_n, (rce * m).sum(), m.sum()
+
+
+def vocab_parallel_sce_parts(logits: torch.Tensor, labels: torch.Tensor, vocab_start: int,
+                             mesh, *, ignore_index: int = 0,
+                             rect_mask: Optional[torch.Tensor] = None,
+                             valid: Optional[torch.Tensor] = None, with_rce: bool = True):
+    """``sce_loss_parts`` of the whole logits from this rank's vocab shard
+    ``logits`` [N, V / model] (columns ``vocab_start`` on) -> the same
+    (ce_sum, ce_n, rce_sum, rce_n) on every rank of ``mesh``'s model group.
+    The row max, the sum of exps and the clipped-probability sums are reduced
+    over the group, and the label logit and probability come from the shard
+    that holds the label (``vct_tpu/models/losses.py:48-62`` semantics).
+    Gradients reach each rank's shard; ``with_rce=False`` gives zero rce
+    parts (alpha == 1)."""
+    z = logits.float()
+    m = all_reduce_max(z.max(dim=-1).values, mesh.model_group)
+    lse = m + torch.log(reduce_from_model(torch.exp(z - m[:, None]).sum(dim=-1), mesh))
+    local = labels.long() - vocab_start
+    here = (local >= 0) & (local < z.shape[1])
+    idx = local.clamp(0, z.shape[1] - 1)[:, None]
+    zt = reduce_from_model(torch.where(here, z.gather(1, idx)[:, 0], 0.0), mesh)
+    keep = (labels != ignore_index).float()
+    if valid is not None:
+        keep = keep * valid.float()
+    ce_sum, ce_n = ((lse - zt) * keep).sum(), keep.sum()
+    if not with_rce:
+        zero = torch.zeros((), device=z.device)
+        return ce_sum, ce_n, zero, zero
+    # lse is the same on every rank but enters each rank's own columns here:
+    # its gradient is the sum of the ranks' (copy_to_model's backward)
+    p = torch.exp(z - copy_to_model(lse, mesh)[:, None]).clamp(EPS, 1.0)
+    p_sum = reduce_from_model(p.sum(dim=-1), mesh)
+    p_label = reduce_from_model(torch.where(here, p.gather(1, idx)[:, 0], 0.0), mesh)
+    rce = -(p_sum - p_label) * LOG_OFF
+    mr = torch.ones_like(rce) if rect_mask is None else rect_mask.float()
+    if valid is not None:
+        mr = mr * valid.float()
+    return ce_sum, ce_n, (rce * mr).sum(), mr.sum()
 
 
 def sce_loss(logits, labels, *, alpha: float, beta: float, ignore_index: int = 0,

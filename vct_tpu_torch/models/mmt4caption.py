@@ -14,7 +14,7 @@ its masks come from."""
 from __future__ import annotations
 
 import math
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import torch
 from torch import nn
@@ -140,13 +140,13 @@ class MMT4Caption(nn.Module):
         return loss
 
     def caption_loss_parts(self, video_feats, video_masks, token_ids, token_pad_mask, *,
-                           row_valid=None):
+                           row_valid=None, rect_len=None):
         """-> (ce_sum, ce_n, rce_sum, rce_n), for a validation loss that does
         not depend on how the split was batched."""
         memory, mem_mask, _ = self.video_encoder(video_feats, video_masks)
         _, parts, _ = self.cap_decoder(memory, token_ids, token_pad_mask, mem_mask,
                                        row_valid=row_valid, return_parts=True,
-                                       loss_only=True)
+                                       loss_only=True, rect_len=rect_len)
         return parts
 
     def caption_logits(self, video_feats, video_masks, token_ids, token_pad_mask, *,
@@ -161,14 +161,24 @@ class MMT4Caption(nn.Module):
             raise ValueError("the match and cross tasks need model.matching in the config")
         return self.matching
 
+    def _match(self, text_feat, agg, row_valid, rows):
+        if rows is not None:
+            text_feat, agg, row_valid = rows(text_feat), rows(agg), rows(row_valid)
+        return self._matching()(text_feat, agg, valid=row_valid)
+
     def match_loss(self, video_feats, video_masks, text_feat: torch.Tensor, *,
-                   row_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   row_valid: Optional[torch.Tensor] = None,
+                   rows: Optional[Callable] = None) -> torch.Tensor:
         """Match task (``MMT4Caption.py:123-130``): contrastive loss between
         the frozen text features and the encoder's aggregate feature.
-        ``row_valid`` restricts anchors and negatives to the real sub-batch."""
-        matching = self._matching()
+        ``row_valid`` restricts anchors and negatives to the real sub-batch.
+        ``rows`` maps the text features, the aggregate features and
+        ``row_valid`` before the loss: the data-parallel step passes
+        ``parallel.mesh.gather_rows``, so the [B, B] matrix spans the global
+        batch."""
+        self._matching()
         _, _, agg = self.video_encoder(video_feats, video_masks)
-        return matching(text_feat, agg, valid=row_valid)
+        return self._match(text_feat, agg, row_valid, rows)
 
     def cross_loss(self, video_feats, video_masks, token_ids, token_pad_mask,
                    text_feat: torch.Tensor, *, row_valid: Optional[torch.Tensor] = None):
@@ -182,14 +192,16 @@ class MMT4Caption(nn.Module):
         return beta * cap_loss + (1.0 - beta) * match_loss, cap_loss, match_loss
 
     def cross_loss_parts(self, video_feats, video_masks, token_ids, token_pad_mask,
-                         text_feat: torch.Tensor, *, row_valid=None):
-        """-> (ce_sum, ce_n, rce_sum, rce_n, match_loss), for validation."""
-        matching = self._matching()
+                         text_feat: torch.Tensor, *, row_valid=None, rect_len=None,
+                         rows=None):
+        """-> (ce_sum, ce_n, rce_sum, rce_n, match_loss), for validation and
+        the data-parallel step."""
+        self._matching()
         memory, mem_mask, agg = self.video_encoder(video_feats, video_masks)
         _, parts, _ = self.cap_decoder(memory, token_ids, token_pad_mask, mem_mask,
                                        row_valid=row_valid, return_parts=True,
-                                       loss_only=True)
-        return tuple(parts) + (matching(text_feat, agg, valid=row_valid),)
+                                       loss_only=True, rect_len=rect_len)
+        return tuple(parts) + (self._match(text_feat, agg, row_valid, rows),)
 
     # ---- decoding primitives ---------------------------------------------------
 

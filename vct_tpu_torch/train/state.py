@@ -6,6 +6,12 @@ dropout generator's state and the run-control scalars — written with
 ``torch.save`` to one file, so training survives a preemption. Bare ``.pth``
 weight files (``save_params_only``) stay readable by the reference's
 converter.
+
+Over a mesh (``parallel.mesh``) every rank takes part in a save (tensor
+parallel shards are gathered whole) and rank 0 alone writes: the tensors are
+whole, with no DDP ``module.`` prefix, so a checkpoint loads at any world
+size. It holds every rank's dropout generator state; a resume at the same
+world size gives each rank its own back.
 """
 
 from __future__ import annotations
@@ -17,6 +23,16 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from vct_tpu_torch.parallel.mesh import (
+    Mesh,
+    barrier,
+    full_optimizer_state,
+    full_state_dict,
+    gather_world,
+    load_full_optimizer_state,
+    load_full_state_dict,
+)
+
 
 @dataclasses.dataclass
 class TrainState:
@@ -24,6 +40,15 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     generator: torch.Generator  # dropout masks; lives on the model's device
     step: int = 0
+    reseeded: bool = False  # the last restore re-seeded the generator
+
+
+def rank_seed(seed: int, data_index: int) -> int:
+    """The dropout seed of the ranks at ``data_index``: data rank 0 keeps
+    ``seed``, so one rank under a process group draws what one process draws.
+    Ranks of one model row share it: their replicated activations must drop
+    alike."""
+    return seed if data_index == 0 else seed + 1_000_003 * data_index
 
 
 def make_train_state(model: nn.Module, optimizer: torch.optim.Optimizer, *,
@@ -36,37 +61,52 @@ def make_train_state(model: nn.Module, optimizer: torch.optim.Optimizer, *,
 
 
 def save_checkpoint(path: str, state: TrainState, *, epoch: int = 0,
-                    run_ctl: Optional[Dict[str, float]] = None) -> None:
+                    run_ctl: Optional[Dict[str, float]] = None,
+                    mesh: Optional[Mesh] = None) -> None:
     """``run_ctl`` carries flat float scalars of run-control state (earlystop
     best/counter, scheduler internals) so a resumed run makes the same
     save/stop/LR decisions as an uninterrupted one. They are stored as
-    float64: LRs and metric bests must round-trip exactly."""
+    float64: LRs and metric bests must round-trip exactly. Over a mesh every
+    rank calls it, rank 0 writes, and every rank returns once the file is
+    there."""
+    mesh = mesh or Mesh()
+    gen = state.generator.get_state()
     payload = {
-        "model": {k: v.detach().cpu() for k, v in state.model.state_dict().items()},
-        "optimizer": state.optimizer.state_dict(),
+        "model": full_state_dict(mesh, state.model),
+        "optimizer": full_optimizer_state(mesh, state.model, state.optimizer),
         "step": int(state.step),
         "epoch": int(epoch),
-        "generator": state.generator.get_state(),
+        "generator": gen,
+        "generators": [g.round().to(torch.uint8).cpu() for g in
+                       gather_world(gen.to(mesh.device, torch.float32), mesh)],
     }
-    if run_ctl:
-        payload["run_ctl"] = {k: torch.tensor(float(v), dtype=torch.float64)
-                              for k, v in run_ctl.items()}
-    path = os.path.abspath(path)
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save(payload, tmp)
-    os.replace(tmp, path)  # a crash mid-write never leaves half a checkpoint
+    if mesh.is_main:
+        if run_ctl:
+            payload["run_ctl"] = {k: torch.tensor(float(v), dtype=torch.float64)
+                                  for k, v in run_ctl.items()}
+        path = os.path.abspath(path)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, path)  # a crash mid-write never leaves half a checkpoint
+    barrier(mesh)
 
 
-def restore_checkpoint(path: str, state: TrainState
+def restore_checkpoint(path: str, state: TrainState, *, mesh: Optional[Mesh] = None
                        ) -> Tuple[TrainState, int, Optional[Dict[str, float]]]:
     """Load ``path`` into ``state`` in place -> (state, epoch, run_ctl dict or
-    None when the checkpoint carries none)."""
+    None when the checkpoint carries none). A checkpoint written at another
+    world size holds no generator state for this rank: the generator is left
+    as it is and ``state.reseeded`` set, for the caller to re-seed it."""
+    mesh = mesh or Mesh()
     device = next(state.model.parameters()).device
     payload = torch.load(os.path.abspath(path), map_location=device, weights_only=True)
-    state.model.load_state_dict(payload["model"])
-    state.optimizer.load_state_dict(payload["optimizer"])
-    state.generator.set_state(payload["generator"].cpu())
+    load_full_state_dict(mesh, state.model, payload["model"])
+    load_full_optimizer_state(mesh, state.model, state.optimizer, payload["optimizer"])
+    gens = payload.get("generators", [payload["generator"]])
+    state.reseeded = len(gens) != mesh.world
+    if not state.reseeded:
+        state.generator.set_state(gens[mesh.rank].cpu())
     state.step = int(payload["step"])
     run_ctl = None
     if "run_ctl" in payload:

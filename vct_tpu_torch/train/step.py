@@ -1,4 +1,4 @@
-"""Train and validation steps on one device (port of ``vct_tpu/train/step.py``).
+"""Train and validation steps (port of ``vct_tpu/train/step.py``).
 
 The train step is eager PyTorch: forward in training mode (dropout from the
 state's generator), ``backward``, one optimizer update. With the fused loss
@@ -7,15 +7,33 @@ once each (caption and cross tasks); the validation step launches the two
 forward ones. The match and cross tasks take the batch's frozen text features
 (``text_feat``, from ``batch_to_arrays`` with a text encoder). The loss the
 train step returns stays on the device: callers fetch it when they need it.
+
+Over a mesh with a process group (``parallel.mesh``) each rank takes its rows
+of the global batch, and the step is the one-device step on the joined batch:
+
+* the task loss runs inside ``TaskLoss.forward`` under
+  ``DistributedDataParallel`` over the data group (DDP reduces gradients only
+  for what went through its ``forward``);
+* caption: the token counts are summed over the ranks before dividing, and
+  the rank's share is scaled by the data size, so DDP's mean of the rank
+  gradients is the gradient of ``alpha * sum(ce) / sum(n_ce) + (1 - alpha) *
+  sum(rce) / sum(n_rce)`` over the global batch; the RCE rectangle is the
+  global batch's longest caption;
+* match / cross: the text and video features are gathered over the data
+  group (``gather_rows``), so every rank builds the global [B, B] matrix;
+* the metrics are the global loss on every rank.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Tuple
+import warnings
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
+from vct_tpu_torch.parallel.mesh import Mesh, all_reduce_max, all_reduce_sum, gather_rows
 from vct_tpu_torch.train.state import TrainState
 
 TASKS = ("caption", "match", "cross")
@@ -26,30 +44,102 @@ def _check_task(task: str) -> None:
         raise ValueError(f"unknown task {task}")
 
 
-def _task_loss(model, task: str, batch: Dict[str, Any]):
-    """-> (loss, metrics) of one task on one batch."""
+def _mesh_hooks(mesh: Optional[Mesh], batch: Dict[str, Any]):
+    """(rect_len, rows) for a rank's share of a global batch: the longest
+    caption of the global batch, and the row gather of the contrastive loss.
+    Both None off a mesh or at data size 1 (the rows are the global batch)."""
+    if mesh is None or mesh.data == 1:
+        return None, None
+    rect_len = None
+    if "token_mask" in batch:
+        rect_len = all_reduce_max((~batch["token_mask"]).sum(dim=1).max().float(),
+                                  mesh.data_group)
+    return rect_len, (lambda x: gather_rows(x, mesh))
+
+
+def task_loss(model, task: str, batch: Dict[str, Any], mesh: Mesh):
+    """-> (objective, metrics) of this rank's share of the global batch: DDP's
+    mean of the objectives' gradients over the data group is the gradient of
+    the task loss on the joined batch, and ``metrics`` hold that loss. On one
+    process (``Mesh()``) the share is the batch and the objective its loss."""
+    n, group = mesh.data, mesh.data_group
+    rect_len, rows = _mesh_hooks(mesh, batch)
     feats, masks, valid = batch["feats"], batch.get("masks"), batch.get("row_valid")
-    if task == "caption":
-        loss = model.caption_loss(feats, masks, batch["token_ids"], batch["token_mask"],
-                                  row_valid=valid)
-        return loss, {"loss": loss, "cap_loss": loss}
     if task == "match":
-        loss = model.match_loss(feats, masks, batch["text_feat"], row_valid=valid)
-        return loss, {"loss": loss, "match_loss": loss}
-    loss, cap, match = model.cross_loss(feats, masks, batch["token_ids"], batch["token_mask"],
-                                        batch["text_feat"], row_valid=valid)
-    return loss, {"loss": loss, "cap_loss": cap, "match_loss": match}
+        loss = model.match_loss(feats, masks, batch["text_feat"], row_valid=valid, rows=rows)
+        return loss, {"loss": loss.detach(), "match_loss": loss.detach()}
+    if task == "caption":
+        parts = model.caption_loss_parts(feats, masks, batch["token_ids"],
+                                         batch["token_mask"], row_valid=valid,
+                                         rect_len=rect_len)
+    else:
+        *parts, match = model.cross_loss_parts(feats, masks, batch["token_ids"],
+                                               batch["token_mask"], batch["text_feat"],
+                                               row_valid=valid, rect_len=rect_len, rows=rows)
+    ce_sum, ce_n, rce_sum, rce_n = parts
+    counts = all_reduce_sum(torch.stack([ce_n, rce_n]), group)
+    alpha = model.cap_decoder.sce_loss_alpha
+    cap_share = (alpha * ce_sum / counts[0].clamp(min=1.0)
+                 + (1.0 - alpha) * rce_sum / counts[1].clamp(min=1.0))
+    cap = all_reduce_sum(cap_share.detach(), group)
+    if task == "caption":
+        return cap_share * n, {"loss": cap, "cap_loss": cap}
+    beta = model.config.loss_beta
+    objective = beta * (cap_share * n) + (1.0 - beta) * match
+    loss = beta * cap + (1.0 - beta) * match.detach()
+    return objective, {"loss": loss, "cap_loss": cap, "match_loss": match.detach()}
 
 
-def make_train_step(task: str) -> Callable[[TrainState, Dict[str, Any]],
-                                           Tuple[TrainState, Dict[str, torch.Tensor]]]:
+class TaskLoss(nn.Module):
+    """The task loss over the mesh as a module: ``forward(batch)`` ->
+    (objective, metrics). DDP wraps this, not the model, because DDP
+    reduces the gradients only of what ran through its ``forward``."""
+
+    def __init__(self, model: nn.Module, task: str, mesh: Mesh):
+        super().__init__()
+        self.model, self.task, self.mesh = model, task, mesh
+
+    def forward(self, batch: Dict[str, Any]):
+        return task_loss(self.model, self.task, batch, self.mesh)
+
+
+def wrap_ddp(module: nn.Module, mesh: Mesh) -> nn.Module:
+    """``module`` under DDP over the mesh's data group (plain in one process,
+    and when the data column is one rank of a larger group: tensor
+    parallelism alone). The
+    caption task never reaches a configured matching head, so unused
+    parameters are looked for; the buffers are constants."""
+    if mesh.data_group is None:
+        return module
+    from torch.nn.parallel import DistributedDataParallel
+
+    dev = mesh.device
+    with warnings.catch_warnings():  # newer torch names broadcast_buffers deprecated
+        warnings.filterwarnings("ignore", message=".*broadcast_buffers", category=FutureWarning)
+        return DistributedDataParallel(module,
+                                       device_ids=[dev] if dev.type == "cuda" else None,
+                                       process_group=mesh.data_group,
+                                       broadcast_buffers=False, find_unused_parameters=True)
+
+
+def make_train_step(task: str, mesh: Optional[Mesh] = None
+                    ) -> Callable[[TrainState, Dict[str, Any]],
+                                  Tuple[TrainState, Dict[str, torch.Tensor]]]:
+    """One optimizer step. With a ``mesh`` that has a process group the batch
+    is this rank's share of the global batch (``parallel.mesh.shard_batch``)
+    and the step runs under DDP (built at the first call, collectively); in
+    one process ``TaskLoss`` runs bare."""
     _check_task(task)
+    mesh = mesh or Mesh()
+    wrapped: Dict[str, nn.Module] = {}
 
     def step(state: TrainState, batch: Dict[str, Any]):
         model, optimizer = state.model, state.optimizer
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        loss, metrics = _task_loss(model, task, batch)
+        if wrapped.get("model") is not model:
+            wrapped.update(model=model, loss=wrap_ddp(TaskLoss(model, task, mesh), mesh))
+        loss, metrics = wrapped["loss"](batch)
         loss.backward()
         optimizer.step()
         state.step += 1
@@ -58,34 +148,56 @@ def make_train_step(task: str) -> Callable[[TrainState, Dict[str, Any]],
     return step
 
 
-def make_eval_step(task: str):
+def make_eval_step(task: str, mesh: Optional[Mesh] = None):
     """Forward-only validation step without dropout. Returns exact SUM/COUNT
     parts, not per-batch means, so the caller's aggregation does not depend on
-    how the split was batched and collate filler rows contribute nothing."""
+    how the split was batched and collate filler rows contribute nothing.
+    Over a mesh the parts are this rank's share (``reduce_eval_parts`` sums
+    them over the data group); the contrastive loss spans the global batch
+    and is counted by data rank 0 alone."""
     _check_task(task)
 
     @torch.no_grad()
     def step(model, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         model.eval()
+        rect_len, rows = _mesh_hooks(mesh, batch)
         feats, masks, valid = batch["feats"], batch.get("masks"), batch.get("row_valid")
         n_valid = (valid.float().sum() if valid is not None
                    else torch.tensor(float(feats[0].shape[0]), device=feats[0].device))
+        if rows is not None:
+            n_valid = all_reduce_sum(n_valid, mesh.data_group)
+            if mesh.data_index:
+                n_valid = torch.zeros_like(n_valid)
         if task == "match":
-            loss = model.match_loss(feats, masks, batch["text_feat"], row_valid=valid)
+            loss = model.match_loss(feats, masks, batch["text_feat"], row_valid=valid,
+                                    rows=rows)
             return {"match_sum": loss * n_valid, "match_n": n_valid}
         if task == "caption":
             parts = model.caption_loss_parts(feats, masks, batch["token_ids"],
-                                             batch["token_mask"], row_valid=valid)
+                                             batch["token_mask"], row_valid=valid,
+                                             rect_len=rect_len)
         else:
             *parts, match = model.cross_loss_parts(feats, masks, batch["token_ids"],
                                                    batch["token_mask"], batch["text_feat"],
-                                                   row_valid=valid)
+                                                   row_valid=valid, rect_len=rect_len,
+                                                   rows=rows)
         out = dict(zip(("ce_sum", "ce_n", "rce_sum", "rce_n"), parts))
         if task == "cross":
             out.update(match_sum=match * n_valid, match_n=n_valid)
         return out
 
     return step
+
+
+def reduce_eval_parts(parts: Dict[str, torch.Tensor], mesh: Optional[Mesh]
+                      ) -> Dict[str, float]:
+    """Sum eval parts (each a tensor, any shape) over the batches and, on a
+    mesh, over the data group, in float64 -> host floats."""
+    keys = sorted(parts)
+    local = torch.stack([parts[k].double().sum() for k in keys])
+    if mesh is not None and mesh.data > 1:
+        local = all_reduce_sum(local, mesh.data_group)
+    return dict(zip(keys, local.tolist()))
 
 
 def combine_eval_parts(task: str, agg: Dict[str, float], *, sce_alpha: float,
