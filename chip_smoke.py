@@ -14,6 +14,7 @@ extraction paths once on one CUDA card.
     python3 chip_smoke.py --profile-beam   build, then a torch.profiler
                                            reading of a beam-4 eval batch of 64
     python3 chip_smoke.py --parallel       build, then phase 20 alone
+    python3 chip_smoke.py --graphs         build, then phase 21 alone
     python3 chip_smoke.py --torchrun-rank OUT ARGS...
                                            phase 20's process under torchrun:
                                            cli.train's run on ARGS, its record
@@ -232,6 +233,22 @@ Phases, each of which must pass:
               token equal, or parting only at near-ties
               (decode.first_mismatch_gaps: 0.0234 in bfloat16, 1e-3 in
               float32) in at most 6 of the 192 rows; each rank's launches
+ 21. graphs   the compiled decode programs (decode_fast.make_fused_greedy_fn /
+              make_fused_beam_fn: CUDA graphs of the staged kernel loops,
+              encoder included, captured once per input shape) against the
+              eager loops (greedy_generate_fused / beam_generate_fused) bit
+              for bit, first call and a replay, in bfloat16 and float32:
+              greedy at B = 1, 32, 64 (whole step) and 128 (stack + argmax),
+              beam 4 over 64 videos (256 rows), and the long-video eval shape
+              (B=32, 255 frames, 129 tokens: fused_attention inside the
+              captured encoder, once a call), each with row 0's fourth token
+              as the end token so rows end early; one set of graphs per shape
+              (the runner's counts over B = 1, 1, 32, 32, 1, 64); a result
+              held across the next call of its shape keeps its tokens;
+              host-clock ms a call, device busy ms and idle share
+              (torch.profiler), graphed and eager, at B = 1, 32, 64 and for
+              beam 4 over 64 videos, with each graph set's memory; p50 / p99
+              of 8 concurrent /v1/caption requests at max_batch 32
 
 Times: every row of the ``kernels`` line names its ``timer``. ``cuda_events``
 is ``cuda_time``, CUDA events around a Python loop of calls. ``graph_replay``
@@ -255,7 +272,10 @@ L2), so that no call finds its weight left in L2 by the call before.
 
 Launch counts are set to 0 just before phases 4, 5, 7, 9, 10, 13, 14, 17, 18,
 19 and 20 (each predict run and the video server in 17, each predict run in
-19, each run and each rank in 20) and read just after each:
+19, each run and each rank in 20) and read just after each. The decode
+factories replay CUDA graphs (phase 21): a replay adds the launches its
+capture recorded to each wrapper's count, the capture itself counts none, so
+the counts are the kernels the device ran:
 the server must have launched the whole-step kernel,
 the B=128 decode the other two decode kernels, training the three loss
 kernels, the beam eval the stack and top-k kernels once per beam token, the
@@ -4829,6 +4849,214 @@ def make_trainer_from(cfg_path: Path, dev):
     return Trainer(load_config(str(cfg_path)), device=dev, log=lambda *_: None)
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the compiled decode programs (CUDA graphs of the staged loops)
+# ---------------------------------------------------------------------------
+
+GRAPH_BATCHES = (1, 32, 64, 128)   # whole step at 1-64 rows, stack + argmax above
+GRAPH_TIMED = (1, 32, 64)
+SERVED_REQUESTS = 8
+
+
+def graphs_agree(name, fn, feats, masks, want, calls=2):
+    """``fn``'s first call of a shape (eager stages, then the capture) and a
+    replay against the eager loop's ``want`` (tokens, scores or None), bit
+    for bit."""
+    for call in range(calls):
+        got = fn(feats, masks)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            if (g is None) != (w is None) or (g is not None and not torch.equal(g, w)):
+                fail(f"graphs: {name}, call {call}: the graphed decode parts from the eager "
+                     f"loop")
+
+
+def early_end(tokens) -> int:
+    """Row 0's fourth token: as the end token it ends row 0 (and any row that
+    emits it) early."""
+    return int(tokens[0, 3])
+
+
+def ended_early(tokens, end_id) -> int:
+    return int((tokens[:, 1:-1] == end_id).any(dim=1).sum())
+
+
+def profiled(fn, reps=5):
+    """(host-clock ms a call, device busy ms a call by torch.profiler, idle
+    share): the idle share sets the busy time against the unprofiled call."""
+    ms = host_time(fn, reps=reps)
+    rows, _ = device_rows(fn, 3)
+    busy = sum(r[1] for r in rows)
+    return ms, busy, 1 - busy / ms
+
+
+def graphed_against_eager(key, what, captions, graphed, eager, feats, masks, card):
+    """Host ms a call, device busy ms and idle share of ``graphed(feats,
+    masks)`` and ``eager()`` (29 tokens, the encoder included), and the graph
+    set's memory -> report entries under ``key``."""
+    report, line = {}, []
+    for label, run in (("graphed", lambda: graphed(feats, masks)), ("eager", eager)):
+        ms, busy, idle = profiled(run)
+        report[f"{key}_{label}_ms"], report[f"{key}_{label}_busy_ms"] = ms, busy
+        line.append(f"{label} {ms:.3f} ms ({captions / ms * 1000:.1f} captions/s), busy "
+                    f"{busy:.3f} ms, idle share {idle:.2f}")
+    (mem,) = graphed.pool_bytes.values()
+    report[f"{key}_graph_pool_mb"] = mem / 2 ** 20
+    say(f"  {what}, 29 tokens: " + "; ".join(line) + f"; graph pool {mem / 2 ** 20:.1f} MiB "
+        f"[{card}]")
+    return report
+
+
+def served_latency(cfg, ckpt, card):
+    """p50 / p99 ms of ``SERVED_REQUESTS`` concurrent /v1/caption requests to
+    the server at max_batch 32 (graphed decode, captured at its warm-up)."""
+    from vct_tpu_torch.serve import serve
+
+    srv = serve(cfg, str(ckpt), device=torch.device("cuda", 0), host="127.0.0.1", port=0,
+                max_batch=MAX_BATCH, batch_timeout_ms=20.0, log=lambda *_: None)
+    runner = srv.service.decode_fn.runner
+    if (runner.sets, runner.graphs) != (1, 4):
+        fail(f"graphs: the server's warm-up set up {runner.sets} shapes, {runner.graphs} graphs")
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    port = srv.server_address[1]
+    rng = np.random.default_rng(SEED + 80)
+    bodies = [request_body(i, rng) for i in range(SERVED_REQUESTS)]
+    ms = [None] * SERVED_REQUESTS
+
+    def post(i):
+        t0 = time.perf_counter()
+        conn = HTTPConnection("127.0.0.1", port, timeout=300)
+        conn.request("POST", "/v1/caption", body=bodies[i])
+        resp = conn.getresponse()
+        ok = resp.status == 200 and isinstance(json.loads(resp.read()).get("caption"), str)
+        conn.close()
+        ms[i] = (time.perf_counter() - t0) * 1e3 if ok else None
+
+    try:
+        for _ in range(2):  # the second round is the one read
+            threads = [threading.Thread(target=post, args=(i,)) for i in range(SERVED_REQUESTS)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            if any(t.is_alive() for t in threads) or None in ms:
+                fail(f"graphs: served requests failed or hung: {ms}")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        srv.service.close()
+        thread.join(timeout=30)
+    if runner.sets != 1 or runner.replays == 0:
+        fail(f"graphs: the server decoded {runner.sets} shapes, {runner.replays} replays")
+    p50, p99 = np.percentile(ms, 50), np.percentile(ms, 99)
+    say(f"  served: {SERVED_REQUESTS} concurrent /v1/caption at max_batch {MAX_BATCH}, "
+        f"p50 {p50:.2f} ms, p99 {p99:.2f} ms (host clock, second round; {runner.replays} "
+        f"graph replays) [{card}]")
+    return {"served_p50_ms": p50, "served_p99_ms": p99}
+
+
+def run_graphs(cfg, ckpt, model, fw, dev, card):
+    """Phase 21: ``make_fused_greedy_fn`` / ``make_fused_beam_fn`` (CUDA graphs
+    of the staged kernel loops, encoder included) against the eager loops,
+    bit for bit, in bfloat16 and float32; one capture per shape; results
+    that outlive the next call; host-clock ms a call, device busy ms and
+    idle share, graphed and eager; the graph sets' memory; served latency."""
+    from vct_tpu_torch.cli.common import make_trainer_pieces
+    from vct_tpu_torch.decode_fast import (
+        beam_generate_fused,
+        greedy_generate_fused,
+        make_fused_beam_fn,
+        make_fused_greedy_fn,
+    )
+    from vct_tpu_torch.ops import attention_kernels as ak
+    from vct_tpu_torch.ops import decode_kernels as dk
+
+    report = {}
+    cfg32 = cfg.replace(tpu=dataclasses.replace(cfg.tpu, dtype="float32"))
+    models = {"bfloat16": model, "float32": make_trainer_pieces(cfg32, dev, seed=SEED)[0]}
+    models["float32"].to_compute_dtype()
+    kw = dict(max_len=30, start_id=101)
+    with torch.no_grad(), no_plain_on_cuda("graphs", dk), no_plain_on_cuda("graphs", ak):
+        # (a) greedy at 1-128 rows, row 0's fourth token as the end token
+        for dtype, m in models.items():
+            for b in GRAPH_BATCHES:
+                feats, masks = eval_inputs(b, dev, SEED + 90 + b)
+                free, _ = greedy_generate_fused(m, feats, masks, end_id=-1, **kw)
+                end_id = early_end(free)
+                want, _ = greedy_generate_fused(m, feats, masks, end_id=end_id, **kw)
+                fn = make_fused_greedy_fn(m, 30, 101, end_id)
+                graphs_agree(f"greedy {dtype} B={b}", fn, feats, masks, (want, None))
+                say(f"  ok greedy {dtype} B={b}: first call and a replay bit for bit the eager "
+                    f"loop's, {ended_early(want, end_id)}/{b} rows end early, "
+                    f"{fn.replays} replays of {fn.graphs} graphs")
+            # (b) beam 4 over 64 videos (256 rows)
+            feats, masks = eval_inputs(BATCH, dev, SEED + 95)
+            free, _ = beam_generate_fused(m, feats, masks, beam_size=BEAM_K, end_id=-1, **kw)
+            end_id = early_end(free)
+            want = beam_generate_fused(m, feats, masks, beam_size=BEAM_K, end_id=end_id, **kw)
+            fn = make_fused_beam_fn(m, 30, 101, end_id, BEAM_K)
+            graphs_agree(f"beam {BEAM_K} {dtype} B={BATCH}", fn, feats, masks, want)
+            say(f"  ok beam {BEAM_K} {dtype} over {BATCH} videos: tokens and scores bit for "
+                f"bit, {ended_early(want[0], end_id)}/{BATCH} captions end early")
+            # (c) the long-video eval shape: fused_attention inside the captured encoder
+            g = torch.Generator().manual_seed(SEED + 96)
+            feats = [torch.randn((LONG_BATCH, LONG_FRAMES, 512), generator=g).to(dev)]
+            masks = [(torch.arange(LONG_FRAMES)[None, :]
+                      >= torch.randint(100, LONG_FRAMES + 1, (LONG_BATCH, 1),
+                                       generator=g)).to(dev)]
+            long_kw = dict(max_len=LONG_CAPTION, start_id=101)
+            free, _ = greedy_generate_fused(m, feats, masks, end_id=-1, **long_kw)
+            end_id = early_end(free)
+            want, _ = greedy_generate_fused(m, feats, masks, end_id=end_id, **long_kw)
+            fn = make_fused_greedy_fn(m, LONG_CAPTION, 101, end_id)
+            before = ak.fused_attention.launches
+            graphs_agree(f"long-video greedy {dtype}", fn, feats, masks, (want, None))
+            if ak.fused_attention.launches - before != 2:
+                fail(f"graphs: long-video {dtype}: fused_attention launched "
+                     f"{ak.fused_attention.launches - before} times in two calls, expected 2")
+            say(f"  ok long-video greedy {dtype} B={LONG_BATCH}, {LONG_FRAMES} frames, "
+                f"{LONG_CAPTION} tokens: bit for bit, fused_attention once a call inside the "
+                f"captured encoder, {fn.graphs} graphs")
+
+        # (d) one capture per shape, and results that outlive the next call
+        fn = make_fused_greedy_fn(model, 30, 101, -1)
+        for b, sets, graphs in ((1, 1, 4), (1, 1, 4), (32, 2, 8), (32, 2, 8), (1, 2, 8),
+                                (64, 3, 12)):
+            fn(*eval_inputs(b, dev, SEED + 97))
+            if (fn.sets, fn.graphs) != (sets, graphs):
+                fail(f"graphs: after B={b}: {fn.sets} sets and {fn.graphs} graphs, expected "
+                     f"{sets} and {graphs}")
+        first_in, second_in = eval_inputs(32, dev, SEED + 98), eval_inputs(32, dev, SEED + 99)
+        first, _ = fn(*first_in)
+        second, _ = fn(*second_in)
+        want, _ = greedy_generate_fused(model, *first_in, end_id=-1, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(first, want) or torch.equal(first, second):
+            fail("graphs: a result was overwritten by the next call of its shape")
+        say(f"  ok one set per shape: {fn.sets} sets and {fn.graphs} graphs for B = 1, 32, "
+            f"64 over 6 calls; a held result kept its tokens through the next call")
+
+        # (e) timings, graphed against eager
+        say(f"  timings, host clock a call (5 calls) and torch.profiler over 3 [{card}]:")
+        for b in GRAPH_TIMED:
+            feats, masks = eval_inputs(b, dev, SEED + 70 + b)
+            report.update(graphed_against_eager(
+                f"greedy_b{b}", f"greedy B={b}", b, make_fused_greedy_fn(model, 30, 101, -1),
+                lambda: greedy_generate_fused(model, feats, masks, end_id=-1, fw=fw, **kw),
+                feats, masks, card))
+        feats, masks = eval_inputs(BATCH, dev, SEED + 71)
+        report.update(graphed_against_eager(
+            f"beam4_b{BATCH}", f"beam {BEAM_K} over {BATCH} videos", BATCH,
+            make_fused_beam_fn(model, 30, 101, -1, BEAM_K),
+            lambda: beam_generate_fused(model, feats, masks, beam_size=BEAM_K, end_id=-1, fw=fw,
+                                        **kw),
+            feats, masks, card))
+    del models["float32"]
+    report.update(served_latency(cfg, ckpt, card))
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs a CUDA card")
@@ -4907,6 +5135,11 @@ def main() -> int:
         if "--parallel" in sys.argv[1:]:
             run_torchrun(repo, work, vocab, card)
             run_ddp(repo, work, vocab, card)
+            return 0
+        if "--graphs" in sys.argv[1:]:
+            t0 = time.perf_counter()
+            say(json.dumps(run_graphs(cfg, ckpt, model, fw, dev, card)))
+            say(f"  phase graphs took {time.perf_counter() - t0:.1f} s [{card}]")
             return 0
         say(f"model: configs/msvd.json, {n_params} parameters and buffers, vocab "
             f"{model.config.vocab_size} (padded {fw['wg'].shape[1]}), {cfg.tpu.dtype}")
@@ -5009,6 +5242,12 @@ def main() -> int:
                       in_process_loss_spread=torchrun["spread"],
                       parallel_phase_seconds=time.perf_counter() - t0)
         say(f"  phase parallel took {report['parallel_phase_seconds']:.1f} s [{card}]")
+        say("phase graphs: make_fused_greedy_fn / make_fused_beam_fn (CUDA graphs of the "
+            "staged kernel loops) against the eager loops, timings, served latency")
+        t0 = time.perf_counter()
+        report.update(run_graphs(cfg, ckpt, model, fw, dev, card),
+                      graphs_phase_seconds=time.perf_counter() - t0)
+        say(f"  phase graphs took {report['graphs_phase_seconds']:.1f} s [{card}]")
 
     say(json.dumps(report))
     sources = {**{k: SOURCE for k in REPLACES},

@@ -1465,3 +1465,144 @@ def test_i3d_tower_runs_float32_with_the_global_tf32_switch_on(cuda):
     assert torch.equal(got, again)
     rel = (got.double() - want).abs().max() / want.abs().max()
     assert rel < 2e-5, rel
+
+
+# ---------------------------------------------------------------------------
+# the compiled decode programs: CUDA graphs of the staged kernel loops
+# (decode_fast.StagedDecode), encoder included, against the eager loops
+# ---------------------------------------------------------------------------
+
+
+def _graph_model(dev, dt, seed=0):
+    """A seeded captioner at this file's widths (MME encoder over 64-wide
+    features, 2 decoder layers, vocab 600), on the card in ``dt``."""
+    from vct_tpu_torch.config import ModelConfig, TPUConfig
+    from vct_tpu_torch.models.mmt4caption import MMT4Caption
+
+    cfg = ModelConfig.from_dict({
+        "modal": ["m0"], "modal_shape": [64], "embed_dim": E, "dropout": 0.0,
+        "vocab_size": V, "activation": "gelu",
+        "video_encoder": {"layer": 1, "nhead": H, "feedforward": F},
+        "caption_decoder": {"layer": NL, "nhead": H, "feedforward": F}})
+    model = MMT4Caption(cfg, TPUConfig(dtype="float32" if dt == torch.float32 else "bfloat16"),
+                        dtype=dt, device=dev)
+    model.init_weights(torch.Generator().manual_seed(seed))
+    return model.eval().to_compute_dtype()
+
+
+def _video_batch(dev, b, seed, t=12):
+    g = torch.Generator().manual_seed(seed)
+    masks = torch.zeros((b, t), dtype=torch.bool)
+    masks[1::3, t // 2:] = True
+    return [torch.randn((b, t, 64), generator=g).to(dev)], [masks.to(dev)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 64, 128])
+def test_graphed_greedy_is_the_eager_loop_bit_for_bit(cuda, dt, b):
+    """``make_fused_greedy_fn`` on the card: the first call of a shape (the
+    eager stages on a side stream, then the capture) and two replays give
+    ``greedy_generate_fused``'s tokens bit for bit, running free and with
+    row 0's fourth token as the end token; one set of graphs per shape, and
+    the replays add the captured launches to the wrappers' counts."""
+    from vct_tpu_torch.decode_fast import greedy_generate_fused, make_fused_greedy_fn
+
+    model = _graph_model(cuda, dt)
+    feats, masks = _video_batch(cuda, b, seed=b)
+    kw = dict(max_len=30, start_id=101)
+    free, _ = greedy_generate_fused(model, feats, masks, end_id=-1, **kw)
+    counted = dk.fused_whole_step if b <= 64 else dk.fused_layers_step
+    for end_id in (-1, int(free[0, 3])):
+        want, _ = greedy_generate_fused(model, feats, masks, end_id=end_id, **kw)
+        fn = make_fused_greedy_fn(model, 30, 101, end_id)
+        for call in range(3):
+            before = counted.launches
+            got, _ = fn(feats, masks)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (end_id, call)
+            # one launch a token, up to the stage at which every row is done
+            assert counted.launches - before in ((29,) if end_id == -1 else (8, 16, 24, 29))
+        assert (fn.sets, fn.graphs) == (1, 4)
+        assert fn.replays == 8 if end_id == -1 else fn.replays in (2, 4, 6, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_graphed_beam_is_the_eager_loop_bit_for_bit(cuda, dt):
+    """``make_fused_beam_fn`` (beam 4 over 16 videos, 64 rows) gives
+    ``beam_generate_fused``'s tokens and scores bit for bit, first call and
+    replays; a result held across a call is not overwritten."""
+    from vct_tpu_torch.decode_fast import beam_generate_fused, make_fused_beam_fn
+
+    model = _graph_model(cuda, dt, seed=1)
+    feats, masks = _video_batch(cuda, 16, seed=5)
+    want_t, want_s = beam_generate_fused(model, feats, masks, beam_size=4, max_len=30,
+                                         start_id=101, end_id=-1)
+    fn = make_fused_beam_fn(model, 30, 101, -1, 4)
+    results = [fn(feats, masks) for _ in range(3)]
+    torch.cuda.synchronize()
+    for got_t, got_s in results:
+        assert torch.equal(got_t, want_t) and torch.equal(got_s, want_s)
+    assert (fn.sets, fn.graphs, fn.replays) == (1, 4, 8)
+
+
+@pytest.mark.cuda
+def test_capture_on_a_worker_thread_while_another_thread_works(cuda):
+    """The graphs are captured in thread-local mode: a capture on one thread
+    is not broken by another thread that launches work and waits for the
+    device meanwhile (the server's handler threads run the CLIP tower while
+    its batcher decodes)."""
+    import threading
+
+    from vct_tpu_torch.decode_fast import greedy_generate_fused, make_fused_greedy_fn
+
+    model = _graph_model(cuda, torch.bfloat16, seed=2)
+    feats, masks = _video_batch(cuda, 8, seed=9)
+    want, _ = greedy_generate_fused(model, feats, masks, max_len=30, start_id=101, end_id=-1)
+    fn = make_fused_greedy_fn(model, 30, 101, -1)
+    stop, busy, out, errors = threading.Event(), [0], {}, []
+
+    def other():
+        x = torch.randn((512, 512), device=cuda)
+        while not stop.is_set():
+            x = torch.tanh(x @ x)
+            float(x.sum())  # waits for the device
+            busy[0] += 1
+
+    def decode():
+        try:
+            out["first"] = fn(feats, masks)[0]
+            out["replay"] = fn(feats, masks)[0]
+            torch.cuda.synchronize()
+        except Exception as e:  # noqa: BLE001 - read below, on the test's thread
+            errors.append(e)
+
+    worker, decoder = threading.Thread(target=other), threading.Thread(target=decode)
+    worker.start()
+    decoder.start()
+    decoder.join(timeout=300)
+    stop.set()
+    worker.join(timeout=60)
+    assert not decoder.is_alive() and not worker.is_alive() and not errors, errors
+    assert busy[0] > 0 and fn.graphs == 4
+    assert torch.equal(out["first"], want) and torch.equal(out["replay"], want)
+
+
+@pytest.mark.cuda
+def test_auto_dispatch_replays_graphs_on_the_card(cuda):
+    """``make_auto_greedy_fn`` / ``make_auto_beam_fn`` on CUDA tensors take the
+    graph route: their runner captured and replayed, and a result held across
+    two replays into the same buffers keeps its tokens."""
+    from vct_tpu_torch.decode import make_auto_beam_fn, make_auto_greedy_fn
+
+    model = _graph_model(cuda, torch.bfloat16, seed=3)
+    batch_a, batch_b = _video_batch(cuda, 4, seed=11), _video_batch(cuda, 4, seed=12)
+    for fn in (make_auto_greedy_fn(model, 30, 101, -1), make_auto_beam_fn(model, 30, 101, -1, 2)):
+        first = fn(*batch_a)[0]
+        kept = first.clone()
+        again, other = fn(*batch_a)[0], fn(*batch_b)[0]  # replays into the same buffers
+        torch.cuda.synchronize()
+        assert torch.equal(first, kept) and torch.equal(again, kept)
+        assert not torch.equal(other, kept)
+        assert fn.runner.sets == 1 and fn.runner.graphs == 4 and fn.runner.replays == 8

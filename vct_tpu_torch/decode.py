@@ -164,13 +164,16 @@ def _over_rows(fn: Callable, mesh, batch_dim_of_second: Optional[int]) -> Callab
 def make_auto_greedy_fn(model, max_len: int, start_id: int, end_id: int,
                         collect_attn: bool = False, mesh=None) -> Callable:
     """fn(feats, masks) -> (tokens, attn): the decode kernels
-    (``decode_fast``; on CPU tensors their plain versions), or the module
+    (``decode_fast.make_fused_greedy_fn``: on CUDA tensors CUDA graphs of the
+    kernel loop, encoder included, captured once per input shape; on CPU
+    tensors the same stages on the kernels' plain versions), or the module
     path when attention maps are collected, the model has its kernels off
     (``tpu.use_pallas_attention`` false) or tensor parallelism split its
-    weights. The kernel weights are extracted once, at the first
-    call: load the checkpoint before decoding. With a ``mesh`` each data rank
-    decodes its rows (the batch must divide) and every rank gets the whole
-    batch's tokens."""
+    weights. On the kernel path ``fn.runner`` is the ``StagedDecode``. The
+    kernel weights are extracted once, at the first call: load the
+    checkpoint before decoding. With a ``mesh`` each data rank decodes its
+    rows (the batch must divide; each rank captures its rows' shape) and
+    every rank gets the whole batch's tokens."""
 
     def module_fn(video_feats, video_masks):
         return greedy_generate(model, video_feats, video_masks, max_len=max_len,
@@ -180,18 +183,18 @@ def make_auto_greedy_fn(model, max_len: int, start_id: int, end_id: int,
     if collect_attn or not model.tpu.use_pallas_attention or _is_split(model):
         return _over_rows(module_fn, mesh, 2)
 
-    from vct_tpu_torch.decode_fast import extract_fast_weights, greedy_generate_fused
+    from vct_tpu_torch.decode_fast import make_fused_greedy_fn
 
-    weights = {}
+    return _graphed(make_fused_greedy_fn(model, max_len, start_id, end_id), mesh, 2)
 
-    def fused_fn(video_feats, video_masks):
-        if "fw" not in weights:
-            weights["fw"] = extract_fast_weights(model)
-        return greedy_generate_fused(model, video_feats, video_masks, max_len=max_len,
-                                     start_id=start_id, end_id=end_id,
-                                     fw=weights["fw"])
 
-    return _over_rows(fused_fn, mesh, 2)
+def _graphed(fn, mesh, batch_dim_of_second: Optional[int]) -> Callable:
+    """``_over_rows`` of a ``decode_fast.StagedDecode``, which stays readable
+    as the result's ``runner`` (its counts of shapes, graphs and replays)."""
+    out = _over_rows(fn, mesh, batch_dim_of_second)
+    if out is not fn:
+        out.runner = fn
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -319,8 +322,9 @@ def make_beam_fn(model, max_len: int, start_id: int, end_id: int, beam_size: int
 def make_auto_beam_fn(model, max_len: int, start_id: int, end_id: int, beam_size: int,
                       length_penalty: float = 0.6, mesh=None) -> Callable:
     """fn(feats, masks) -> (tokens, scores): beam search on the decode kernels
-    (``decode_fast.beam_generate_fused``: one stack launch and one
-    norm/generator/top-k launch per token; on CPU tensors their plain
+    (``decode_fast.make_fused_beam_fn``: one stack launch and one
+    norm/generator/top-k launch per token, on CUDA tensors in CUDA graphs
+    captured once per input shape, ``fn.runner``; on CPU tensors their plain
     versions), or on the module path when the model has its kernels off
     (``tpu.use_pallas_attention`` false). On a card a beam wider than the
     top-k kernel carries raises ``ValueError``; it never falls to the module
@@ -332,18 +336,10 @@ def make_auto_beam_fn(model, max_len: int, start_id: int, end_id: int, beam_size
         return _over_rows(make_beam_fn(model, max_len, start_id, end_id, beam_size,
                                        length_penalty), mesh, 0)
 
-    from vct_tpu_torch.decode_fast import extract_fast_weights, make_fused_beam_fn
+    from vct_tpu_torch.decode_fast import make_fused_beam_fn
 
-    weights = {}
-
-    def fn(video_feats, video_masks):
-        if "fn" not in weights:
-            weights["fn"] = make_fused_beam_fn(model, max_len, start_id, end_id, beam_size,
-                                               length_penalty,
-                                               fw=extract_fast_weights(model))
-        return weights["fn"](video_feats, video_masks)
-
-    return _over_rows(fn, mesh, 0)
+    return _graphed(make_fused_beam_fn(model, max_len, start_id, end_id, beam_size,
+                                       length_penalty), mesh, 0)
 
 
 @torch.no_grad()

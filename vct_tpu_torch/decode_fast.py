@@ -16,11 +16,19 @@ whole caption in one ``fused_sequence_decode`` launch. Beam search
 
 The self-cache window ``l_view`` grows in 8-row stages, so early steps read
 only the rows they can attend (exact: rows past ``idx`` carry zero weight).
+
+The compiled decode programs, ``make_fused_greedy_fn`` and
+``make_fused_beam_fn`` (the reference's ``jax.jit`` of each loop), split the
+caption into a prologue (encoder, cross K/V layout) and those stages over
+static buffers (``StagedDecode``): on a card each stage is a CUDA graph,
+captured once per input shape and replayed, with the host checking for the
+early exit between stages; on the CPU the same stage functions run directly.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence
+import threading
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -140,49 +148,76 @@ def layers_step_per_layer(x, ks, vs, cks, cvs, mem_bias, stacked: dict, idx: int
     return x, ks, vs
 
 
+def _stage_bounds(max_len: int) -> List[Tuple[int, int, int]]:
+    """The token loop's stages -> [(first position, end, l_view)]: 8 tokens
+    each, the self-cache window ``l_view`` growing with them. The host tests
+    for the early exit between stages."""
+    l_pad = _round_up(max_len, 8)
+    bounds, lo = [], 0
+    while lo < max_len - 1:
+        hi = min(lo + 8, max_len - 1)
+        bounds.append((lo, hi, min(_round_up(hi, 8), l_pad)))
+        lo = hi
+    return bounds
+
+
+def _greedy_start(st: dict, *, max_len: int, start_id: int, pad_id: int) -> None:
+    """The greedy loop's state in ``st``, beside its cross K/V ``st["cks"]``:
+    zeroed self caches ``ks``/``vs`` [NL, L_pad, B, E], ``tokens`` [B,
+    max_len] ([start] then [PAD]), the rows' ``done`` flags and ``all_done``."""
+    nl, _, b, e = st["cks"].shape
+    dt, dev = st["cks"].dtype, st["cks"].device
+    l_pad = _round_up(max_len, 8)
+    st["ks"] = torch.zeros((nl, l_pad, b, e), dtype=dt, device=dev)
+    st["vs"] = torch.zeros((nl, l_pad, b, e), dtype=dt, device=dev)
+    tokens = st["tokens"] = torch.full((b, max_len), pad_id, dtype=torch.int32, device=dev)
+    tokens[:, 0] = start_id
+    st["done"] = torch.zeros((b,), dtype=torch.bool, device=dev)
+    st["all_done"] = torch.zeros((), dtype=torch.bool, device=dev)
+
+
+def _greedy_stage(st: dict, fw: dict, lo: int, hi: int, l_view: int, *, end_id: int,
+                  pad_id: int, single_kernel: bool) -> None:
+    """Tokens ``lo + 1 .. hi`` of the greedy loop on the state ``st``. Rows
+    that finished keep receiving argmax tokens until every row has; from then
+    on every token is ``pad_id`` (the reference's early exit). Nothing here
+    waits for the device, so a CUDA graph can capture it."""
+    cks, cvs, mem_bias = st["cks"], st["cvs"], st["mem_bias"]
+    ks, vs, tokens, done, all_done = st["ks"], st["vs"], st["tokens"], st["done"], st["all_done"]
+    emb, pe, heads = fw["emb"], fw["pe"], fw["heads"]
+    for i in range(lo, hi):
+        cur = tokens[:, i]
+        x = emb[cur.long()].masked_fill((cur == pad_id)[:, None], 0.0)
+        x = (x + pe[i]).contiguous()
+        if single_kernel:
+            nxt, ks, vs = fused_whole_step(x, ks, vs, cks, cvs, mem_bias, fw, i,
+                                           heads=heads, l_view=l_view)
+        else:
+            x, ks, vs = fused_layers_step(x, ks, vs, cks, cvs, mem_bias, fw["stacked"],
+                                          i, heads=heads, l_view=l_view)
+            nxt = fused_norm_generator_argmax(x, fw["norm_s"], fw["norm_b"],
+                                              fw["wg"], fw["bg"])
+        nxt = torch.where(all_done, pad_id, nxt)
+        tokens[:, i + 1] = nxt
+        done |= nxt == end_id
+        all_done = done.all()
+    st["ks"], st["vs"], st["all_done"] = ks, vs, all_done
+
+
 @torch.no_grad()
 def _decode_loop(fw: dict, cks, cvs, mem_bias, *, max_len: int, start_id: int,
                  end_id: int, pad_id: int, single_kernel: bool) -> torch.Tensor:
-    """The kernel greedy loop -> tokens [B, max_len] int32. Rows that finished
-    keep receiving argmax tokens until every row has; from then on every
-    token is ``pad_id`` (the reference's early exit). The host checks for
-    that once per 8-step stage."""
-    nl, _, b, e = cks.shape
-    dt, dev = cks.dtype, cks.device
-    heads = fw["heads"]
-    l_pad = _round_up(max_len, 8)
-    ks = torch.zeros((nl, l_pad, b, e), dtype=dt, device=dev)
-    vs = torch.zeros((nl, l_pad, b, e), dtype=dt, device=dev)
-    tokens = torch.full((b, max_len), pad_id, dtype=torch.int32, device=dev)
-    tokens[:, 0] = start_id
-    done = torch.zeros((b,), dtype=torch.bool, device=dev)
-    all_done = torch.zeros((), dtype=torch.bool, device=dev)
-    emb, pe = fw["emb"], fw["pe"]
-
-    i = hi = 0
-    while hi < max_len - 1:
-        hi = min(hi + 8, max_len - 1)
-        l_view = min(_round_up(hi, 8), l_pad)
-        while i < hi:
-            cur = tokens[:, i]
-            x = emb[cur.long()].masked_fill((cur == pad_id)[:, None], 0.0)
-            x = (x + pe[i]).contiguous()
-            if single_kernel:
-                nxt, ks, vs = fused_whole_step(x, ks, vs, cks, cvs, mem_bias, fw, i,
-                                               heads=heads, l_view=l_view)
-            else:
-                x, ks, vs = fused_layers_step(x, ks, vs, cks, cvs, mem_bias, fw["stacked"],
-                                              i, heads=heads, l_view=l_view)
-                nxt = fused_norm_generator_argmax(x, fw["norm_s"], fw["norm_b"],
-                                                  fw["wg"], fw["bg"])
-            nxt = torch.where(all_done, pad_id, nxt)
-            tokens[:, i + 1] = nxt
-            done |= nxt == end_id
-            all_done = done.all()
-            i += 1
-        if bool(all_done):
+    """The kernel greedy loop -> tokens [B, max_len] int32: its stages run
+    one after another, the host checking once per stage whether every row
+    has finished."""
+    st = {"cks": cks, "cvs": cvs, "mem_bias": mem_bias}
+    _greedy_start(st, max_len=max_len, start_id=start_id, pad_id=pad_id)
+    for lo, hi, l_view in _stage_bounds(max_len):
+        _greedy_stage(st, fw, lo, hi, l_view, end_id=end_id, pad_id=pad_id,
+                      single_kernel=single_kernel)
+        if bool(st["all_done"]):
             break
-    return tokens
+    return st["tokens"]
 
 
 @torch.no_grad()
@@ -320,66 +355,99 @@ def fused_beam_supported(beam_size: int) -> bool:
     return 1 <= beam_size <= TOPK_MAX
 
 
+def _beam_start(st: dict, *, beam_size: int, max_len: int, start_id: int,
+                pad_id: int) -> None:
+    """The beam loop's state in ``st``, beside its cross K/V ``st["cks"]``
+    [NL, Tm, B*K, E]: zeroed self caches and their regather targets, the
+    beams (``decode.beam_start``), the frozen beam's candidates."""
+    from vct_tpu_torch.decode import beam_start
+
+    k = beam_size
+    nl, _, bk, e = st["cks"].shape
+    b = bk // k
+    dt, dev = st["cks"].dtype, st["cks"].device
+    l_pad = _round_up(max_len, 8)
+    st["ks"] = torch.zeros((nl, l_pad, bk, e), dtype=dt, device=dev)
+    st["vs"] = torch.zeros((nl, l_pad, bk, e), dtype=dt, device=dev)
+    # the regather reads rows the step kernel writes in place: it gathers
+    # into these second buffers, never into its own source
+    st["ks2"], st["vs2"] = torch.zeros_like(st["ks"]), torch.zeros_like(st["vs"])
+    (st["tokens"], st["scores"], st["finished"],
+     st["lengths"]) = beam_start(b, k, max_len, start_id, pad_id, dev)
+    # a frozen (finished) beam: candidate slot 0 is [PAD] at zero cost, the
+    # rest can never win
+    frozen_logp = st["frozen_logp"] = torch.full((k,), NEG_INF, dtype=torch.float32,
+                                                 device=dev)
+    frozen_logp[:1] = 0.0  # a slice fills on the device; an index would copy from the host
+    st["batch_base"] = torch.arange(b, device=dev)[:, None] * k
+    st["all_done"] = torch.zeros((), dtype=torch.bool, device=dev)
+
+
+def _beam_stage(st: dict, fw: dict, lo: int, hi: int, l_view: int, *, beam_size: int,
+                end_id: int, pad_id: int) -> None:
+    """Tokens ``lo + 1 .. hi`` of the beam loop on the state ``st``; then
+    ``all_done`` says whether every beam has finished. The [B, K, K]
+    candidate merge and the regather of the self-attention cache stay plain
+    PyTorch. Nothing here waits for the device, so a CUDA graph can capture
+    it; the swap of ``ks`` and ``ks2`` by reference each token is fixed by
+    the token count, so a replay repeats it."""
+    from vct_tpu_torch.decode import beam_advance
+
+    k = beam_size
+    cks, cvs, mem_bias = st["cks"], st["cvs"], st["mem_bias"]
+    nl, _, bk, _ = cks.shape
+    b = bk // k
+    max_len = st["tokens"].shape[-1]
+    ks, vs, ks2, vs2 = st["ks"], st["vs"], st["ks2"], st["vs2"]
+    tokens, scores, finished, lengths = (st["tokens"], st["scores"], st["finished"],
+                                         st["lengths"])
+    frozen_logp, batch_base = st["frozen_logp"], st["batch_base"]
+    emb, pe, heads = fw["emb"], fw["pe"], fw["heads"]
+    for i in range(lo, hi):
+        cur = tokens.reshape(bk, max_len)[:, i]
+        x = emb[cur.long()].masked_fill((cur == pad_id)[:, None], 0.0)
+        x = (x + pe[i]).contiguous()
+        x, ks, vs = fused_layers_step(x, ks, vs, cks, cvs, mem_bias, fw["stacked"], i,
+                                      heads=heads, l_view=l_view)
+        topv, topi, lse = fused_norm_generator_topk(x, fw["norm_s"], fw["norm_b"],
+                                                    fw["wg"], fw["bg"], k=k)
+        logp_top = (topv - lse[:, None]).reshape(b, k, k)
+        logp_eff = torch.where(finished[..., None], frozen_logp, logp_top)
+        tok_eff = torch.where(finished[..., None], pad_id, topi.reshape(b, k, k))
+        cand = scores[..., None] + logp_eff  # [B, K, K]
+        scores, idx = topk_first_win(cand.reshape(b, k * k), k)
+        beam_idx = idx // k
+        tok_idx = torch.gather(tok_eff.reshape(b, k * k), 1, idx)
+        tokens, finished, lengths = beam_advance(tokens, finished, lengths, beam_idx,
+                                                 tok_idx, i, end_id)
+        # only the first l_view rows: within a stage every later row is
+        # still zero for every beam, and a permutation of zeros is itself
+        flat = (batch_base + beam_idx).reshape(-1)
+        for li in range(nl):  # per layer: a contiguous [l_view, B*K, E] target
+            torch.index_select(ks[li, :l_view], 1, flat, out=ks2[li, :l_view])
+            torch.index_select(vs[li, :l_view], 1, flat, out=vs2[li, :l_view])
+        ks, ks2, vs, vs2 = ks2, ks, vs2, vs
+    st.update(ks=ks, vs=vs, ks2=ks2, vs2=vs2, tokens=tokens, scores=scores,
+              finished=finished, lengths=lengths, all_done=finished.all())
+
+
 @torch.no_grad()
 def _beam_loop(fw: dict, cks, cvs, mem_bias, *, beam_size: int, max_len: int,
                start_id: int, end_id: int, pad_id: int, length_penalty: float):
     """The kernel beam loop over cks [NL, Tm, B*K, E] -> (tokens [B, max_len]
-    int32, scores [B]). The [B, K, K] candidate merge and the regather of the
-    self-attention cache stay plain PyTorch. The host tests "every beam has
-    finished" once per 8-step stage (exact: see ``decode.beam_generate``)."""
-    from vct_tpu_torch.decode import beam_advance, beam_select, beam_start
+    int32, scores [B]): its stages one after another, the host testing
+    "every beam has finished" once per stage (exact: see
+    ``decode.beam_generate``)."""
+    from vct_tpu_torch.decode import beam_select
 
-    k = beam_size
-    nl, _, bk, e = cks.shape
-    b = bk // k
-    dt, dev = cks.dtype, cks.device
-    heads = fw["heads"]
-    l_pad = _round_up(max_len, 8)
-    ks = torch.zeros((nl, l_pad, bk, e), dtype=dt, device=dev)
-    vs = torch.zeros((nl, l_pad, bk, e), dtype=dt, device=dev)
-    # the regather reads rows the step kernel writes in place: it gathers
-    # into these second buffers, never into its own source
-    ks2, vs2 = torch.zeros_like(ks), torch.zeros_like(vs)
-    tokens, scores, finished, lengths = beam_start(b, k, max_len, start_id, pad_id, dev)
-    emb, pe = fw["emb"], fw["pe"]
-    # a frozen (finished) beam: candidate slot 0 is [PAD] at zero cost, the
-    # rest can never win
-    frozen_logp = torch.full((k,), NEG_INF, dtype=torch.float32, device=dev)
-    frozen_logp[0] = 0.0
-    batch_base = torch.arange(b, device=dev)[:, None] * k
-
-    i = hi = 0
-    while hi < max_len - 1:
-        hi = min(hi + 8, max_len - 1)
-        l_view = min(_round_up(hi, 8), l_pad)
-        while i < hi:
-            cur = tokens.reshape(bk, max_len)[:, i]
-            x = emb[cur.long()].masked_fill((cur == pad_id)[:, None], 0.0)
-            x = (x + pe[i]).contiguous()
-            x, ks, vs = fused_layers_step(x, ks, vs, cks, cvs, mem_bias, fw["stacked"], i,
-                                          heads=heads, l_view=l_view)
-            topv, topi, lse = fused_norm_generator_topk(x, fw["norm_s"], fw["norm_b"],
-                                                        fw["wg"], fw["bg"], k=k)
-            logp_top = (topv - lse[:, None]).reshape(b, k, k)
-            logp_eff = torch.where(finished[..., None], frozen_logp, logp_top)
-            tok_eff = torch.where(finished[..., None], pad_id, topi.reshape(b, k, k))
-            cand = scores[..., None] + logp_eff  # [B, K, K]
-            scores, idx = topk_first_win(cand.reshape(b, k * k), k)
-            beam_idx = idx // k
-            tok_idx = torch.gather(tok_eff.reshape(b, k * k), 1, idx)
-            tokens, finished, lengths = beam_advance(tokens, finished, lengths, beam_idx,
-                                                     tok_idx, i, end_id)
-            # only the first l_view rows: within a stage every later row is
-            # still zero for every beam, and a permutation of zeros is itself
-            flat = (batch_base + beam_idx).reshape(-1)
-            for li in range(nl):  # per layer: a contiguous [l_view, B*K, E] target
-                torch.index_select(ks[li, :l_view], 1, flat, out=ks2[li, :l_view])
-                torch.index_select(vs[li, :l_view], 1, flat, out=vs2[li, :l_view])
-            ks, ks2, vs, vs2 = ks2, ks, vs2, vs
-            i += 1
-        if bool(finished.all()):
+    st = {"cks": cks, "cvs": cvs, "mem_bias": mem_bias}
+    _beam_start(st, beam_size=beam_size, max_len=max_len, start_id=start_id, pad_id=pad_id)
+    for lo, hi, l_view in _stage_bounds(max_len):
+        _beam_stage(st, fw, lo, hi, l_view, beam_size=beam_size, end_id=end_id,
+                    pad_id=pad_id)
+        if bool(st["all_done"]):
             break
-    return beam_select(tokens, scores, lengths, length_penalty)
+    return beam_select(st["tokens"], st["scores"], st["lengths"], length_penalty)
 
 
 @torch.no_grad()
@@ -413,13 +481,219 @@ def beam_generate_fused(model, video_feats: Sequence[torch.Tensor],
 
 
 def make_fused_beam_fn(model, max_len: int, start_id: int, end_id: int, beam_size: int,
-                       length_penalty: float = 0.6, *, fw: Optional[dict] = None
-                       ) -> Callable:
-    """fn(feats, masks) -> (tokens, scores) on the kernel beam path."""
+                       length_penalty: float = 0.6) -> Callable:
+    """fn(feats, masks) -> (tokens [B, max_len] int32, scores [B]): the
+    kernel beam loop as a ``StagedDecode`` (port of
+    ``vct_tpu/decode_fast.py:make_fused_beam_fn``, a ``jax.jit`` of the same
+    loop): on CUDA tensors CUDA graphs of its stages, captured once per input
+    shape and replayed, with ``beam_generate_fused``'s tokens and scores bit
+    for bit. The kernel weights are extracted at the first call. On a card a
+    beam wider than the top-k kernel carries raises ``ValueError``."""
+    pad_id = model.config.pad_id
+    weights = {"fw": None}
+    kw = dict(beam_size=beam_size, end_id=end_id, pad_id=pad_id)
 
-    def fn(video_feats, video_masks):
-        return beam_generate_fused(model, video_feats, video_masks, beam_size=beam_size,
-                                   max_len=max_len, start_id=start_id, end_id=end_id,
-                                   length_penalty=length_penalty, fw=fw)
+    def prologue(st):
+        if st["feats"][0].is_cuda and not fused_beam_supported(beam_size):
+            raise ValueError(f"beam_size={beam_size} outside 1..{TOPK_MAX}, the beam widths "
+                             f"the top-k kernel carries")
+        if weights["fw"] is None:
+            weights["fw"] = extract_fast_weights(model)
+        _, st["cks"], st["cvs"], st["mem_bias"] = _prep_decode(
+            model, st["feats"], st["masks"], max_len, weights["fw"], beam_size)
+        _beam_start(st, beam_size=beam_size, max_len=max_len, start_id=start_id,
+                    pad_id=pad_id)
 
-    return fn
+    def stage(lo, hi, l_view):
+        return lambda st: _beam_stage(st, weights["fw"], lo, hi, l_view, **kw)
+
+    def finish(st):
+        from vct_tpu_torch.decode import beam_select
+
+        return beam_select(st["tokens"], st["scores"], st["lengths"], length_penalty)
+
+    return StagedDecode(prologue, [stage(*b) for b in _stage_bounds(max_len)], finish)
+
+
+# ---------------------------------------------------------------------------
+# the compiled decode programs: CUDA graphs of the staged loops
+# ---------------------------------------------------------------------------
+
+
+def make_fused_greedy_fn(model, max_len: int, start_id: int, end_id: int) -> Callable:
+    """fn(feats, masks) -> (tokens [B, max_len] int32, None): the kernel
+    greedy loop, encoder included, as a ``StagedDecode`` (port of
+    ``vct_tpu/decode_fast.py:make_fused_greedy_fn``, a ``jax.jit`` of the
+    same loop): on CUDA tensors CUDA graphs of its stages, captured once per
+    input shape and replayed, with ``greedy_generate_fused``'s tokens bit for
+    bit. The route follows the rows as there: the whole-step kernel at B <=
+    64, the stack + argmax kernels above. The kernel weights are extracted at
+    the first call."""
+    pad_id = model.config.pad_id
+    weights = {"fw": None}
+    kw = dict(end_id=end_id, pad_id=pad_id)
+
+    def prologue(st):
+        if weights["fw"] is None:
+            weights["fw"] = extract_fast_weights(model)
+        _, st["cks"], st["cvs"], st["mem_bias"] = _prep_decode(
+            model, st["feats"], st["masks"], max_len, weights["fw"])
+        _greedy_start(st, max_len=max_len, start_id=start_id, pad_id=pad_id)
+
+    def stage(lo, hi, l_view):
+        return lambda st: _greedy_stage(st, weights["fw"], lo, hi, l_view,
+                                        single_kernel=_resolve_tiling(st["cks"].shape[2], None),
+                                        **kw)
+
+    return StagedDecode(prologue, [stage(*b) for b in _stage_bounds(max_len)],
+                        lambda st: (st["tokens"].clone(), None))
+
+
+def _launch_counts() -> Dict:
+    """Every kernel wrapper a decode can reach -> its launch count."""
+    from vct_tpu_torch.ops import attention_kernels as ak
+    from vct_tpu_torch.ops import decode_kernels as dk
+
+    return {fn: fn.launches for fn in (*dk.WRAPPERS, ak.fused_attention)}
+
+
+class _GraphSet:
+    """One input shape's static buffers and, on a card, its CUDA graphs:
+    the inputs ``feats``/``masks`` and the loop's state live in ``st``; graph
+    ``s`` is stage ``s`` (the prologue and the first stage in graph 0), kept
+    with the launches its capture recorded and the state it leaves (a stage
+    rebinds ``all_done`` and the beam's tensors: after a replay of stage
+    ``s`` they are in stage ``s``'s tensors, not in the last stage's)."""
+
+    def __init__(self, feats, masks):
+        self.st = {"feats": [torch.empty_like(f) for f in feats],
+                   "masks": None if masks is None else [torch.empty_like(m) for m in masks]}
+        self.graphs: List[Tuple[torch.cuda.CUDAGraph, Dict, Dict]] = []
+        self.pool_bytes = 0
+
+    def load(self, feats, masks) -> None:
+        for dst, src in zip(self.st["feats"], feats):
+            dst.copy_(src)
+        for dst, src in zip(self.st["masks"] or (), masks or ()):
+            dst.copy_(src)
+
+
+class StagedDecode:
+    """fn(feats, masks) over a decode split into stages: ``prologue`` (the
+    encoder, the cross K/V layout, the loop's state) then ``stages`` (8
+    tokens each), then ``finish`` on the host's side of the last stage run.
+    The host reads ``st["all_done"]`` after each stage and runs the next only
+    while a row is still going, the early exit that the reference's
+    ``lax.while_loop`` condition gives.
+
+    Each input shape (rows, frames and width per modality, dtypes, device)
+    gets a ``_GraphSet``: static input buffers the call's inputs are copied
+    into. On CPU tensors the stages run directly on them (the kernels' plain
+    versions). On CUDA tensors the first call of a shape runs the stages on a
+    side stream (which builds the kernel library and initialises cuBLAS) and
+    answers from that run, then captures one CUDA graph per stage into one
+    memory pool; every later call replays the graphs: the same kernels with
+    the same arguments in the same order, so the same bits as the eager loop.
+    A failed capture or replay raises; nothing falls back to the eager loop.
+    Results are the caller's own (cloned or newly made by ``finish``), so a
+    result held across calls is not overwritten. One call runs at a time
+    (the buffers are shared). The graphs belong to this object and are freed
+    with it. ``sets``, ``graphs`` and ``replays`` count the shapes set up,
+    the graphs captured and the graph replays; a replay adds the launches its
+    capture recorded to each kernel wrapper's ``launches``, and the capture
+    itself counts none."""
+
+    def __init__(self, prologue: Callable, stages: List[Callable], finish: Callable):
+        def first(st):
+            prologue(st)
+            if stages:
+                stages[0](st)
+
+        self._stages = [first, *stages[1:]]
+        self._finish = finish
+        self._sets: Dict = {}
+        self._lock = threading.Lock()
+        self.sets = self.graphs = self.replays = 0
+
+    @torch.no_grad()
+    def __call__(self, video_feats, video_masks):
+        feats = list(video_feats)
+        masks = list(video_masks) if video_masks else None
+        key = tuple((tuple(t.shape), t.dtype, t.device) for t in feats + (masks or []))
+        with self._lock:
+            gs = self._sets.get(key)
+            new = gs is None
+            if new:
+                gs = _GraphSet(feats, masks)
+            gs.load(feats, masks)
+            if new and feats[0].is_cuda:
+                out = self._capture(gs)
+            else:
+                out = self._finish(self._replay(gs) if gs.graphs else self._run(gs))
+            if new:
+                self._sets[key] = gs
+                self.sets += 1
+            return out
+
+    @property
+    def pool_bytes(self) -> Dict:
+        """Each captured shape's key -> the device memory its graphs' pool
+        reserved."""
+        return {key: gs.pool_bytes for key, gs in self._sets.items() if gs.graphs}
+
+    @property
+    def runner(self) -> "StagedDecode":
+        """Itself, as ``decode.make_auto_*_fn`` results name their runner."""
+        return self
+
+    def _run(self, gs: _GraphSet) -> Dict:
+        """The stages run directly -> the state they leave."""
+        for s, stage in enumerate(self._stages):
+            stage(gs.st)
+            if s + 1 < len(self._stages) and bool(gs.st["all_done"]):
+                break
+        return gs.st
+
+    def _capture(self, gs: _GraphSet):
+        dev = gs.st["feats"][0].device
+        caller = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(caller)
+        with torch.cuda.stream(side):
+            state = self._run(gs)
+        caller.wait_stream(side)
+        out = self._finish(state)  # on the caller's stream, like a replay's
+        side.wait_stream(caller)
+        with torch.cuda.stream(side):
+            pool = torch.cuda.graph_pool_handle()
+            reserved = torch.cuda.memory_reserved(dev)
+            for stage in self._stages:
+                before = _launch_counts()
+                graph = torch.cuda.CUDAGraph()
+                graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+                try:
+                    stage(gs.st)
+                finally:
+                    graph.capture_end()
+                    # nothing ran: the wrappers counted launches into the graph
+                    after = _launch_counts()
+                    for fn, n in before.items():
+                        fn.launches = n
+                gs.graphs.append((graph, {fn: after[fn] - n for fn, n in before.items()
+                                          if after[fn] != n}, dict(gs.st)))
+                self.graphs += 1
+            gs.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        caller.wait_stream(side)
+        return out
+
+    def _replay(self, gs: _GraphSet) -> Dict:
+        """The graphs replayed on the caller's stream -> the state the last
+        replayed stage left."""
+        for s, (graph, launched, state) in enumerate(gs.graphs):
+            graph.replay()
+            self.replays += 1
+            for fn, n in launched.items():
+                fn.launches += n
+            if s + 1 < len(gs.graphs) and bool(state["all_done"]):
+                break
+        return state

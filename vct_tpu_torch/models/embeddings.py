@@ -11,7 +11,7 @@ biGRU). Module and parameter names are the reference ``state_dict``'s.
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -57,6 +57,22 @@ def temporal_encoding(modal_lengths: Sequence[int], dim: int,
     return np.concatenate(parts, axis=0)
 
 
+def device_table(cache: Dict, key, build: Callable[[], np.ndarray], device,
+                 dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``build()`` as a tensor on ``device`` (cast to ``dtype``), made at the
+    first call of ``key`` and kept in ``cache``. The encoder's constant
+    tables depend only on the modality lengths, as they are constants folded
+    into the reference's compiled program: made once, they cost no host copy
+    per call, and a call that a CUDA graph captures (``decode_fast``) copies
+    nothing from host memory, which capture forbids."""
+    k = (key, str(device), dtype)
+    table = cache.get(k)
+    if table is None:
+        table = torch.as_tensor(build(), device=device)
+        table = cache[k] = table if dtype is None else table.to(dtype)
+    return table
+
+
 def temporal_embedding_indices(modal_lengths: Sequence[int]) -> np.ndarray:
     """Index map of the learned ``TemporalEmbedding`` -> int64 [sum(lengths)]:
     per modality ``concat([0], linspace(1, D, t))`` with D the primary
@@ -71,15 +87,19 @@ def temporal_embedding_indices(modal_lengths: Sequence[int]) -> np.ndarray:
 
 
 class TemporalEmbedding(nn.Module):
-    """Learned temporal table (512 rows); key ``temp_emb.embedding.weight``."""
+    """Learned temporal table (512 rows); key ``temp_emb.embedding.weight``.
+    Modality lengths -> their rows (``temporal_embedding_indices``), [sum(lengths), dim]."""
 
     def __init__(self, dim: int, max_len: int = 512, *, device=None):
         super().__init__()
         self.embedding = nn.Embedding(max_len, dim, device=device)
+        self._indices: Dict = {}
 
-    def forward(self, indices: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+    def forward(self, modal_lengths: Sequence[int], dtype: torch.dtype) -> torch.Tensor:
         w = self.embedding.weight
-        return w.to(dtype)[torch.as_tensor(indices, device=w.device)]
+        idx = device_table(self._indices, tuple(modal_lengths),
+                           lambda: temporal_embedding_indices(modal_lengths), w.device)
+        return w.to(dtype)[idx]
 
 
 class ModalEmbedding(nn.Module):
@@ -91,6 +111,7 @@ class ModalEmbedding(nn.Module):
         self.num_modal, self.modal_different = num_modal, modal_different
         n = num_modal * 2 if modal_different else num_modal
         self.modal_emb = nn.Embedding(n, dim, device=device)
+        self._labels: Dict = {}
 
     def labels(self, modal_lengths: Sequence[int]) -> List[int]:
         lab: List[int] = []
@@ -101,7 +122,8 @@ class ModalEmbedding(nn.Module):
 
     def forward(self, modal_lengths: Sequence[int], dtype: torch.dtype) -> torch.Tensor:
         w = self.modal_emb.weight
-        idx = torch.tensor(self.labels(modal_lengths), device=w.device)
+        idx = device_table(self._labels, tuple(modal_lengths),
+                           lambda: np.asarray(self.labels(modal_lengths), np.int64), w.device)
         return w.to(dtype)[idx]
 
 

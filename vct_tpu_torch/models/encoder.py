@@ -21,7 +21,7 @@ from vct_tpu_torch.models.embeddings import (
     GlobalAggregation,
     ModalEmbedding,
     TemporalEmbedding,
-    temporal_embedding_indices,
+    device_table,
     temporal_encoding,
 )
 from vct_tpu_torch.models.layers import (
@@ -48,6 +48,7 @@ class _MMEBase(nn.Module):
         self.d_model, self.dtype, self.do_norm = d_model, dtype, do_norm
         self.temporal_type = temporal_type
         self.num_modal = len(d_feats)
+        self._tables: dict = {}
         self.unify = nn.ModuleList(nn.Linear(d, d_model, device=device)
                                    for d in d_feats)
         self.global_agg = GlobalAggregation(global_type, d_model, quirk_unmasked_agg,
@@ -81,10 +82,11 @@ class _MMEBase(nn.Module):
                  for m in padding_masks], dim=1)
 
         if self.temporal_type == "embedding":
-            temp = self.temp_emb(temporal_embedding_indices(lengths), dt)
+            temp = self.temp_emb(lengths, dt)
         else:
-            temp = torch.as_tensor(temporal_encoding(lengths, self.d_model),
-                                   device=uni[0].device).to(dt)
+            temp = device_table(self._tables, tuple(lengths),
+                                lambda: temporal_encoding(lengths, self.d_model),
+                                uni[0].device, dt)
         fused = torch.cat(per_modal, dim=1) + temp[None]
         if self.num_modal > 1:
             fused = fused + self.modal_emb(lengths, dt)[None]
@@ -162,6 +164,7 @@ class SimpleSepEncoder(nn.Module):
         super().__init__()
         self.d_model, self.dtype = d_model, dtype
         self.num_modal = len(d_feats)
+        self._tables: dict = {}
         self.unify = nn.ModuleList(nn.Linear(d, d_model, device=device)
                                    for d in d_feats)
         self.transformer_encoders = nn.ModuleList(
@@ -175,11 +178,13 @@ class SimpleSepEncoder(nn.Module):
         dt = self.dtype
         uni = [linear(src, lin.weight, lin.bias, dt)
                for src, lin in zip(srcs, self.unify)]
-        temp = temporal_encoding([int(f.shape[1]) for f in uni], self.d_model,
-                                 separate=True)
+        lengths = [int(f.shape[1]) for f in uni]
         memories = []
-        for i, (f, te) in enumerate(zip(uni, temp)):
+        for i, f in enumerate(uni):
             bias = padding_bias(padding_masks[i]) if padding_masks is not None else None
-            te = torch.as_tensor(te, device=f.device).to(dt)
+            te = device_table(self._tables, (tuple(lengths), i),
+                              lambda i=i: temporal_encoding(lengths, self.d_model,
+                                                            separate=True)[i],
+                              f.device, dt)
             memories.append(self.transformer_encoders[i](f + te[None], bias))
         return torch.cat(memories, dim=1), None, None

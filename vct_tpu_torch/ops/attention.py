@@ -112,8 +112,10 @@ def dot_product_attention(
             q, k, v, None if bias is None else bias.detach(), keep, rate), None
     dtype = q.dtype
     d_head = q.shape[-1]
+    # a float32 0-d host tensor: a scalar operand of the product, never copied
+    # to the device (a CUDA graph may be capturing, ``decode_fast``)
     scale = 1.0 / torch.sqrt(torch.tensor(float(d_head), dtype=torch.float32))
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale.to(q.device)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     if bias is not None:
         logits = logits + bias.float()
     weights = torch.softmax(logits, dim=-1)
