@@ -15,6 +15,7 @@ extraction paths once on one CUDA card.
                                            reading of a beam-4 eval batch of 64
     python3 chip_smoke.py --parallel       build, then phase 20 alone
     python3 chip_smoke.py --graphs         build, then phase 21 alone
+    python3 chip_smoke.py --train-graphs   build, then phase 22 alone
     python3 chip_smoke.py --torchrun-rank OUT ARGS...
                                            phase 20's process under torchrun:
                                            cli.train's run on ARGS, its record
@@ -249,6 +250,32 @@ Phases, each of which must pass:
               (torch.profiler), graphed and eager, at B = 1, 32, 64 and for
               beam 4 over 64 videos, with each graph set's memory; p50 / p99
               of 8 concurrent /v1/caption requests at max_batch 32
+ 22. train-graphs  the compiled train and validation steps
+              (train.step.GraphedTrainStep / GraphedEvalStep: one CUDA graph of
+              forward, backward and the optimizer update per batch shape,
+              captured after the shape's first, eager call) and the module
+              path's decode programs (decode.make_greedy_fn / make_beam_fn,
+              staged graphs): (a) phase 7's MSVD config (batch 64, bf16,
+              dropout 0.3) on Adam, AdamW and SGD: one Trainer's state copied
+              three times, 10 eager steps on two copies and 10 graphed steps on
+              the third, the LR cut to 0.3 of itself before step 6, the graphed
+              state saved after step 8 and resumed by a fresh Trainer whose own
+              graphed steps 9-10 go beside; after each step the metrics, every
+              parameter, the optimizer state and the generator state equal the
+              eager copy's bit for bit where the two eager copies agree bit for
+              bit, else within their spread; SGD's default update with a
+              tensor LR refused under capture (the port's SGD runs fused);
+              (b) the long-video step (batch 32, attention kernels on), 5
+              steps the same way, its graph holding 7 + 7 trainable attention
+              launches and the 3 loss kernels; (c) the cross step with a fixed
+              temperature, 3 steps, and each recipe's validation step, first
+              call and two replays, against the eager step; (e) host ms a step,
+              device busy ms, idle share and kernels a step (torch.profiler),
+              graphed and eager in one run, each graph's pool and capture time;
+              (d) make_greedy_fn with collect_attn and make_beam_fn (beam 4) at
+              B = 1 and 32 in bfloat16 and float32, rows ending early: tokens
+              and attention maps bit for bit the eager module path's, first
+              call and two replays
 
 Times: every row of the ``kernels`` line names its ``timer``. ``cuda_events``
 is ``cuda_time``, CUDA events around a Python loop of calls. ``graph_replay``
@@ -273,9 +300,10 @@ L2), so that no call finds its weight left in L2 by the call before.
 Launch counts are set to 0 just before phases 4, 5, 7, 9, 10, 13, 14, 17, 18,
 19 and 20 (each predict run and the video server in 17, each predict run in
 19, each run and each rank in 20) and read just after each. The decode
-factories replay CUDA graphs (phase 21): a replay adds the launches its
-capture recorded to each wrapper's count, the capture itself counts none, so
-the counts are the kernels the device ran:
+factories (phase 21) and, in one process, the Trainer's train and validation
+steps (phase 22) replay CUDA graphs: a replay adds the launches its capture
+recorded to each wrapper's count, the capture itself counts none, so the
+counts are the kernels the device ran:
 the server must have launched the whole-step kernel,
 the B=128 decode the other two decode kernels, training the three loss
 kernels, the beam eval the stack and top-k kernels once per beam token, the
@@ -292,6 +320,7 @@ failure exits 1 before it.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import io
 import itertools
@@ -5057,6 +5086,333 @@ def run_graphs(cfg, ckpt, model, fw, dev, card):
     return report
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the compiled train and validation steps and the module path's
+# decode programs (CUDA graphs)
+# ---------------------------------------------------------------------------
+
+GRAPH_STEPS, GRAPH_LR_STEP, GRAPH_SAVE_STEP = 10, 5, 8   # LR changes before step 6
+LONG_GRAPH_STEPS, CROSS_GRAPH_STEPS = 5, 3
+GRAPH_OPTIMIZERS = {"adam": {}, "adamw": {"weight_decay": 0.01}, "sgd": {"momentum": 0.9}}
+FIXED_TEMPERATURE = 0.07
+MODULE_BATCHES = (1, 32)
+
+
+def with_optimizer(path: Path, name: str, **opt) -> Path:
+    """The config at ``path`` with ``train.optimizer`` set to ``name`` (and
+    ``opt``) -> file."""
+    cfg = json.loads(path.read_text())
+    cfg["train"]["optimizer"].update(name=name, **opt)
+    out = path.with_name(f"{path.stem}_{name}.json")
+    out.write_text(json.dumps(cfg))
+    return out
+
+
+def state_copies(tr, n):
+    """``n`` train states with the Trainer's weights, a fresh optimizer each
+    (``build_optimizer``, as the Trainer builds it) and a dropout generator
+    seeded as the Trainer's: copies of its state before its first step."""
+    from vct_tpu_torch.train.optimizers import build_optimizer
+    from vct_tpu_torch.train.state import make_train_state
+
+    gen = tr.state.generator
+    tr.model.set_dropout_generator(None)  # a generator is not copied
+    try:
+        models = [copy.deepcopy(tr.model) for _ in range(n)]
+    finally:
+        tr.model.set_dropout_generator(gen)
+    return [make_train_state(m, build_optimizer(tr.cfg.train, m), device=tr.device,
+                             seed=tr.cfg.tpu.seed) for m in models]
+
+
+def split_batches(tr, split, n):
+    """The first ``n`` batches of a split on the Trainer's device (text
+    features included where the task has them)."""
+    loader = tr.loaders[split]
+    loader.set_epoch(0)
+    return [tr._arrays(b) for b in itertools.islice(loader, n)]
+
+
+def state_tensors(state) -> dict:
+    """name -> tensor: every parameter, every optimizer state tensor and the
+    dropout generator's state."""
+    names = {id(p): k for k, p in state.model.named_parameters()}
+    out = {f"param {k}": p.detach() for k, p in state.model.named_parameters()}
+    for p, st in state.optimizer.state.items():
+        for key, v in st.items():
+            if isinstance(v, torch.Tensor):
+                out[f"optimizer {names[id(p)]} {key}"] = v
+    out["generator"] = state.generator.get_state()
+    return out
+
+
+def parted(a: dict, b: dict) -> dict:
+    """name -> max abs difference of the tensors of ``a`` and ``b`` that are
+    not equal bit for bit."""
+    return {k: float((a[k].double() - b[k].double()).abs().max())
+            for k in a if not torch.equal(a[k], b[k])}
+
+
+def hold_to_eager(what, got: dict, eager: dict, again: dict, spread: dict) -> int:
+    """The rule of phase 22: ``got`` (graphed) equals ``eager`` bit for bit
+    where the eager step repeated itself (``again``, the same step on a
+    copy) bit for bit; where it did not, ``got`` stays within the eager
+    step's own spread there. Adds each tensor where eager parted to
+    ``spread`` -> the number of tensors held by bits."""
+    own = parted(eager, again)
+    off = parted(got, eager)
+    for k, d in off.items():
+        if k not in own or d > own[k]:
+            fail(f"train graphs: {what}: {k} parts from the eager step by {d:.3g}, eager "
+                 f"from itself by {own.get(k, 0.0):.3g}")
+    for k, d in own.items():
+        spread[k] = max(spread.get(k, 0.0), d)
+    return len(eager) - len(own)
+
+
+def metric_tensors(metrics) -> dict:
+    return {f"metric {k}": v for k, v in metrics.items()}
+
+
+def graphed_steps(what, tr, batches, n_steps, *, lr_step=None, save_step=None,
+                  ckpt=None, restore=None):
+    """Eager steps on two copies of the Trainer's state and graphed steps on
+    a third, ``n_steps`` steps on ``batches`` in turn: after each step the
+    metrics, every parameter, the optimizer state and the generator state
+    held by ``hold_to_eager``. ``lr_step``: the LR falls to 0.3 of itself
+    before that step (0-based) on every copy. ``save_step``: after that many
+    steps the graphed state is saved to ``ckpt``, ``restore()`` builds a
+    fresh Trainer that resumes from it, and its own graphed steps go on beside the others,
+    held the same way -> (the graphed runner, the eager state, the graphed
+    state, the spread)."""
+    from vct_tpu_torch.train.optimizers import current_learning_rate, set_learning_rate
+    from vct_tpu_torch.train.state import save_checkpoint
+    from vct_tpu_torch.train.step import make_train_step
+
+    eager_a, eager_b, graphed_state = state_copies(tr, 3)
+    runner = make_train_step(tr.task)
+    eager = runner.eager
+    spread, held, resumed = {}, 0, None
+    for i in range(n_steps):
+        if i == lr_step:
+            lr = current_learning_rate(eager_a.optimizer) * 0.3
+            for st in (eager_a, eager_b, graphed_state):
+                set_learning_rate(st.optimizer, lr)
+        if i == save_step:
+            save_checkpoint(str(ckpt), graphed_state)
+            resumed = restore()
+            resumed.resume(str(ckpt))
+        batch = batches[i % len(batches)]
+        _, m_a = eager(eager_a, batch)
+        _, m_b = eager(eager_b, batch)
+        _, m_g = runner(graphed_state, batch)
+        want = {**metric_tensors(m_a), **state_tensors(eager_a)}
+        again = {**metric_tensors(m_b), **state_tensors(eager_b)}
+        held += hold_to_eager(f"{what}, step {i + 1}", {**metric_tensors(m_g),
+                                                       **state_tensors(graphed_state)},
+                              want, again, spread)
+        if resumed is not None:
+            _, m_r = resumed.train_step(resumed.state, batch)
+            held += hold_to_eager(f"{what}, step {i + 1} after the restore",
+                                  {**metric_tensors(m_r), **state_tensors(resumed.state)},
+                                  want, again, spread)
+        if graphed_state.step != eager_a.step:
+            fail(f"train graphs: {what}: step counter {graphed_state.step} against "
+                 f"{eager_a.step}")
+    torch.cuda.synchronize()
+    if (runner.sets, runner.graphs, runner.replays) != (1, 1, n_steps - 1):
+        fail(f"train graphs: {what}: {runner.sets} sets, {runner.graphs} graphs, "
+             f"{runner.replays} replays over {n_steps} steps of one shape")
+    if resumed is not None and (resumed.train_step.sets, resumed.train_step.replays) != (
+            1, n_steps - save_step - 1):
+        fail(f"train graphs: {what}: the resumed Trainer's runner has "
+             f"{resumed.train_step.sets} sets and {resumed.train_step.replays} replays")
+    note = "bit for bit" if not spread else (
+        f"bit for bit but {len(spread)} tensors where eager parts from itself too (largest "
+        f"{max(spread.values()):.3g}: {sorted(spread)[:4]})")
+    say(f"  ok {what}: {n_steps} graphed steps (the first eager, then {runner.replays} "
+        f"replays) against eager: {note}; {held} tensor checks"
+        + (f", LR x0.3 before step {lr_step + 1}" if lr_step is not None else "")
+        + (f", saved after step {save_step} and resumed in a fresh Trainer"
+           if save_step is not None else ""))
+    return runner, eager_a, graphed_state, spread
+
+
+def graphed_validation(what, tr, model, batch):
+    """The validation step graphed (first call, then a replay) against the
+    eager one on the same model and batch, bit for bit."""
+    from vct_tpu_torch.train.step import make_eval_step
+
+    runner = make_eval_step(tr.task)
+    want = runner.eager(model, batch)
+    again = runner.eager(model, batch)
+    for call in range(3):
+        got = runner(model, batch)
+        hold_to_eager(f"{what} validation, call {call + 1}", got, want, again, {})
+    torch.cuda.synchronize()
+    if (runner.sets, runner.graphs, runner.replays) != (1, 1, 2):
+        fail(f"train graphs: {what} validation: {runner.sets} sets, {runner.replays} replays")
+    return runner
+
+
+def step_readings(key, what, runner, graphed_state, eager_state, batch, card):
+    """Host ms a step, device busy ms and idle share (torch.profiler), kernels
+    a step, graphed (``runner``) and eager in one run; the graph's pool and
+    capture time -> report entries under ``key``."""
+    report, line = {}, []
+    for label, run in (("graphed", lambda: runner(graphed_state, batch)),
+                       ("eager", lambda: runner.eager(eager_state, batch))):
+        ms = host_time(run, reps=10)
+        rows, _ = device_rows(run, 5)
+        busy = sum(r[1] for r in rows)
+        kernels = sum(r[2] for r in rows)
+        report.update({f"{key}_{label}_ms": ms, f"{key}_{label}_busy_ms": busy,
+                       f"{key}_{label}_idle_share": 1 - busy / ms,
+                       f"{key}_{label}_kernels": kernels})
+        line.append(f"{label} {ms:.3f} ms, busy {busy:.3f} ms, idle share "
+                    f"{1 - busy / ms:.2f}, {kernels:.0f} kernels")
+    (pool,), (seconds,) = runner.pool_bytes.values(), runner.capture_seconds.values()
+    report.update({f"{key}_graph_pool_mb": pool / 2 ** 20, f"{key}_capture_s": seconds})
+    say(f"  {what} step: " + "; ".join(line) + f"; graph pool {pool / 2 ** 20:.1f} MiB, "
+        f"capture {seconds:.3f} s [{card}]")
+    return report
+
+
+def sgd_tensor_lr_probe(dev) -> str:
+    """Whether torch.optim.SGD's default (multi-tensor) update with a tensor
+    LR can be captured: it reads the LR on the host (``alpha=-lr``), which a
+    capture refuses; ``settle_optimizer`` gives SGD its fused update."""
+    from vct_tpu_torch import graphs
+
+    p = torch.nn.Parameter(torch.ones(64, device=dev))
+    opt = torch.optim.SGD([p], lr=torch.tensor(0.1, device=dev), momentum=0.9)
+
+    def step():
+        p.grad = torch.ones_like(p)
+        opt.step()
+
+    with graphs.side_stream(dev):
+        step()  # the momentum buffer is made here
+        try:
+            graphs.capture(step, pool=torch.cuda.graph_pool_handle())
+        except Exception as e:  # noqa: BLE001 - the answer
+            return f"refused ({type(e).__name__})"
+    return "captured"
+
+
+def run_train_graphs(repo: Path, root: Path, long_root: Path, vocab: Path, cfg, model, dev,
+                     card):
+    """Phase 22: the graphed train and validation steps against the eager
+    ones, the module path's staged decode against its eager loop, and the
+    readings -> report."""
+    from vct_tpu_torch.cli.common import load_config, make_trainer_pieces
+    from vct_tpu_torch.decode import beam_generate, greedy_generate, make_beam_fn, make_greedy_fn
+    from vct_tpu_torch.ops import attention_kernels as ak
+    from vct_tpu_torch.ops import decode_kernels as dk
+    from vct_tpu_torch.ops import loss_kernels as lk
+
+    report = {}
+    with no_plain_on_cuda("train graphs", lk), no_plain_on_cuda("train graphs", ak):
+        # (a) the MSVD step on Adam, AdamW and SGD: LR change, save and restore
+        base = train_config(repo, root, vocab, 1)
+        for name, opt in GRAPH_OPTIMIZERS.items():
+            path = with_optimizer(base, name, **opt)
+            tr = make_trainer_from(path, dev)
+            batches = split_batches(tr, "train", GRAPH_STEPS)
+            runner, eager_state, graphed_state, _ = graphed_steps(
+                f"MSVD {name} (batch {BATCH}, bf16, dropout 0.3)", tr, batches, GRAPH_STEPS,
+                lr_step=GRAPH_LR_STEP, save_step=GRAPH_SAVE_STEP,
+                ckpt=root / f"graphs_{name}.pt", restore=lambda p=path: make_trainer_from(p, dev))
+            if name == "adam":
+                msvd = (tr, runner, eager_state, graphed_state, batches[0])
+            else:
+                del tr, runner, eager_state, graphed_state
+        say(f"  SGD's default update with a tensor LR under capture: "
+            f"{sgd_tensor_lr_probe(dev)}; the port's SGD runs fused")
+
+        # (b) the long-video step: the attention kernels inside the graph
+        long_tr = long_trainer(repo, long_root, vocab, dev)
+        long_batches = split_batches(long_tr, "train", LONG_GRAPH_STEPS)
+        before = attention_counts()
+        long_steps = graphed_steps(f"long-video (batch {LONG_BATCH}, {LONG_FRAMES} frames, "
+                                   f"{LONG_CAPTION} tokens)", long_tr, long_batches,
+                                   LONG_GRAPH_STEPS)
+        ((graph, _),) = next(iter(long_steps[0]._sets.values())).graphs
+        inside = {f"{fn.__name__}.{attr}": n for (fn, attr), n in graph.launched.items()}
+        want_inside = {"fused_attention_trainable.launches": 7,
+                       "fused_attention_trainable.backward_launches": 7,
+                       "softmax_stats.launches": 1, "clipped_prob_stats.launches": 1,
+                       "sce_backward_tiles.launches": 1}
+        if inside != want_inside:
+            fail(f"train graphs: the long step's graph holds {inside}, expected {want_inside}")
+        after = attention_counts()
+        # two eager copies and the graphed one: 3 x 7 a step, replays counted
+        steps_run = 3 * LONG_GRAPH_STEPS
+        if {k: after[k] - before[k] for k in after} != {
+                "fused_attention": 0, "fused_attention_trainable": 7 * steps_run,
+                "fused_attention_trainable_backward": 7 * steps_run}:
+            fail(f"train graphs: long steps launched {after} from {before}")
+        say(f"  ok the long step's graph holds {inside}")
+
+        # (c) the cross step with a fixed temperature; every validation step
+        assets = write_text_assets(root)
+        cross = json.loads(cross_config(repo, root, vocab, assets).read_text())
+        cross["model"]["matching"]["temperature"] = FIXED_TEMPERATURE
+        cross_path = root / "cross_fixed_tem.json"
+        cross_path.write_text(json.dumps(cross))
+        cross_tr = make_trainer_from(cross_path, dev)
+        if cross_tr.model.matching.loss_fn.fixed_tem != FIXED_TEMPERATURE:
+            fail("train graphs: the cross model has no fixed temperature")
+        cross_batches = split_batches(cross_tr, "train", CROSS_GRAPH_STEPS)
+        cross_steps = graphed_steps(f"cross (fixed temperature {FIXED_TEMPERATURE})",
+                                    cross_tr, cross_batches, CROSS_GRAPH_STEPS)
+        for what, tr_, state in (("MSVD", msvd[0], msvd[3]), ("long-video", long_tr,
+                                                                long_steps[2]),
+                                 ("cross", cross_tr, cross_steps[2])):
+            graphed_validation(what, tr_, state.model, split_batches(tr_, "validation", 1)[0])
+        say("  ok the validation step of each recipe: first call and two replays bit for bit "
+            "the eager step's parts")
+
+        # (e) readings, graphed and eager in one run
+        say(f"  readings, host clock over 10 steps and torch.profiler over 5 [{card}]:")
+        report.update(step_readings("msvd", f"MSVD adam (batch {BATCH})", msvd[1], msvd[3],
+                                    msvd[2], msvd[4], card))
+        report.update(step_readings("long", f"long-video (batch {LONG_BATCH})",
+                                    long_steps[0], long_steps[2], long_steps[1],
+                                    long_batches[0], card))
+        report.update(step_readings("cross", f"cross (batch {BATCH})", cross_steps[0],
+                                    cross_steps[2], cross_steps[1], cross_batches[0], card))
+    del msvd, long_tr, long_steps, cross_tr, cross_steps
+    torch.cuda.empty_cache()
+
+    # (d) the module path's staged decode (collect_attn; beam) against its eager loop
+    cfg32 = cfg.replace(tpu=dataclasses.replace(cfg.tpu, dtype="float32"))
+    models = {"bfloat16": model, "float32": make_trainer_pieces(cfg32, dev, seed=SEED)[0]}
+    models["float32"].to_compute_dtype()
+    kw = dict(max_len=30, start_id=101)
+    with torch.no_grad(), no_plain_on_cuda("train graphs", dk):
+        for dtype, m in models.items():
+            for b in MODULE_BATCHES:
+                feats, masks = eval_inputs(b, dev, SEED + 110 + b)
+                free, _ = greedy_generate(m, feats, masks, end_id=-1, **kw)
+                end_id = early_end(free)
+                want = greedy_generate(m, feats, masks, end_id=end_id, collect_attn=True, **kw)
+                fn = make_greedy_fn(m, 30, 101, end_id, collect_attn=True)
+                graphs_agree(f"module greedy {dtype} B={b}", fn, feats, masks, want, calls=3)
+                want_b = beam_generate(m, feats, masks, beam_size=BEAM_K, end_id=end_id, **kw)
+                fb = make_beam_fn(m, 30, 101, end_id, BEAM_K)
+                graphs_agree(f"module beam {BEAM_K} {dtype} B={b}", fb, feats, masks, want_b,
+                             calls=3)
+                if fn.graphs != 4 or fb.graphs != 4 or min(fn.replays, fb.replays) < 2:
+                    fail(f"train graphs: module path {dtype} B={b}: {fn.graphs} / {fb.graphs} "
+                         f"graphs, {fn.replays} / {fb.replays} replays")
+                say(f"  ok module path {dtype} B={b}: greedy with attention maps ({b} x 29 "
+                    f"tokens, {ended_early(want[0], end_id)} rows end early) and beam "
+                    f"{BEAM_K}, first call and two replays bit for bit the eager loop's")
+    del models["float32"]
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs a CUDA card")
@@ -5140,6 +5496,12 @@ def main() -> int:
             t0 = time.perf_counter()
             say(json.dumps(run_graphs(cfg, ckpt, model, fw, dev, card)))
             say(f"  phase graphs took {time.perf_counter() - t0:.1f} s [{card}]")
+            return 0
+        if "--train-graphs" in sys.argv[1:]:
+            t0 = time.perf_counter()
+            say(json.dumps(run_train_graphs(repo, work, long_work, vocab, cfg, model, dev,
+                                            card)))
+            say(f"  phase train-graphs took {time.perf_counter() - t0:.1f} s [{card}]")
             return 0
         say(f"model: configs/msvd.json, {n_params} parameters and buffers, vocab "
             f"{model.config.vocab_size} (padded {fw['wg'].shape[1]}), {cfg.tpu.dtype}")
@@ -5248,6 +5610,13 @@ def main() -> int:
         report.update(run_graphs(cfg, ckpt, model, fw, dev, card),
                       graphs_phase_seconds=time.perf_counter() - t0)
         say(f"  phase graphs took {report['graphs_phase_seconds']:.1f} s [{card}]")
+        say("phase train-graphs: the train and validation steps (CUDA graphs) against the "
+            "eager steps on Adam, AdamW and SGD, the long and cross steps, the module path's "
+            "staged decode, readings")
+        t0 = time.perf_counter()
+        report.update(run_train_graphs(repo, work, long_work, vocab, cfg, model, dev, card),
+                      train_graphs_phase_seconds=time.perf_counter() - t0)
+        say(f"  phase train-graphs took {report['train_graphs_phase_seconds']:.1f} s [{card}]")
 
     say(json.dumps(report))
     sources = {**{k: SOURCE for k in REPLACES},

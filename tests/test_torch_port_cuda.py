@@ -1469,7 +1469,7 @@ def test_i3d_tower_runs_float32_with_the_global_tf32_switch_on(cuda):
 
 # ---------------------------------------------------------------------------
 # the compiled decode programs: CUDA graphs of the staged kernel loops
-# (decode_fast.StagedDecode), encoder included, against the eager loops
+# (graphs.StagedDecode), encoder included, against the eager loops
 # ---------------------------------------------------------------------------
 
 
@@ -1606,3 +1606,133 @@ def test_auto_dispatch_replays_graphs_on_the_card(cuda):
         assert torch.equal(first, kept) and torch.equal(again, kept)
         assert not torch.equal(other, kept)
         assert fn.runner.sets == 1 and fn.runner.graphs == 4 and fn.runner.replays == 8
+
+
+# ---------------------------------------------------------------------------
+# the compiled train and validation steps: CUDA graphs of the whole step
+# (train.step.GraphedTrainStep / GraphedEvalStep) against the eager steps
+# ---------------------------------------------------------------------------
+
+TRAIN_B, TRAIN_S, TRAIN_V = 16, 17, 1100   # 256 loss rows: the loss kernels' route
+
+
+def _train_state(dev, name, seed=0):
+    """A seeded captioner at this file's widths with dropout 0.3, bf16, the
+    loss kernels on, and its optimizer (``name``) and dropout generator as the
+    Trainer builds them."""
+    from vct_tpu_torch.config import ModelConfig, TPUConfig, TrainConfig
+    from vct_tpu_torch.models.mmt4caption import MMT4Caption
+    from vct_tpu_torch.train.optimizers import build_optimizer
+    from vct_tpu_torch.train.state import make_train_state
+
+    cfg = ModelConfig.from_dict({
+        "modal": ["m0"], "modal_shape": [64], "embed_dim": E, "dropout": 0.3,
+        "vocab_size": TRAIN_V, "activation": "gelu",
+        "video_encoder": {"layer": 1, "nhead": H, "feedforward": F},
+        "caption_decoder": {"layer": NL, "nhead": H, "feedforward": F}})
+    model = MMT4Caption(cfg, TPUConfig(dtype="bfloat16", use_fused_loss=True,
+                                       fused_loss_pallas=True), dtype=torch.bfloat16)
+    model.init_weights(torch.Generator().manual_seed(seed))
+    model.to(dev)
+    opt = {"adam": {}, "adamw": {"weight_decay": 0.01}, "sgd": {"momentum": 0.9}}[name]
+    train = TrainConfig.from_dict({"task": "caption", "optimizer": {
+        "name": name, "learning_rate": 1e-3, "beta": [0.9, 0.999], **opt}})
+    return make_train_state(model, build_optimizer(train, model), device=dev, seed=5)
+
+
+def _train_batch(dev, seed):
+    g = torch.Generator().manual_seed(seed)
+    ids = torch.zeros((TRAIN_B, TRAIN_S), dtype=torch.int32)
+    for r in range(TRAIN_B):
+        n = int(torch.randint(3, TRAIN_S - 2, (1,), generator=g))
+        ids[r, 0], ids[r, n + 1] = 2, 3
+        ids[r, 1:n + 1] = torch.randint(5, TRAIN_V, (n,), generator=g)
+    masks = torch.zeros((TRAIN_B, 12), dtype=torch.bool)
+    masks[1::3, 8:] = True
+    valid = torch.arange(TRAIN_B) < TRAIN_B - 2
+    return {"feats": [torch.randn((TRAIN_B, 12, 64), generator=g).to(dev)],
+            "masks": [masks.to(dev)], "token_ids": ids.to(dev),
+            "token_mask": (ids == 0).to(dev), "row_valid": valid.to(dev)}
+
+
+def _state_tensors(state, metrics):
+    out = {f"metric {k}": v for k, v in metrics.items()}
+    names = {id(p): k for k, p in state.model.named_parameters()}
+    out.update({k: p.detach() for k, p in state.model.named_parameters()})
+    for p, st in state.optimizer.state.items():
+        out.update({f"{names[id(p)]} {k}": v for k, v in st.items()
+                    if isinstance(v, torch.Tensor)})
+    out["generator"] = state.generator.get_state()
+    return out
+
+
+def _hold_to_eager(got, want, again):
+    """Bit for bit where the eager step repeated itself bit for bit; within
+    its own spread where it did not (``chip_smoke.py`` phase 22's rule)."""
+    def parted(a, b):
+        return {k: float((a[k].double() - b[k].double()).abs().max())
+                for k in a if not torch.equal(a[k], b[k])}
+
+    own = parted(want, again)
+    for k, d in parted(got, want).items():
+        assert k in own and d <= own[k], (k, d, own.get(k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["adam", "adamw", "sgd"])
+def test_graphed_train_steps_equal_eager_steps(cuda, name, tmp_path):
+    """Six steps: the graphed runner's first call (eager on a side stream,
+    then the capture) and five replays against the eager step on two copies
+    of the same state, with the LR cut before step 4 (filled in place: the
+    replays read it) and, after step 3, a save and a restore into a fresh
+    state whose runner captures again; every parameter, the optimizer state,
+    the generator state and the metrics after each step. The replays add the
+    loss kernels' launches, three a step."""
+    from vct_tpu_torch.ops import loss_kernels as lk
+    from vct_tpu_torch.train.optimizers import set_learning_rate
+    from vct_tpu_torch.train.state import restore_checkpoint, save_checkpoint
+    from vct_tpu_torch.train.step import make_train_step
+
+    eager_a, eager_b, graphed = (_train_state(cuda, name) for _ in range(3))
+    runner, resumed_runner = make_train_step("caption"), make_train_step("caption")
+    resumed = None
+    batches = [_train_batch(cuda, s) for s in range(3)]
+    for i in range(6):
+        if i == 3:
+            for st in (eager_a, eager_b, graphed):
+                set_learning_rate(st.optimizer, 3e-4)
+            save_checkpoint(str(tmp_path / "state.pt"), graphed)
+            resumed = _train_state(cuda, name, seed=1)  # other weights, all restored
+            restore_checkpoint(str(tmp_path / "state.pt"), resumed)
+            set_learning_rate(resumed.optimizer, 3e-4)
+        batch = batches[i % 3]
+        want = _state_tensors(eager_a, runner.eager(eager_a, batch)[1])
+        again = _state_tensors(eager_b, runner.eager(eager_b, batch)[1])
+        before = lk.softmax_stats.launches
+        _, metrics = runner(graphed, batch)
+        torch.cuda.synchronize()
+        assert lk.softmax_stats.launches - before == 1
+        _hold_to_eager(_state_tensors(graphed, metrics), want, again)
+        if resumed is not None:
+            _hold_to_eager(_state_tensors(resumed, resumed_runner(resumed, batch)[1]),
+                           want, again)
+    assert (runner.sets, runner.graphs, runner.replays) == (1, 1, 5)
+    assert (resumed_runner.sets, resumed_runner.replays) == (1, 2)
+    assert graphed.step == eager_a.step == resumed.step == 6
+
+
+@pytest.mark.cuda
+def test_graphed_eval_step_equals_eager(cuda):
+    from vct_tpu_torch.train.step import make_eval_step
+
+    state = _train_state(cuda, "adam")
+    batch = _train_batch(cuda, 7)
+    runner = make_eval_step("caption")
+    want = runner.eager(state.model, batch)
+    held = [runner(state.model, batch) for _ in range(3)]
+    torch.cuda.synchronize()
+    for got in held:
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+    assert (runner.sets, runner.graphs, runner.replays) == (1, 1, 2)
+    assert held[1]["ce_sum"].data_ptr() != held[2]["ce_sum"].data_ptr()

@@ -23,12 +23,12 @@ from vct_tpu.decode_fast import make_fused_beam_fn as jax_make_fused_beam_fn
 from vct_tpu.decode_fast import make_fused_greedy_fn as jax_make_fused_greedy_fn
 from vct_tpu_torch.decode import first_mismatch_gaps, make_auto_beam_fn, make_auto_greedy_fn
 from vct_tpu_torch.decode_fast import (
-    _stage_bounds,
     beam_generate_fused,
     greedy_generate_fused,
     make_fused_beam_fn,
     make_fused_greedy_fn,
 )
+from vct_tpu_torch.graphs import stage_bounds
 
 from tests.test_torch_port_modules import D_FEAT, T, build_pair
 
@@ -66,10 +66,10 @@ def assert_same_tokens(pm, feats, masks, got, want):
 
 
 def test_stage_bounds_are_the_loops_8_token_stages():
-    assert _stage_bounds(30) == [(0, 8, 8), (8, 16, 16), (16, 24, 24), (24, 29, 32)]
-    assert _stage_bounds(10) == [(0, 8, 8), (8, 9, 16)]
-    assert _stage_bounds(9) == [(0, 8, 8)]
-    assert _stage_bounds(1) == []
+    assert stage_bounds(30) == [(0, 8, 8), (8, 16, 16), (16, 24, 24), (24, 29, 32)]
+    assert stage_bounds(10) == [(0, 8, 8), (8, 9, 16)]
+    assert stage_bounds(9) == [(0, 8, 8)]
+    assert stage_bounds(1) == []
 
 
 @pytest.mark.parametrize("b,single_kernel", [(4, True), (72, False)])
@@ -190,7 +190,10 @@ def test_auto_dispatch_exposes_its_runner(pair3):
         for _ in range(2):
             fn(torch_of(feats), torch_of(masks))
         assert fn.runner.sets == 1
-    assert not hasattr(make_auto_greedy_fn(pm, MAX_LEN, 2, -1, collect_attn=True), "runner")
+    # the module path (attention maps) is staged too, and names its runner
+    attn = make_auto_greedy_fn(pm, MAX_LEN, 2, -1, collect_attn=True)
+    attn(torch_of(feats), torch_of(masks))
+    assert attn.runner.sets == 1
 
 
 @pytest.mark.parametrize("factory", ["greedy", "beam"])

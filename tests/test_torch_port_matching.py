@@ -12,6 +12,7 @@ summing a few layers in different orders, as ``test_torch_port_train.py``);
 Trainer losses at 2e-4 relative (a few Adam steps on top).
 """
 
+import functools
 import json
 
 import numpy as np
@@ -135,13 +136,24 @@ def make_batch(seed=0):
     return feats, pad, ids, ids == 0, text, VALID
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_init(matching_json):
+    """The reference model's init, compiled whole (one program, not one per
+    op) and kept per matching config."""
+    jm = JaxModel(JModelConfig.from_dict(model_config(json.loads(matching_json))),
+                  JTPUConfig(dtype="float32"))
+    feats, pad, ids, idpad, text, valid = make_batch()
+    variables = jax.jit(functools.partial(jm.init, method=JaxModel.cross_loss))(
+        jax.random.PRNGKey(3), [jnp.asarray(feats)], [jnp.asarray(pad)], jnp.asarray(ids),
+        jnp.asarray(idpad), jnp.asarray(text))
+    return jax.tree_util.tree_map(np.asarray, variables)
+
+
 def build_pair(matching):
     cfg = model_config(matching)
     jm = JaxModel(JModelConfig.from_dict(cfg), JTPUConfig(dtype="float32"))
-    feats, pad, ids, idpad, text, valid = make_batch()
-    variables = jax.tree_util.tree_map(np.array, jm.init(
-        jax.random.PRNGKey(3), [jnp.asarray(feats)], [jnp.asarray(pad)], jnp.asarray(ids),
-        jnp.asarray(idpad), jnp.asarray(text), method=JaxModel.cross_loss))
+    variables = jax.tree_util.tree_map(
+        np.array, _jax_init(json.dumps(matching, sort_keys=True)))
     if matching.get("enable_tem"):
         variables["params"]["matching"]["temperature"] = np.asarray([0.4], np.float32)
     pm = MMT4Caption(ModelConfig.from_dict(cfg), TPUConfig(dtype="float32"))

@@ -17,6 +17,7 @@ gradient tensor to 12% of its largest value with a cosine above 0.995.
 """
 
 import dataclasses
+import functools
 import json
 
 import numpy as np
@@ -67,16 +68,25 @@ def make_batch(seed=0):
     return feats, pad, ids, ids == 0, valid
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_init(dropout, alpha, seed):
+    """The reference model's float32 init, compiled whole (one program, not
+    one per op) and kept per arguments."""
+    init = functools.partial(JaxMMT4Caption(ModelConfig.from_dict(model_config(dropout, alpha)),
+                                            TPUConfig()).init,
+                             method=JaxMMT4Caption.caption_loss)
+    feats, pad, ids, idpad, _ = make_batch()
+    variables = jax.jit(init)(jax.random.PRNGKey(seed), [jnp.asarray(feats)],
+                              [jnp.asarray(pad)], jnp.asarray(ids), jnp.asarray(idpad))
+    return jax.tree_util.tree_map(np.asarray, variables)
+
+
 def build_pair(dtype="float32", alpha=0.5, seed=3, dropout=0.0, **tpu):
     cfg = ModelConfig.from_dict(model_config(dropout, alpha))
     tcfg = TPUConfig(dtype=dtype, **tpu)
     jm = JaxMMT4Caption(cfg, tcfg, dtype={"float32": jnp.float32,
                                           "bfloat16": jnp.bfloat16}[dtype])
-    feats, pad, ids, idpad, _ = make_batch()
-    variables = JaxMMT4Caption(cfg, TPUConfig()).init(
-        jax.random.PRNGKey(seed), [jnp.asarray(feats)], [jnp.asarray(pad)], jnp.asarray(ids),
-        jnp.asarray(idpad), method=JaxMMT4Caption.caption_loss)
-    variables = jax.tree_util.tree_map(np.array, variables)
+    variables = jax.tree_util.tree_map(np.array, _jax_init(dropout, alpha, seed))
     from vct_tpu_torch.config import ModelConfig as PModelConfig
     from vct_tpu_torch.config import TPUConfig as PTPUConfig
 

@@ -22,11 +22,13 @@ normaliser from every shard.
 
 from __future__ import annotations
 
+import functools
 from collections import deque
 from typing import Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
+from vct_tpu_torch.graphs import StagedDecode, run_stages, stage_bounds
 from vct_tpu_torch.ops.decode_kernels import NEG_INF, topk_first_win
 from vct_tpu_torch.parallel.mesh import (
     all_reduce_max,
@@ -102,29 +104,34 @@ def _sharded_topk(model, cand: torch.Tensor, k: int):
                       gather_shards(whole.double(), 1, tp).long(), k)
 
 
-@torch.no_grad()
-def greedy_generate(model, video_feats: Sequence[torch.Tensor],
-                    video_masks: Optional[Sequence[torch.Tensor]], *,
-                    max_len: int = 30, start_id: int = 101, end_id: int = 102,
-                    pad_id: Optional[int] = None, collect_attn: bool = False):
-    """The module path -> (tokens [B, max_len] int32, attn or None); attn is
-    [max_len-1, num_layers, B, T_mem] cross-attention per generated token."""
-    if pad_id is None:
-        pad_id = model.config.pad_id
-    memory, mem_mask, _ = model.encode(list(video_feats),
-                                       list(video_masks) if video_masks else None)
+def _greedy_start(model, st: dict, *, max_len: int, start_id: int, pad_id: int,
+                  collect_attn: bool) -> None:
+    """The module path's greedy state in ``st``, beside its inputs
+    ``feats``/``masks``: the encoder's memory turned into the decoder's
+    caches, ``tokens`` [B, max_len] ([start] then [PAD]), the rows' ``done``
+    flags, ``all_done`` and, with ``collect_attn``, the zeroed ``attn``
+    [max_len-1, num_layers, B, T_mem]."""
+    memory, st["mem_mask"], _ = model.encode(st["feats"], st["masks"])
     b, t_mem = memory.shape[:2]
     dev = memory.device
-    caches = model.init_cache(b, max_len, memory)
-    tokens = torch.full((b, max_len), pad_id, dtype=torch.int32, device=dev)
+    st["caches"] = model.init_cache(b, max_len, memory)
+    tokens = st["tokens"] = torch.full((b, max_len), pad_id, dtype=torch.int32, device=dev)
     tokens[:, 0] = start_id
-    done = torch.zeros((b,), dtype=torch.bool, device=dev)
-    all_done = torch.zeros((), dtype=torch.bool, device=dev)
+    st["done"] = torch.zeros((b,), dtype=torch.bool, device=dev)
+    st["all_done"] = torch.zeros((), dtype=torch.bool, device=dev)
     n_layers = model.config.caption_decoder.layer
-    attn_buf = (torch.zeros((max_len - 1, n_layers, b, t_mem), device=dev)
-                if collect_attn else None)
-    for i in range(max_len - 1):
-        logits, caches, attn = model.decode_step(tokens[:, i], caches, i, mem_mask,
+    st["attn"] = (torch.zeros((max_len - 1, n_layers, b, t_mem), device=dev)
+                  if collect_attn else None)
+
+
+def _greedy_stage(model, st: dict, lo: int, hi: int, *, end_id: int, pad_id: int) -> None:
+    """Tokens ``lo + 1 .. hi`` of the module path's greedy loop on ``st``.
+    Nothing here waits for the device, so a CUDA graph can capture it."""
+    caches, tokens, done, all_done, attn_buf = (st["caches"], st["tokens"], st["done"],
+                                                st["all_done"], st["attn"])
+    collect_attn = attn_buf is not None
+    for i in range(lo, hi):
+        logits, caches, attn = model.decode_step(tokens[:, i], caches, i, st["mem_mask"],
                                                  return_attn=collect_attn)
         nxt = vocab_argmax(model, logits).to(torch.int32)
         nxt = torch.where(all_done, pad_id, nxt)
@@ -133,9 +140,62 @@ def greedy_generate(model, video_feats: Sequence[torch.Tensor],
         tokens[:, i + 1] = nxt
         done |= nxt == end_id
         all_done = done.all()
-        if i % 8 == 7 and bool(all_done):
-            break
-    return tokens, attn_buf
+    st["caches"], st["all_done"] = caches, all_done
+
+
+def _inputs(video_feats, video_masks) -> dict:
+    return {"feats": list(video_feats), "masks": list(video_masks) if video_masks else None}
+
+
+def _greedy_parts(model, max_len: int, start_id: int, end_id: int, pad_id: int,
+                  collect_attn: bool):
+    """(prologue, stages) of the module path's greedy loop."""
+
+    def prologue(st):
+        _greedy_start(model, st, max_len=max_len, start_id=start_id, pad_id=pad_id,
+                      collect_attn=collect_attn)
+
+    return prologue, [functools.partial(_greedy_stage, model, lo=lo, hi=hi, end_id=end_id,
+                                        pad_id=pad_id)
+                      for lo, hi, _ in stage_bounds(max_len)]
+
+
+@torch.no_grad()
+def greedy_generate(model, video_feats: Sequence[torch.Tensor],
+                    video_masks: Optional[Sequence[torch.Tensor]], *,
+                    max_len: int = 30, start_id: int = 101, end_id: int = 102,
+                    pad_id: Optional[int] = None, collect_attn: bool = False):
+    """The module path -> (tokens [B, max_len] int32, attn or None); attn is
+    [max_len-1, num_layers, B, T_mem] cross-attention per generated token.
+    Eager: the stages that ``make_greedy_fn`` captures, run in turn."""
+    prologue, stages = _greedy_parts(model, max_len, start_id, end_id,
+                                     model.config.pad_id if pad_id is None else pad_id,
+                                     collect_attn)
+    st = _inputs(video_feats, video_masks)
+    prologue(st)
+    run_stages(st, stages)
+    return st["tokens"], st["attn"]
+
+
+def make_greedy_fn(model, max_len: int, start_id: int, end_id: int,
+                   collect_attn: bool = False) -> Callable:
+    """fn(feats, masks) -> (tokens, attn) on the module path (port of
+    ``vct_tpu/decode.py:make_greedy_fn``, a ``jax.jit`` of
+    ``greedy_generate``): a ``graphs.StagedDecode`` of the prologue
+    (encoder, caches) and the 8-token stages, on CUDA tensors CUDA graphs
+    captured once per input shape and replayed, with ``greedy_generate``'s
+    tokens and attention bit for bit; ``attn`` lives in a static buffer and
+    is cloned at the finish. A model whose weights tensor parallelism split
+    decodes eagerly (its collectives are not captured)."""
+    if _is_split(model):
+        return functools.partial(greedy_generate, model, max_len=max_len, start_id=start_id,
+                                 end_id=end_id, collect_attn=collect_attn)
+
+    def finish(st):
+        return st["tokens"].clone(), None if st["attn"] is None else st["attn"].clone()
+
+    return StagedDecode(*_greedy_parts(model, max_len, start_id, end_id, model.config.pad_id,
+                                       collect_attn), finish)
 
 
 def _over_rows(fn: Callable, mesh, batch_dim_of_second: Optional[int]) -> Callable:
@@ -167,21 +227,17 @@ def make_auto_greedy_fn(model, max_len: int, start_id: int, end_id: int,
     (``decode_fast.make_fused_greedy_fn``: on CUDA tensors CUDA graphs of the
     kernel loop, encoder included, captured once per input shape; on CPU
     tensors the same stages on the kernels' plain versions), or the module
-    path when attention maps are collected, the model has its kernels off
-    (``tpu.use_pallas_attention`` false) or tensor parallelism split its
-    weights. On the kernel path ``fn.runner`` is the ``StagedDecode``. The
-    kernel weights are extracted once, at the first call: load the
-    checkpoint before decoding. With a ``mesh`` each data rank decodes its
-    rows (the batch must divide; each rank captures its rows' shape) and
-    every rank gets the whole batch's tokens."""
-
-    def module_fn(video_feats, video_masks):
-        return greedy_generate(model, video_feats, video_masks, max_len=max_len,
-                               start_id=start_id, end_id=end_id,
-                               collect_attn=collect_attn)
-
+    path (``make_greedy_fn``, staged the same way) when attention maps are
+    collected or the model has its kernels off (``tpu.use_pallas_attention``
+    false). Either way ``fn.runner`` is the ``StagedDecode``. A model whose
+    weights tensor parallelism split decodes on the module path eagerly, and
+    has no runner. The kernel weights are extracted once, at the first call:
+    load the checkpoint before decoding. With a ``mesh`` each data rank
+    decodes its rows (the batch must divide; each rank captures its rows'
+    shape) and every rank gets the whole batch's tokens."""
     if collect_attn or not model.tpu.use_pallas_attention or _is_split(model):
-        return _over_rows(module_fn, mesh, 2)
+        return _graphed(make_greedy_fn(model, max_len, start_id, end_id,
+                                       collect_attn=collect_attn), mesh, 2)
 
     from vct_tpu_torch.decode_fast import make_fused_greedy_fn
 
@@ -189,10 +245,11 @@ def make_auto_greedy_fn(model, max_len: int, start_id: int, end_id: int,
 
 
 def _graphed(fn, mesh, batch_dim_of_second: Optional[int]) -> Callable:
-    """``_over_rows`` of a ``decode_fast.StagedDecode``, which stays readable
-    as the result's ``runner`` (its counts of shapes, graphs and replays)."""
+    """``_over_rows`` of ``fn``; a ``graphs.StagedDecode`` stays
+    readable as the result's ``runner`` (its counts of shapes, graphs and
+    replays)."""
     out = _over_rows(fn, mesh, batch_dim_of_second)
-    if out is not fn:
+    if out is not fn and isinstance(fn, StagedDecode):
         out.runner = fn
     return out
 
@@ -249,6 +306,79 @@ def beam_select(tokens, scores, lengths, length_penalty: float):
     return _gather_beams(tokens, best)[:, 0], torch.gather(final, 1, best)[:, 0]
 
 
+def _beam_module_start(model, st: dict, *, beam_size: int, max_len: int, start_id: int,
+                       pad_id: int) -> None:
+    """The module path's beam state in ``st``, beside ``feats``/``masks``:
+    the memory once per beam in the caches, the beams (``beam_start``), the
+    frozen beam's log-probabilities over this rank's vocab columns."""
+    k = beam_size
+    memory, mem_mask, _ = model.encode(st["feats"], st["masks"])
+    b, t_mem, e = memory.shape
+    dev = memory.device
+    # the memory once per beam; one video's beams are contiguous rows
+    memory_k = _flatten_beam(memory[:, None].expand(b, k, t_mem, e))
+    st["mem_mask"] = None if mem_mask is None else _flatten_beam(
+        mem_mask[:, None].expand(b, k, t_mem))
+    st["caches"] = model.init_cache(b * k, max_len, memory_k)
+    (st["tokens"], st["scores"], st["finished"],
+     st["lengths"]) = beam_start(b, k, max_len, start_id, pad_id, dev)
+    head = model.cap_decoder.generator
+    start, width = head.vocab_start, head.weight.shape[0]  # this rank's vocab columns
+    frozen = st["frozen"] = torch.full((width,), NEG_INF, dtype=torch.float32, device=dev)
+    if start <= pad_id < start + width:
+        # a slice fills on the device; an index would copy from the host
+        frozen[pad_id - start:pad_id - start + 1] = 0.0
+    st["batch_base"] = torch.arange(b, device=dev)[:, None] * k
+    st["all_done"] = torch.zeros((), dtype=torch.bool, device=dev)
+
+
+def _beam_module_stage(model, st: dict, lo: int, hi: int, *, beam_size: int,
+                       end_id: int) -> None:
+    """Tokens ``lo + 1 .. hi`` of the module path's beam loop on ``st``;
+    then ``all_done`` says whether every beam has finished. Nothing here
+    waits for the device, so a CUDA graph can capture it."""
+    k, vocab = beam_size, model.config.vocab_size
+    tokens, scores, finished, lengths, caches = (st["tokens"], st["scores"], st["finished"],
+                                                 st["lengths"], st["caches"])
+    b = tokens.shape[0]
+    for i in range(lo, hi):
+        logits, caches, _ = model.decode_step(_flatten_beam(tokens)[:, i], caches, i,
+                                              st["mem_mask"])
+        logp = _unflatten_beam(vocab_log_softmax(model, logits), b, k)
+        logp = torch.where(finished[..., None], st["frozen"], logp)
+        cand = scores[..., None] + logp  # [B, K, V] (V: this rank's vocab shard)
+        scores, top_idx = _sharded_topk(model, cand, k)
+        beam_idx = top_idx // vocab
+        tok_idx = (top_idx % vocab).to(torch.int32)
+        tokens, finished, lengths = beam_advance(tokens, finished, lengths, beam_idx,
+                                                 tok_idx, i, end_id)
+        # only the self-attention cache depends on the beam's identity; the
+        # cross K/V are the same for every beam of a video
+        flat = (st["batch_base"] + beam_idx).reshape(-1)
+        caches = tuple({**c, "k": c["k"].index_select(0, flat),
+                        "v": c["v"].index_select(0, flat)} for c in caches)
+    st.update(tokens=tokens, scores=scores, finished=finished, lengths=lengths,
+              caches=caches, all_done=finished.all())
+
+
+def _beam_parts(model, max_len: int, start_id: int, end_id: int, beam_size: int,
+                length_penalty: float, pad_id: Optional[int] = None):
+    """(prologue, stages, finish) of the module path's beam search."""
+    if pad_id is None:
+        pad_id = model.config.pad_id
+
+    def prologue(st):
+        _beam_module_start(model, st, beam_size=beam_size, max_len=max_len,
+                           start_id=start_id, pad_id=pad_id)
+
+    def finish(st):
+        return beam_select(st["tokens"], st["scores"], st["lengths"], length_penalty)
+
+    return prologue, [functools.partial(_beam_module_stage, model, lo=lo, hi=hi,
+                                        beam_size=beam_size, end_id=end_id)
+                      for lo, hi, _ in stage_bounds(max_len)], finish
+
+
 @torch.no_grad()
 def beam_generate(model, video_feats: Sequence[torch.Tensor],
                   video_masks: Optional[Sequence[torch.Tensor]], *, beam_size: int = 4,
@@ -262,61 +392,29 @@ def beam_generate(model, video_feats: Sequence[torch.Tensor],
     has finished" once per 8 steps, not every token as the reference does;
     that is exact, because in the extra steps every beam is frozen and adds
     [PAD] at zero cost: scores, lengths and the tokens up to there do not
-    change, and the positions past them hold [PAD] either way."""
-    if pad_id is None:
-        pad_id = model.config.pad_id
-    k = beam_size
-    memory, mem_mask, _ = model.encode(list(video_feats),
-                                       list(video_masks) if video_masks else None)
-    b, t_mem, e = memory.shape
-    dev = memory.device
-    # the memory once per beam; one video's beams are contiguous rows
-    memory_k = _flatten_beam(memory[:, None].expand(b, k, t_mem, e))
-    mem_mask_k = None
-    if mem_mask is not None:
-        mem_mask_k = _flatten_beam(mem_mask[:, None].expand(b, k, t_mem))
-    caches = model.init_cache(b * k, max_len, memory_k)
-    tokens, scores, finished, lengths = beam_start(b, k, max_len, start_id, pad_id, dev)
-    vocab = model.config.vocab_size
-    head = model.cap_decoder.generator
-    start, width = head.vocab_start, head.weight.shape[0]  # this rank's vocab columns
-    frozen = torch.full((width,), NEG_INF, dtype=torch.float32, device=dev)
-    if start <= pad_id < start + width:
-        frozen[pad_id - start] = 0.0
-    batch_base = torch.arange(b, device=dev)[:, None] * k
-
-    for i in range(max_len - 1):
-        logits, caches, _ = model.decode_step(_flatten_beam(tokens)[:, i], caches, i,
-                                              mem_mask_k)
-        logp = _unflatten_beam(vocab_log_softmax(model, logits), b, k)
-        logp = torch.where(finished[..., None], frozen, logp)
-        cand = scores[..., None] + logp  # [B, K, V] (V: this rank's vocab shard)
-        scores, top_idx = _sharded_topk(model, cand, k)
-        beam_idx = top_idx // vocab
-        tok_idx = (top_idx % vocab).to(torch.int32)
-        tokens, finished, lengths = beam_advance(tokens, finished, lengths, beam_idx,
-                                                 tok_idx, i, end_id)
-        # only the self-attention cache depends on the beam's identity; the
-        # cross K/V are the same for every beam of a video
-        flat = (batch_base + beam_idx).reshape(-1)
-        for cache in caches:
-            cache["k"] = cache["k"].index_select(0, flat)
-            cache["v"] = cache["v"].index_select(0, flat)
-        if i % 8 == 7 and bool(finished.all()):
-            break
-    return beam_select(tokens, scores, lengths, length_penalty)
+    change, and the positions past them hold [PAD] either way. Eager: the
+    stages that ``make_beam_fn`` captures, run in turn."""
+    prologue, stages, finish = _beam_parts(model, max_len, start_id, end_id, beam_size,
+                                           length_penalty, pad_id)
+    st = _inputs(video_feats, video_masks)
+    prologue(st)
+    return finish(run_stages(st, stages))
 
 
 def make_beam_fn(model, max_len: int, start_id: int, end_id: int, beam_size: int,
                  length_penalty: float = 0.6) -> Callable:
-    """fn(feats, masks) -> (tokens, scores) on the module path."""
-
-    def fn(video_feats, video_masks):
-        return beam_generate(model, video_feats, video_masks, beam_size=beam_size,
-                             max_len=max_len, start_id=start_id, end_id=end_id,
-                             length_penalty=length_penalty)
-
-    return fn
+    """fn(feats, masks) -> (tokens, scores) on the module path (port of
+    ``vct_tpu/decode.py:make_beam_fn``, a ``jax.jit`` of ``beam_generate``):
+    a ``graphs.StagedDecode`` of its prologue and 8-token stages, on
+    CUDA tensors CUDA graphs captured once per input shape and replayed, with
+    ``beam_generate``'s tokens and scores bit for bit. A model whose weights
+    tensor parallelism split searches eagerly."""
+    if _is_split(model):
+        return functools.partial(beam_generate, model, beam_size=beam_size, max_len=max_len,
+                                 start_id=start_id, end_id=end_id,
+                                 length_penalty=length_penalty)
+    return StagedDecode(*_beam_parts(model, max_len, start_id, end_id, beam_size,
+                                     length_penalty))
 
 
 def make_auto_beam_fn(model, max_len: int, start_id: int, end_id: int, beam_size: int,
@@ -326,15 +424,17 @@ def make_auto_beam_fn(model, max_len: int, start_id: int, end_id: int, beam_size
     norm/generator/top-k launch per token, on CUDA tensors in CUDA graphs
     captured once per input shape, ``fn.runner``; on CPU tensors their plain
     versions), or on the module path when the model has its kernels off
-    (``tpu.use_pallas_attention`` false). On a card a beam wider than the
-    top-k kernel carries raises ``ValueError``; it never falls to the module
-    path. The kernel weights are extracted once, at the first call: load the
-    checkpoint before decoding. A model whose weights tensor parallelism
-    split takes the module path. With a ``mesh`` each data rank searches its rows and
-    every rank gets the whole batch's tokens and scores."""
+    (``tpu.use_pallas_attention`` false: ``make_beam_fn``, staged the same
+    way). Either way ``fn.runner`` is the ``StagedDecode``. On a card a beam
+    wider than the top-k kernel carries raises ``ValueError``; it never falls
+    to the module path. The kernel weights are extracted once, at the first
+    call: load the checkpoint before decoding. A model whose weights tensor
+    parallelism split searches on the module path eagerly, with no runner.
+    With a ``mesh`` each data rank searches its rows and every rank gets the
+    whole batch's tokens and scores."""
     if not model.tpu.use_pallas_attention or _is_split(model):
-        return _over_rows(make_beam_fn(model, max_len, start_id, end_id, beam_size,
-                                       length_penalty), mesh, 0)
+        return _graphed(make_beam_fn(model, max_len, start_id, end_id, beam_size,
+                                     length_penalty), mesh, 0)
 
     from vct_tpu_torch.decode_fast import make_fused_beam_fn
 

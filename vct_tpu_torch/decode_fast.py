@@ -20,18 +20,18 @@ only the rows they can attend (exact: rows past ``idx`` carry zero weight).
 The compiled decode programs, ``make_fused_greedy_fn`` and
 ``make_fused_beam_fn`` (the reference's ``jax.jit`` of each loop), split the
 caption into a prologue (encoder, cross K/V layout) and those stages over
-static buffers (``StagedDecode``): on a card each stage is a CUDA graph,
+static buffers (``graphs.StagedDecode``): on a card each stage is a CUDA graph,
 captured once per input shape and replayed, with the host checking for the
 early exit between stages; on the CPU the same stage functions run directly.
 """
 
 from __future__ import annotations
 
-import threading
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from vct_tpu_torch import graphs
 from vct_tpu_torch.ops.decode_kernels import (
     NEG_INF,
     SEQUENCE_MAX_B,
@@ -148,19 +148,6 @@ def layers_step_per_layer(x, ks, vs, cks, cvs, mem_bias, stacked: dict, idx: int
     return x, ks, vs
 
 
-def _stage_bounds(max_len: int) -> List[Tuple[int, int, int]]:
-    """The token loop's stages -> [(first position, end, l_view)]: 8 tokens
-    each, the self-cache window ``l_view`` growing with them. The host tests
-    for the early exit between stages."""
-    l_pad = _round_up(max_len, 8)
-    bounds, lo = [], 0
-    while lo < max_len - 1:
-        hi = min(lo + 8, max_len - 1)
-        bounds.append((lo, hi, min(_round_up(hi, 8), l_pad)))
-        lo = hi
-    return bounds
-
-
 def _greedy_start(st: dict, *, max_len: int, start_id: int, pad_id: int) -> None:
     """The greedy loop's state in ``st``, beside its cross K/V ``st["cks"]``:
     zeroed self caches ``ks``/``vs`` [NL, L_pad, B, E], ``tokens`` [B,
@@ -212,7 +199,7 @@ def _decode_loop(fw: dict, cks, cvs, mem_bias, *, max_len: int, start_id: int,
     has finished."""
     st = {"cks": cks, "cvs": cvs, "mem_bias": mem_bias}
     _greedy_start(st, max_len=max_len, start_id=start_id, pad_id=pad_id)
-    for lo, hi, l_view in _stage_bounds(max_len):
+    for lo, hi, l_view in graphs.stage_bounds(max_len):
         _greedy_stage(st, fw, lo, hi, l_view, end_id=end_id, pad_id=pad_id,
                       single_kernel=single_kernel)
         if bool(st["all_done"]):
@@ -442,7 +429,7 @@ def _beam_loop(fw: dict, cks, cvs, mem_bias, *, beam_size: int, max_len: int,
 
     st = {"cks": cks, "cvs": cvs, "mem_bias": mem_bias}
     _beam_start(st, beam_size=beam_size, max_len=max_len, start_id=start_id, pad_id=pad_id)
-    for lo, hi, l_view in _stage_bounds(max_len):
+    for lo, hi, l_view in graphs.stage_bounds(max_len):
         _beam_stage(st, fw, lo, hi, l_view, beam_size=beam_size, end_id=end_id,
                     pad_id=pad_id)
         if bool(st["all_done"]):
@@ -483,7 +470,7 @@ def beam_generate_fused(model, video_feats: Sequence[torch.Tensor],
 def make_fused_beam_fn(model, max_len: int, start_id: int, end_id: int, beam_size: int,
                        length_penalty: float = 0.6) -> Callable:
     """fn(feats, masks) -> (tokens [B, max_len] int32, scores [B]): the
-    kernel beam loop as a ``StagedDecode`` (port of
+    kernel beam loop as a ``graphs.StagedDecode`` (port of
     ``vct_tpu/decode_fast.py:make_fused_beam_fn``, a ``jax.jit`` of the same
     loop): on CUDA tensors CUDA graphs of its stages, captured once per input
     shape and replayed, with ``beam_generate_fused``'s tokens and scores bit
@@ -512,7 +499,8 @@ def make_fused_beam_fn(model, max_len: int, start_id: int, end_id: int, beam_siz
 
         return beam_select(st["tokens"], st["scores"], st["lengths"], length_penalty)
 
-    return StagedDecode(prologue, [stage(*b) for b in _stage_bounds(max_len)], finish)
+    return graphs.StagedDecode(prologue, [stage(*b) for b in graphs.stage_bounds(max_len)],
+                               finish)
 
 
 # ---------------------------------------------------------------------------
@@ -522,7 +510,7 @@ def make_fused_beam_fn(model, max_len: int, start_id: int, end_id: int, beam_siz
 
 def make_fused_greedy_fn(model, max_len: int, start_id: int, end_id: int) -> Callable:
     """fn(feats, masks) -> (tokens [B, max_len] int32, None): the kernel
-    greedy loop, encoder included, as a ``StagedDecode`` (port of
+    greedy loop, encoder included, as a ``graphs.StagedDecode`` (port of
     ``vct_tpu/decode_fast.py:make_fused_greedy_fn``, a ``jax.jit`` of the
     same loop): on CUDA tensors CUDA graphs of its stages, captured once per
     input shape and replayed, with ``greedy_generate_fused``'s tokens bit for
@@ -545,155 +533,5 @@ def make_fused_greedy_fn(model, max_len: int, start_id: int, end_id: int) -> Cal
                                         single_kernel=_resolve_tiling(st["cks"].shape[2], None),
                                         **kw)
 
-    return StagedDecode(prologue, [stage(*b) for b in _stage_bounds(max_len)],
-                        lambda st: (st["tokens"].clone(), None))
-
-
-def _launch_counts() -> Dict:
-    """Every kernel wrapper a decode can reach -> its launch count."""
-    from vct_tpu_torch.ops import attention_kernels as ak
-    from vct_tpu_torch.ops import decode_kernels as dk
-
-    return {fn: fn.launches for fn in (*dk.WRAPPERS, ak.fused_attention)}
-
-
-class _GraphSet:
-    """One input shape's static buffers and, on a card, its CUDA graphs:
-    the inputs ``feats``/``masks`` and the loop's state live in ``st``; graph
-    ``s`` is stage ``s`` (the prologue and the first stage in graph 0), kept
-    with the launches its capture recorded and the state it leaves (a stage
-    rebinds ``all_done`` and the beam's tensors: after a replay of stage
-    ``s`` they are in stage ``s``'s tensors, not in the last stage's)."""
-
-    def __init__(self, feats, masks):
-        self.st = {"feats": [torch.empty_like(f) for f in feats],
-                   "masks": None if masks is None else [torch.empty_like(m) for m in masks]}
-        self.graphs: List[Tuple[torch.cuda.CUDAGraph, Dict, Dict]] = []
-        self.pool_bytes = 0
-
-    def load(self, feats, masks) -> None:
-        for dst, src in zip(self.st["feats"], feats):
-            dst.copy_(src)
-        for dst, src in zip(self.st["masks"] or (), masks or ()):
-            dst.copy_(src)
-
-
-class StagedDecode:
-    """fn(feats, masks) over a decode split into stages: ``prologue`` (the
-    encoder, the cross K/V layout, the loop's state) then ``stages`` (8
-    tokens each), then ``finish`` on the host's side of the last stage run.
-    The host reads ``st["all_done"]`` after each stage and runs the next only
-    while a row is still going, the early exit that the reference's
-    ``lax.while_loop`` condition gives.
-
-    Each input shape (rows, frames and width per modality, dtypes, device)
-    gets a ``_GraphSet``: static input buffers the call's inputs are copied
-    into. On CPU tensors the stages run directly on them (the kernels' plain
-    versions). On CUDA tensors the first call of a shape runs the stages on a
-    side stream (which builds the kernel library and initialises cuBLAS) and
-    answers from that run, then captures one CUDA graph per stage into one
-    memory pool; every later call replays the graphs: the same kernels with
-    the same arguments in the same order, so the same bits as the eager loop.
-    A failed capture or replay raises; nothing falls back to the eager loop.
-    Results are the caller's own (cloned or newly made by ``finish``), so a
-    result held across calls is not overwritten. One call runs at a time
-    (the buffers are shared). The graphs belong to this object and are freed
-    with it. ``sets``, ``graphs`` and ``replays`` count the shapes set up,
-    the graphs captured and the graph replays; a replay adds the launches its
-    capture recorded to each kernel wrapper's ``launches``, and the capture
-    itself counts none."""
-
-    def __init__(self, prologue: Callable, stages: List[Callable], finish: Callable):
-        def first(st):
-            prologue(st)
-            if stages:
-                stages[0](st)
-
-        self._stages = [first, *stages[1:]]
-        self._finish = finish
-        self._sets: Dict = {}
-        self._lock = threading.Lock()
-        self.sets = self.graphs = self.replays = 0
-
-    @torch.no_grad()
-    def __call__(self, video_feats, video_masks):
-        feats = list(video_feats)
-        masks = list(video_masks) if video_masks else None
-        key = tuple((tuple(t.shape), t.dtype, t.device) for t in feats + (masks or []))
-        with self._lock:
-            gs = self._sets.get(key)
-            new = gs is None
-            if new:
-                gs = _GraphSet(feats, masks)
-            gs.load(feats, masks)
-            if new and feats[0].is_cuda:
-                out = self._capture(gs)
-            else:
-                out = self._finish(self._replay(gs) if gs.graphs else self._run(gs))
-            if new:
-                self._sets[key] = gs
-                self.sets += 1
-            return out
-
-    @property
-    def pool_bytes(self) -> Dict:
-        """Each captured shape's key -> the device memory its graphs' pool
-        reserved."""
-        return {key: gs.pool_bytes for key, gs in self._sets.items() if gs.graphs}
-
-    @property
-    def runner(self) -> "StagedDecode":
-        """Itself, as ``decode.make_auto_*_fn`` results name their runner."""
-        return self
-
-    def _run(self, gs: _GraphSet) -> Dict:
-        """The stages run directly -> the state they leave."""
-        for s, stage in enumerate(self._stages):
-            stage(gs.st)
-            if s + 1 < len(self._stages) and bool(gs.st["all_done"]):
-                break
-        return gs.st
-
-    def _capture(self, gs: _GraphSet):
-        dev = gs.st["feats"][0].device
-        caller = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(caller)
-        with torch.cuda.stream(side):
-            state = self._run(gs)
-        caller.wait_stream(side)
-        out = self._finish(state)  # on the caller's stream, like a replay's
-        side.wait_stream(caller)
-        with torch.cuda.stream(side):
-            pool = torch.cuda.graph_pool_handle()
-            reserved = torch.cuda.memory_reserved(dev)
-            for stage in self._stages:
-                before = _launch_counts()
-                graph = torch.cuda.CUDAGraph()
-                graph.capture_begin(pool=pool, capture_error_mode="thread_local")
-                try:
-                    stage(gs.st)
-                finally:
-                    graph.capture_end()
-                    # nothing ran: the wrappers counted launches into the graph
-                    after = _launch_counts()
-                    for fn, n in before.items():
-                        fn.launches = n
-                gs.graphs.append((graph, {fn: after[fn] - n for fn, n in before.items()
-                                          if after[fn] != n}, dict(gs.st)))
-                self.graphs += 1
-            gs.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
-        caller.wait_stream(side)
-        return out
-
-    def _replay(self, gs: _GraphSet) -> Dict:
-        """The graphs replayed on the caller's stream -> the state the last
-        replayed stage left."""
-        for s, (graph, launched, state) in enumerate(gs.graphs):
-            graph.replay()
-            self.replays += 1
-            for fn, n in launched.items():
-                fn.launches += n
-            if s + 1 < len(gs.graphs) and bool(state["all_done"]):
-                break
-        return state
+    return graphs.StagedDecode(prologue, [stage(*b) for b in graphs.stage_bounds(max_len)],
+                               lambda st: (st["tokens"].clone(), None))

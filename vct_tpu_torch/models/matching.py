@@ -10,11 +10,13 @@ temperature comes from the config.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
+from vct_tpu_torch.models.embeddings import device_table
 from vct_tpu_torch.models.layers import linear
 from vct_tpu_torch.models.losses import clip_symmetric_loss, clip_symmetric_loss_wds
 
@@ -32,12 +34,16 @@ class ContrastiveLoss(nn.Module):
             raise ValueError(f"unsupported matching loss: {loss}")
         self.fn, self.fixed_tem = LOSSES[loss], fixed_tem
         self.temperature = nn.Parameter(torch.ones(1, device=device)) if enable_tem else None
+        self._fixed: Dict = {}  # the fixed temperature on each device it was used on
 
     def forward(self, video: torch.Tensor, text: torch.Tensor,
                 valid: Optional[torch.Tensor] = None) -> torch.Tensor:
         tem = self.temperature
         if tem is None and self.fixed_tem is not None:
-            tem = torch.tensor([self.fixed_tem], device=video.device)
+            # made once per device: a later call copies nothing from the
+            # host, which a CUDA graph's capture refuses
+            tem = device_table(self._fixed, "tem",
+                               lambda: np.array([self.fixed_tem], np.float32), video.device)
         return self.fn(video, text, tem, valid)
 
 

@@ -12,6 +12,12 @@ decoder import (``caption_decoder.univl``, before ``pretrained_model``, the
 reference's load order), and eval decoding on the decode kernels (greedy, or
 beam search when ``tpu.beam_size`` > 1).
 
+In one process on a card the train and validation steps replay CUDA graphs
+(``train.step.GraphedTrainStep`` / ``GraphedEvalStep``: a shape's first call
+runs eagerly, later calls replay); on the host, and on a mesh with a process
+group, they run eagerly. ``resume`` restores into the same state, so the
+train step's graphs are captured again after it.
+
 On a mesh (a process group exists: ``torchrun``, or ``cli.train -ws N``) the
 Trainer is one rank of ``tpu.mesh_data x tpu.mesh_model``
 (``parallel.mesh``): every rank draws the same global batch and takes its

@@ -4,7 +4,7 @@
 Adam / AdamW / SGD selected by ``train.optimizer.name`` on ``torch.optim``;
 CosineAnnealingLR or ReduceLROnPlateau stepped per epoch as host-side objects
 with torch's own semantics, whose LR is pushed into the optimizer's param
-groups. Freezing follows the reference's ``mode`` switch: a frozen module's
+groups (on a card into a device tensor, in place: ``settle_optimizer``). Freezing follows the reference's ``mode`` switch: a frozen module's
 parameters are simply not handed to the optimizer (the loss still flows
 through them).
 """
@@ -143,7 +143,8 @@ def freeze_labels(model: nn.Module, task: str) -> Dict[str, str]:
 
 
 def build_optimizer(cfg: TrainConfig, model: nn.Module) -> torch.optim.Optimizer:
-    """The optimizer over the task's trainable parameters."""
+    """The optimizer over the task's trainable parameters, set up for their
+    device by ``settle_optimizer``."""
     labels = freeze_labels(model, cfg.task)
     params = [p for name, p in model.named_parameters() if labels[name] == "train"]
     o = cfg.optimizer
@@ -152,21 +153,69 @@ def build_optimizer(cfg: TrainConfig, model: nn.Module) -> torch.optim.Optimizer
         if o.weight_decay:
             # the reference dispatch: 'adam' with weight_decay != 0 builds AdamW
             # (decoupled decay)
-            return torch.optim.AdamW(params, lr=o.learning_rate, betas=betas,
-                                     weight_decay=o.weight_decay)
-        return torch.optim.Adam(params, lr=o.learning_rate, betas=betas)
-    if o.name == "adamw":
-        return torch.optim.AdamW(params, lr=o.learning_rate, betas=betas,
-                                 weight_decay=o.weight_decay)
-    if o.name == "sgd":
-        return torch.optim.SGD(params, lr=o.learning_rate, momentum=o.momentum or 0.0)
-    raise ValueError(f"unsupported optimizer: {o.name}")
+            opt = torch.optim.AdamW(params, lr=o.learning_rate, betas=betas,
+                                    weight_decay=o.weight_decay)
+        else:
+            opt = torch.optim.Adam(params, lr=o.learning_rate, betas=betas)
+    elif o.name == "adamw":
+        opt = torch.optim.AdamW(params, lr=o.learning_rate, betas=betas,
+                                weight_decay=o.weight_decay)
+    elif o.name == "sgd":
+        opt = torch.optim.SGD(params, lr=o.learning_rate, momentum=o.momentum or 0.0)
+    else:
+        raise ValueError(f"unsupported optimizer: {o.name}")
+    return settle_optimizer(opt)
+
+
+def settle_optimizer(optimizer: torch.optim.Optimizer) -> torch.optim.Optimizer:
+    """Set each param group's update up for its parameters' device, in place.
+
+    On a card the update must be one that a CUDA graph can capture and
+    replay (``train.step.GraphedTrainStep``): the learning rate is a float32
+    device tensor, which ``set_learning_rate`` fills in place so that a
+    replay reads the new value; Adam and AdamW run ``capturable`` (step
+    count and bias corrections on the device); SGD runs ``fused``, whose
+    update takes a tensor learning rate on the device (the default
+    multi-tensor SGD reads a tensor learning rate on the host, which a
+    capture refuses). On the host: float learning rates, neither flag. Call
+    it again after ``load_state_dict``, whose param groups are the
+    checkpoint's."""
+    for group in optimizer.param_groups:
+        if not group["params"]:
+            continue
+        dev = group["params"][0].device
+        card = dev.type == "cuda"
+        lr = group["lr"]
+        if card:
+            if not (isinstance(lr, torch.Tensor) and lr.device == dev
+                    and lr.dtype == torch.float32):
+                group["lr"] = torch.tensor(float(lr), dtype=torch.float32, device=dev)
+        else:
+            group["lr"] = float(lr)
+        if "capturable" in group:  # Adam, AdamW
+            group["capturable"] = card
+            for p in group["params"]:
+                step = optimizer.state.get(p, {}).get("step")
+                if isinstance(step, torch.Tensor):
+                    optimizer.state[p]["step"] = step.to(dev if card else "cpu",
+                                                         torch.float32)
+        elif isinstance(optimizer, torch.optim.SGD):
+            group["fused"] = True if card else None
+    # every shape's first train step on the card runs eagerly by design: the
+    # once-per-optimizer warning that a capturable optimizer stepped outside
+    # a capture says nothing here
+    optimizer._warned_capturable_if_run_uncaptured = True
+    return optimizer
 
 
 def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
-    """Push a host-scheduler LR into every param group."""
+    """Push a host-scheduler LR into every param group (in place where the
+    group holds a device tensor, so CUDA graphs of the step see it)."""
     for group in optimizer.param_groups:
-        group["lr"] = float(lr)
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(float(lr))
+        else:
+            group["lr"] = float(lr)
 
 
 def current_learning_rate(optimizer: torch.optim.Optimizer) -> Optional[float]:

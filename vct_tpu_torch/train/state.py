@@ -32,6 +32,7 @@ from vct_tpu_torch.parallel.mesh import (
     load_full_optimizer_state,
     load_full_state_dict,
 )
+from vct_tpu_torch.train.optimizers import settle_optimizer
 
 
 @dataclasses.dataclass
@@ -41,6 +42,10 @@ class TrainState:
     generator: torch.Generator  # dropout masks; lives on the model's device
     step: int = 0
     reseeded: bool = False  # the last restore re-seeded the generator
+    # restores so far: a restore gives the optimizer new state tensors, so a
+    # train step's CUDA graphs (``train.step.GraphedTrainStep``) captured
+    # before it are dropped
+    restores: int = 0
 
 
 def rank_seed(seed: int, data_index: int) -> int:
@@ -70,7 +75,7 @@ def save_checkpoint(path: str, state: TrainState, *, epoch: int = 0,
     rank calls it, rank 0 writes, and every rank returns once the file is
     there."""
     mesh = mesh or Mesh()
-    gen = state.generator.get_state()
+    gen = state.generator.get_state()  # where the last step, eager or replayed, left it
     payload = {
         "model": full_state_dict(mesh, state.model),
         "optimizer": full_optimizer_state(mesh, state.model, state.optimizer),
@@ -97,12 +102,17 @@ def restore_checkpoint(path: str, state: TrainState, *, mesh: Optional[Mesh] = N
     """Load ``path`` into ``state`` in place -> (state, epoch, run_ctl dict or
     None when the checkpoint carries none). A checkpoint written at another
     world size holds no generator state for this rank: the generator is left
-    as it is and ``state.reseeded`` set, for the caller to re-seed it."""
+    as it is and ``state.reseeded`` set, for the caller to re-seed it. The
+    optimizer's update is set up for this device again (``settle_optimizer``:
+    the checkpoint may come from the host or the card), and
+    ``state.restores`` counts the restore."""
     mesh = mesh or Mesh()
     device = next(state.model.parameters()).device
     payload = torch.load(os.path.abspath(path), map_location=device, weights_only=True)
     load_full_state_dict(mesh, state.model, payload["model"])
     load_full_optimizer_state(mesh, state.model, state.optimizer, payload["optimizer"])
+    settle_optimizer(state.optimizer)
+    state.restores += 1
     gens = payload.get("generators", [payload["generator"]])
     state.reseeded = len(gens) != mesh.world
     if not state.reseeded:

@@ -1,7 +1,11 @@
 """Train and validation steps (port of ``vct_tpu/train/step.py``).
 
-The train step is eager PyTorch: forward in training mode (dropout from the
-state's generator), ``backward``, one optimizer update. With the fused loss
+The train step is forward in training mode (dropout from the state's
+generator), ``backward``, one optimizer update. In one process on a card it
+is one CUDA graph per batch shape (``GraphedTrainStep``, the counterpart of
+the reference's ``jax.jit`` with donated state), and so is the validation
+step (``GraphedEvalStep``); on the host, and over a mesh with a process
+group, both run eagerly. With the fused loss
 on and an eligible shape on a CUDA device it launches the three loss kernels
 once each (caption and cross tasks); the validation step launches the two
 forward ones. The match and cross tasks take the batch's frozen text features
@@ -33,6 +37,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from vct_tpu_torch import graphs
 from vct_tpu_torch.parallel.mesh import Mesh, all_reduce_max, all_reduce_sum, gather_rows
 from vct_tpu_torch.train.state import TrainState
 
@@ -122,48 +127,105 @@ def wrap_ddp(module: nn.Module, mesh: Mesh) -> nn.Module:
                                        broadcast_buffers=False, find_unused_parameters=True)
 
 
-def make_train_step(task: str, mesh: Optional[Mesh] = None
-                    ) -> Callable[[TrainState, Dict[str, Any]],
-                                  Tuple[TrainState, Dict[str, torch.Tensor]]]:
-    """One optimizer step. With a ``mesh`` that has a process group the batch
-    is this rank's share of the global batch (``parallel.mesh.shard_batch``)
-    and the step runs under DDP (built at the first call, collectively); in
-    one process ``TaskLoss`` runs bare."""
-    _check_task(task)
-    mesh = mesh or Mesh()
+def _update(state: TrainState, loss_fn: Callable, batch: Dict[str, Any]
+            ) -> Dict[str, torch.Tensor]:
+    """Forward, ``backward()`` and one optimizer update on gradients that
+    start from None -> the step's metrics."""
+    loss, metrics = loss_fn(batch)
+    loss.backward()
+    state.optimizer.step()
+    return {k: v.detach() for k, v in metrics.items()}
+
+
+def _eager_train_step(task: str, mesh: Mesh) -> Callable:
+    """The step as eager PyTorch; over a process group the task loss runs
+    under DDP (built at the first call, collectively)."""
     wrapped: Dict[str, nn.Module] = {}
 
     def step(state: TrainState, batch: Dict[str, Any]):
-        model, optimizer = state.model, state.optimizer
+        model = state.model
         model.train()
-        optimizer.zero_grad(set_to_none=True)
+        state.optimizer.zero_grad(set_to_none=True)
         if wrapped.get("model") is not model:
             wrapped.update(model=model, loss=wrap_ddp(TaskLoss(model, task, mesh), mesh))
-        loss, metrics = wrapped["loss"](batch)
-        loss.backward()
-        optimizer.step()
+        metrics = _update(state, wrapped["loss"], batch)
         state.step += 1
-        return state, {k: v.detach() for k, v in metrics.items()}
+        return state, metrics
 
     return step
 
 
-def make_eval_step(task: str, mesh: Optional[Mesh] = None):
-    """Forward-only validation step without dropout. Returns exact SUM/COUNT
-    parts, not per-batch means, so the caller's aggregation does not depend on
-    how the split was batched and collate filler rows contribute nothing.
-    Over a mesh the parts are this rank's share (``reduce_eval_parts`` sums
-    them over the data group); the contrastive loss spans the global batch
-    and is counted by data rank 0 alone."""
-    _check_task(task)
+class GraphedTrainStep(graphs.Staged):
+    """``(state, batch) -> (state, metrics)``, the counterpart of the JAX
+    package's ``jax.jit(step, donate_argnums=(0,))`` in one process: a
+    ``graphs.Staged`` runner of one stage (gradients set to None, forward,
+    ``backward()``, ``optimizer.step()``).
 
+    Each batch shape (every tensor's shape, dtype and device, ``text_feat``
+    included) gets static input buffers. On CPU tensors the stage runs on
+    them, with no graph. On CUDA tensors a shape's first call runs the step
+    eagerly on a side stream (a real step: the call answers from it), then
+    captures it as one CUDA graph into the shape's own memory pool, with the
+    state's dropout generator registered; every later call copies the batch
+    in and replays.
+    The parameters, the optimizer's state and its learning rate (a device
+    tensor that ``optimizers.set_learning_rate`` fills in place) keep their
+    addresses, so a replay updates them in place, as the donated JAX state
+    is; each replay advances the generator's offset as the eager step would,
+    and ``state.step`` stays a host counter, bumped here. The metrics are
+    clones. A new model, optimizer or generator, or a
+    ``state.restore_checkpoint`` (which gives the optimizer new state
+    tensors), drops the graphs. A failed capture or replay raises: nothing
+    falls back to the eager step. ``eager`` is the eager step itself, the
+    same object's update, for comparisons on the card."""
+
+    def __init__(self, task: str):
+        super().__init__([self._stage], lambda st: {k: v.clone() for k, v in st["out"].items()})
+        self.task = task
+        self.eager = _eager_train_step(task, Mesh())
+        self._state: Optional[TrainState] = None
+
+    def __call__(self, state: TrainState, batch: Dict[str, Any]):
+        self.own((state.model, state.optimizer, state.generator), state.restores)
+        self._state, self.generators = state, (state.generator,)
+        state.model.train()
+        metrics = self.run(batch)
+        state.step += 1
+        return state, metrics
+
+    def _stage(self, st: Dict[str, Any]) -> None:
+        state = self._state
+        # None here: under capture the gradients are made by backward() in
+        # the graph's pool, where every replay writes them again
+        state.optimizer.zero_grad(set_to_none=True)
+        st["out"] = _update(state, lambda b: task_loss(state.model, self.task, b, Mesh()), st)
+
+
+def make_train_step(task: str, mesh: Optional[Mesh] = None
+                    ) -> Callable[[TrainState, Dict[str, Any]],
+                                  Tuple[TrainState, Dict[str, torch.Tensor]]]:
+    """One optimizer step. In one process (``mesh`` None or without a
+    process group) a ``GraphedTrainStep``: CUDA graphs on the card, none on
+    the host. With a ``mesh`` that has a process group (a data group
+    under DDP, or tensor parallelism) the step stays eager: the batch is this
+    rank's share of the global batch (``parallel.mesh.shard_batch``) and the
+    task loss runs under DDP, whose reducer and gloo's collectives a CUDA
+    graph does not capture."""
+    _check_task(task)
+    if mesh is not None and mesh.distributed:
+        return _eager_train_step(task, mesh)
+    return GraphedTrainStep(task)
+
+
+def _eager_eval_step(task: str, mesh: Optional[Mesh]) -> Callable:
     @torch.no_grad()
     def step(model, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         model.eval()
         rect_len, rows = _mesh_hooks(mesh, batch)
         feats, masks, valid = batch["feats"], batch.get("masks"), batch.get("row_valid")
+        # a fill, not a copy from the host: a CUDA graph may be capturing
         n_valid = (valid.float().sum() if valid is not None
-                   else torch.tensor(float(feats[0].shape[0]), device=feats[0].device))
+                   else torch.full((), float(feats[0].shape[0]), device=feats[0].device))
         if rows is not None:
             n_valid = all_reduce_sum(n_valid, mesh.data_group)
             if mesh.data_index:
@@ -187,6 +249,46 @@ def make_eval_step(task: str, mesh: Optional[Mesh] = None):
         return out
 
     return step
+
+
+class GraphedEvalStep(graphs.Staged):
+    """``(model, batch) -> parts``, the counterpart of the JAX package's
+    ``jax.jit`` of the validation step in one process: a ``graphs.Staged``
+    runner of the eager step, one CUDA graph per batch shape on the card,
+    captured in ``eval()`` mode under ``no_grad`` after the shape's first
+    (eager) call and replayed after. The parts are clones. Another model
+    drops the graphs (the weights are read where the capture saw them:
+    training updates them in place). ``eager`` is the eager step."""
+
+    def __init__(self, task: str):
+        super().__init__([self._stage], lambda st: {k: v.clone() for k, v in st["out"].items()})
+        self.eager = _eager_eval_step(task, None)
+        self._model: Optional[nn.Module] = None
+
+    @torch.no_grad()
+    def __call__(self, model, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        self.own((model,))
+        self._model = model
+        model.eval()
+        return self.run(batch)
+
+    def _stage(self, st: Dict[str, Any]) -> None:
+        st["out"] = self.eager(self._model, st)
+
+
+def make_eval_step(task: str, mesh: Optional[Mesh] = None):
+    """Forward-only validation step without dropout. Returns exact SUM/COUNT
+    parts, not per-batch means, so the caller's aggregation does not depend on
+    how the split was batched and collate filler rows contribute nothing.
+    In one process a ``GraphedEvalStep`` (CUDA graphs on the card). Over a
+    mesh with a process group the step is eager and the parts are this
+    rank's share (``reduce_eval_parts`` sums them over the data group); the
+    contrastive loss spans the global batch and is counted by data rank 0
+    alone."""
+    _check_task(task)
+    if mesh is not None and mesh.distributed:
+        return _eager_eval_step(task, mesh)
+    return GraphedEvalStep(task)
 
 
 def reduce_eval_parts(parts: Dict[str, torch.Tensor], mesh: Optional[Mesh]
