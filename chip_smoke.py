@@ -16,6 +16,7 @@ extraction paths once on one CUDA card.
     python3 chip_smoke.py --parallel       build, then phase 20 alone
     python3 chip_smoke.py --graphs         build, then phase 21 alone
     python3 chip_smoke.py --train-graphs   build, then phase 22 alone
+    python3 chip_smoke.py --clip-graphs    build, then phase 23 alone
     python3 chip_smoke.py --torchrun-rank OUT ARGS...
                                            phase 20's process under torchrun:
                                            cli.train's run on ARGS, its record
@@ -185,16 +186,22 @@ Phases, each of which must pass:
               features; --beam 4: fused_layers_step and
               fused_norm_generator_topk once per beam token; --vis_attn:
               predict.attn [29, layers, 1, 13] from the module path (and the
-              heatmap where matplotlib is installed); the server with
-              --clip_weights answers 8 concurrent /v1/caption_video, each
-              batch against the module path; tower and request ms
+              heatmap where matplotlib is installed); each predict call's
+              pixels-to-tokens program captured once and never replayed
+              (its capture seconds); the server with --clip_weights (its
+              graphed tower captured at uni_12 at the start) answers 8
+              concurrent /v1/caption_video, each batch against the module
+              path, the tower's graph replayed once a request; tower ms
+              eager and graphed, request ms
  18. cross-train  a seeded full-width CLIP text tower (.pt) and a synthetic
               BPE vocab: configs/msvd.json with train.task cross through
               vct_tpu_torch.cli.train's main (20 train steps, validation,
               eval decode, checkpoint): every loss finite, the total falls,
               the three loss kernels once per train step; step 0's cap_loss
               and match_loss on the card against the CPU (dropout off) in
-              float32 and bfloat16; ms per cross train step; a Trainer with
+              float32 and bfloat16; ms per cross train step; the text
+              encoder's ms on 64 captions through its padded runner (one
+              graph, replayed); a Trainer with
               caption_decoder.univl importing a seeded UniVL decoder at the
               MSVD widths, each weight equal to its source
  19. i3d      seeded full-width Kinetics I3D state dicts (RGB, 3-channel stem;
@@ -276,6 +283,24 @@ Phases, each of which must pass:
               B = 1 and 32 in bfloat16 and float32, rows ending early: tokens
               and attention maps bit for bit the eager module path's, first
               call and two replays
+ 23. clip-graphs  the CLIP towers' compiled programs against their eager
+              runs in one run: (a) phase 18's full-width text tower through
+              build_text_encoder's padded runner: 64 captions, 3 padded to
+              64, 64 again, bit for bit the eager tower's rows, one graph;
+              (b) phase 17's ViT-B/32 through graphs.StagedModule at
+              12 frames, first call and two replays bit for bit, and 8
+              frames captured on a second thread while the first replays a
+              B=32 decode graph (the server's handler and batcher); (c) the
+              pixels-to-tokens program (pipeline.make_video_caption_fn:
+              the tower inside the decode's first graph) with phase 4's
+              captioner on N = 1 and 8 seeded videos of 12 frames, greedy on
+              the kernel route, beam 4 and attention maps, first call and
+              two replays against the tower + eager decode loop, tokens,
+              scores and maps bit for bit, the same launches as the eager
+              composition (fused_whole_step once a token, the stack and
+              top-k once a beam token, none for the module path); host ms a
+              call, device busy ms and idle share (torch.profiler), graphed
+              and eager, each graph set's pool and capture seconds
 
 Times: every row of the ``kernels`` line names its ``timer``. ``cuda_events``
 is ``cuda_time``, CUDA events around a Python loop of calls. ``graph_replay``
@@ -298,10 +323,11 @@ generator kernel on two copies of the weight in turn (94 MB against 50 MB of
 L2), so that no call finds its weight left in L2 by the call before.
 
 Launch counts are set to 0 just before phases 4, 5, 7, 9, 10, 13, 14, 17, 18,
-19 and 20 (each predict run and the video server in 17, each predict run in
-19, each run and each rank in 20) and read just after each. The decode
-factories (phase 21) and, in one process, the Trainer's train and validation
-steps (phase 22) replay CUDA graphs: a replay adds the launches its capture
+19, 20 and 23 (each predict run and the video server in 17, each predict run in
+19, each run and each rank in 20, each call in 23) and read just after each. The decode
+factories (phase 21), in one process the Trainer's train and validation
+steps (phase 22), and the CLIP towers and the pixels-to-tokens program (phases
+17, 18 and 23) replay CUDA graphs: a replay adds the launches its capture
 recorded to each wrapper's count, the capture itself counts none, so the
 counts are the kernels the device ran:
 the server must have launched the whole-step kernel,
@@ -3926,6 +3952,7 @@ def greedy_steps(tokens, end_id=102, max_len=30) -> int:
 
 def run_video(repo: Path, root: Path, vocab: Path, cfg, ckpt: Path, model, card: str):
     """Phase 17 -> ({kernel: launches}, report)."""
+    from vct_tpu_torch import graphs, pipeline
     from vct_tpu_torch.cli import predict as pcli
     from vct_tpu_torch.clip import preprocess_frames, sample_frames
     from vct_tpu_torch.ops import decode_kernels as dk
@@ -3955,14 +3982,37 @@ def run_video(repo: Path, root: Path, vocab: Path, cfg, ckpt: Path, model, card:
     err = max_err("video: tower on the card against the CPU", feats.cpu(), cpu, TOWER_ATOL)
     if tuple(feats.shape) != (CLIP_FRAMES, 512):
         fail(f"video: tower features of shape {tuple(feats.shape)}")
+    graphed = graphs.StagedModule(tower, "pixels")
     with torch.no_grad():
         tower_ms = cuda_time(lambda: tower(pixels.to(dev)), iters=10)
-    report.update(video_tower_ms=tower_ms, video_host_ms=host_ms, video_tower_max_abs_err=err)
-    say(f"  tower, {CLIP_FRAMES} frames: {tower_ms:.3f} ms on the card (CUDA events), "
-        f"sampling + preprocessing {host_ms:.1f} ms on the host; card against CPU (float32) "
-        f"max abs difference {err:.3g} (bound {TOWER_ATOL}) [{card}]")
+    graphed_ms = cuda_time(lambda: graphed(pixels.to(dev)), iters=10)
+    report.update(video_tower_ms=tower_ms, video_tower_graphed_ms=graphed_ms,
+                  video_host_ms=host_ms, video_tower_max_abs_err=err)
+    say(f"  tower, {CLIP_FRAMES} frames: {tower_ms:.3f} ms eager, {graphed_ms:.3f} ms graphed on "
+        f"the card (CUDA events, the pixels' copy included), sampling + preprocessing "
+        f"{host_ms:.1f} ms on the host; card against CPU (float32) max abs difference "
+        f"{err:.3g} (bound {TOWER_ATOL}) [{card}]")
     feats, masks = [feats[None]], [torch.zeros((1, CLIP_FRAMES), dtype=torch.bool, device=dev)]
 
+    # each predict -v makes the pixels-to-tokens program for its one call
+    # (through make_video_caption_fn.__wrapped__): recorded here, to read that
+    # the call captured its graphs, replayed none, and how long the capture took
+    programs, make = [], pipeline.make_video_caption_fn.__wrapped__
+
+    def recording_make(*a, **k):
+        fn = make(*a, **k)
+        programs.append(fn.runner)
+        return fn
+
+    def one_capture(what):
+        runner = programs.pop()
+        (seconds,) = runner.capture_seconds.values()
+        if (runner.sets, runner.graphs, runner.replays) != (1, 4, 0) or programs:
+            fail(f"{what}: the program set up {runner.sets} shapes, captured {runner.graphs} "
+                 f"graphs and replayed {runner.replays} (expected 1, 4, 0)")
+        return seconds
+
+    pipeline.make_video_caption_fn.__wrapped__ = recording_make
     # greedy, then --beam 4, each with the launch counts set to 0 just before
     for label, extra in (("greedy", []), ("beam4", ["--beam", "4"])):
         reset_launches()
@@ -3972,6 +4022,7 @@ def run_video(repo: Path, root: Path, vocab: Path, cfg, ckpt: Path, model, card:
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         got = read_launches()
+        report[f"predict_{label}_capture_s"] = one_capture(f"predict -v {label}")
         tokens = torch.from_numpy(pcli.predict.tokens)
         if not isinstance(caption, str) or tokens.shape != (30,) or tokens[0] != 101:
             fail(f"predict {label}: caption {caption!r}, tokens {tokens}")
@@ -3993,7 +4044,8 @@ def run_video(repo: Path, root: Path, vocab: Path, cfg, ckpt: Path, model, card:
                                                  "fused_norm_generator_topk")})
         report[f"predict_{label}_seconds"] = seconds
         say(f"  predict -v {' '.join(extra) or '--greedy'}: {caption!r} in {seconds:.2f} s "
-            f"with loading; launches { {k: v for k, v in got.items() if v} } [{card}]")
+            f"with loading, the program's capture {report[f'predict_{label}_capture_s']:.3f} s "
+            f"(one call: no replay); launches { {k: v for k, v in got.items() if v} } [{card}]")
 
     # float32 (the triage rule's own setting): bf16 logits of a seeded random
     # model tie often, float32 ones do not
@@ -4007,6 +4059,7 @@ def run_video(repo: Path, root: Path, vocab: Path, cfg, ckpt: Path, model, card:
     with no_plain_on_cuda("predict float32", dk):
         caption = pcli.main(["-c", cfg32_path] + args[2:])
     got = read_launches()
+    one_capture("predict -v float32")
     tokens = torch.from_numpy(pcli.predict.tokens)
     if got["fused_whole_step"] != greedy_steps(tokens):
         fail(f"predict -v float32: launches {got}")
@@ -4019,6 +4072,8 @@ def run_video(repo: Path, root: Path, vocab: Path, cfg, ckpt: Path, model, card:
     ns = pcli.build_parser().parse_args(args + ["--vis_attn"])
     reset_launches()
     pcli.predict(pcli.load_config(cfg_path), ns, device=dev, log=lambda *_: None)
+    one_capture("predict -v --vis_attn")
+    pipeline.make_video_caption_fn.__wrapped__ = make
     want_shape = (29, cfg.model.caption_decoder.layer, 1, CLIP_FRAMES + 1)
     attn = pcli.predict.attn
     if attn is None or attn.shape != want_shape or not np.isfinite(attn).all() or \
@@ -4101,12 +4156,17 @@ def run_video_server(cfg, ckpt: Path, weights: Path, videos, model, card: str):
         fail(f"video server: {len(bad)} requests failed, e.g. {bad[0]}")
     if launches == 0:
         fail("video server: fused_whole_step was never launched")
+    tower = srv.service.tower  # its uni_12 graph captured at the start, replayed since
+    if (tower.sets, tower.graphs, tower.replays) != (1, 1, len(bodies)):
+        fail(f"video server: the graphed tower set up {tower.sets} shapes, {tower.graphs} "
+             f"graphs, {tower.replays} replays for {len(bodies)} uni_12 requests")
     for feats, masks, tokens in records:
         check_against_module(model, feats, masks, tokens, "served video batch")
     ms = sorted(request_ms)
     say(f"  server: {len(bodies)} concurrent /v1/caption_video answered 200 in "
         f"{len(records)} batches, {elapsed * 1e3:.1f} ms for all; request ms p50 "
-        f"{ms[len(ms) // 2]:.1f}, max {ms[-1]:.1f}; fused_whole_step launches {launches} [{card}]")
+        f"{ms[len(ms) // 2]:.1f}, max {ms[-1]:.1f} (the tower graphed: {tower.replays} "
+        f"replays); fused_whole_step launches {launches} [{card}]")
     return launches, {"video_requests_ms_all": elapsed * 1e3,
                       "video_request_ms_p50": ms[len(ms) // 2],
                       "video_request_ms_max": ms[-1]}
@@ -4254,10 +4314,15 @@ def run_cross(repo: Path, root: Path, vocab: Path, card: str):
         tr.text_encoder(["w1234 w2345 w3456 w4567"] * BATCH)
     torch.cuda.synchronize()
     text_ms = (time.perf_counter() - t0) * 100
+    runner = tr.text_encoder.runner
+    if runner.graphs != 1 or runner.replays < 10:
+        fail(f"cross train: the text encoder's runner captured {runner.graphs} graphs and "
+             f"replayed {runner.replays}: every batch of {BATCH} captions is one padded shape")
     report.update(cross_train_step_ms=step_ms, cross_text_encoder_ms=text_ms)
     say(f"  cross train step (batch {BATCH}, text features given): {step_ms:.2f} ms, loss "
         f"kernel launches per step {per_step}; text encoder on {BATCH} captions "
-        f"{text_ms:.2f} ms [{card}]")
+        f"{text_ms:.2f} ms through its padded runner (BPE on the host included; "
+        f"{runner.sets} shape, {runner.replays} replays) [{card}]")
     report.update(run_univl(repo, root, vocab))
     return launches, report
 
@@ -5255,27 +5320,41 @@ def graphed_validation(what, tr, model, batch):
     return runner
 
 
-def step_readings(key, what, runner, graphed_state, eager_state, batch, card):
-    """Host ms a step, device busy ms and idle share (torch.profiler), kernels
-    a step, graphed (``runner``) and eager in one run; the graph's pool and
-    capture time -> report entries under ``key``."""
+def graph_readings(key, what, graphed, eager, pool_capture, card, reps=10, profiled_calls=3,
+                   kernels=False):
+    """Host ms a call (``reps`` calls), device busy ms and idle share
+    (torch.profiler over ``profiled_calls``), and with ``kernels`` the kernels
+    a call, of ``graphed()`` and ``eager()`` in one run; ``pool_capture`` is
+    the graph set's (pool bytes, capture seconds) -> report entries under
+    ``key``."""
     report, line = {}, []
-    for label, run in (("graphed", lambda: runner(graphed_state, batch)),
-                       ("eager", lambda: runner.eager(eager_state, batch))):
-        ms = host_time(run, reps=10)
-        rows, _ = device_rows(run, 5)
+    for label, run in (("graphed", graphed), ("eager", eager)):
+        ms = host_time(run, reps=reps)
+        rows, _ = device_rows(run, profiled_calls)
         busy = sum(r[1] for r in rows)
-        kernels = sum(r[2] for r in rows)
         report.update({f"{key}_{label}_ms": ms, f"{key}_{label}_busy_ms": busy,
-                       f"{key}_{label}_idle_share": 1 - busy / ms,
-                       f"{key}_{label}_kernels": kernels})
-        line.append(f"{label} {ms:.3f} ms, busy {busy:.3f} ms, idle share "
-                    f"{1 - busy / ms:.2f}, {kernels:.0f} kernels")
-    (pool,), (seconds,) = runner.pool_bytes.values(), runner.capture_seconds.values()
+                       f"{key}_{label}_idle_share": 1 - busy / ms})
+        line.append(f"{label} {ms:.3f} ms, busy {busy:.3f} ms, idle share {1 - busy / ms:.2f}")
+        if kernels:
+            report[f"{key}_{label}_kernels"] = sum(r[2] for r in rows)
+            line[-1] += f", {report[f'{key}_{label}_kernels']:.0f} kernels"
+    pool, seconds = pool_capture
     report.update({f"{key}_graph_pool_mb": pool / 2 ** 20, f"{key}_capture_s": seconds})
-    say(f"  {what} step: " + "; ".join(line) + f"; graph pool {pool / 2 ** 20:.1f} MiB, "
+    say(f"  {what}: " + "; ".join(line) + f"; graph pool {pool / 2 ** 20:.1f} MiB, "
         f"capture {seconds:.3f} s [{card}]")
     return report
+
+
+def set_readings(runner, inputs=None) -> tuple:
+    """(pool bytes, capture seconds) of ``runner``'s graph set for
+    ``inputs``, or of its only set."""
+    from vct_tpu_torch import graphs
+
+    if inputs is None:
+        ((pool,), (seconds,)) = runner.pool_bytes.values(), runner.capture_seconds.values()
+        return pool, seconds
+    key = graphs.shape_key(inputs)
+    return runner.pool_bytes[key], runner.capture_seconds[key]
 
 
 def sgd_tensor_lr_probe(dev) -> str:
@@ -5375,14 +5454,16 @@ def run_train_graphs(repo: Path, root: Path, long_root: Path, vocab: Path, cfg, 
 
         # (e) readings, graphed and eager in one run
         say(f"  readings, host clock over 10 steps and torch.profiler over 5 [{card}]:")
-        report.update(step_readings("msvd", f"MSVD adam (batch {BATCH})", msvd[1], msvd[3],
-                                    msvd[2], msvd[4], card))
-        report.update(step_readings("long", f"long-video (batch {LONG_BATCH})",
-                                    long_steps[0], long_steps[2], long_steps[1],
-                                    long_batches[0], card))
-        report.update(step_readings("cross", f"cross (batch {BATCH})", cross_steps[0],
-                                    cross_steps[2], cross_steps[1], cross_batches[0], card))
-    del msvd, long_tr, long_steps, cross_tr, cross_steps
+        for key, what, (runner, eager_state, graphed_state), batch in (
+                ("msvd", f"MSVD adam (batch {BATCH})", (msvd[1], msvd[2], msvd[3]), msvd[4]),
+                ("long", f"long-video (batch {LONG_BATCH})", long_steps[:3],
+                 long_batches[0]),
+                ("cross", f"cross (batch {BATCH})", cross_steps[:3], cross_batches[0])):
+            report.update(graph_readings(
+                key, f"{what} step", lambda r=runner, st=graphed_state, b=batch: r(st, b),
+                lambda r=runner, st=eager_state, b=batch: r.eager(st, b), set_readings(runner),
+                card, profiled_calls=5, kernels=True))
+    del msvd, long_tr, long_steps, cross_tr, cross_steps, runner, eager_state, graphed_state
     torch.cuda.empty_cache()
 
     # (d) the module path's staged decode (collect_attn; beam) against its eager loop
@@ -5410,6 +5491,206 @@ def run_train_graphs(repo: Path, root: Path, long_root: Path, vocab: Path, cfg, 
                     f"tokens, {ended_early(want[0], end_id)} rows end early) and beam "
                     f"{BEAM_K}, first call and two replays bit for bit the eager loop's")
     del models["float32"]
+    return report
+
+
+# ---------------------------------------------------------------------------
+# phase 23: the CLIP towers' compiled programs (CUDA graphs of the towers and
+# of the pixels-to-tokens program)
+# ---------------------------------------------------------------------------
+
+CLIP_GRAPH_VIDEOS = (1, 8)
+CLIP_GRAPH_MODES = ("greedy", "beam4", "attn")
+
+
+def same_bits(what, got, want) -> None:
+    """``got`` and ``want`` (tensors, or tuples of tensors and None) equal
+    bit for bit."""
+    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    for g, w in zip(got, want):
+        if (g is None) != (w is None) or (g is not None and not torch.equal(g, w)):
+            fail(f"clip graphs: {what}: the graphed program parts from the eager run")
+
+
+def video_pixels(root: Path, n: int):
+    """``n`` seeded videos of 40 frames, sampled at uni_12 and preprocessed
+    -> CPU pixels [n, 12, 224, 224, 3]."""
+    from vct_tpu_torch.clip import preprocess_frames, sample_frames
+
+    out = []
+    for i in range(n):
+        path = root / f"clip_graphs_video{i}.avi"
+        if not path.exists():
+            write_video(path, SEED + 230 + i)
+        out.append(preprocess_frames(sample_frames(str(path), f"uni_{CLIP_FRAMES}")))
+    return torch.from_numpy(np.stack(out))
+
+
+def eager_video(model, tower, fw, pixels, mode):
+    """The eager composition the pixels-to-tokens program replaces: the
+    tower, then the eager decode loop of ``mode`` (the users' ids: start 101,
+    end 102)."""
+    from vct_tpu_torch.decode import greedy_generate
+    from vct_tpu_torch.decode_fast import beam_generate_fused, greedy_generate_fused
+
+    n, t = pixels.shape[:2]
+    feats = [tower(pixels.reshape((n * t,) + pixels.shape[2:])).reshape(n, t, -1).float()]
+    masks = [torch.zeros((n, t), dtype=torch.bool, device=pixels.device)]
+    kw = dict(max_len=30, start_id=101, end_id=102)
+    if mode == "beam4":
+        return beam_generate_fused(model, feats, masks, beam_size=BEAM_K, fw=fw, **kw)
+    if mode == "attn":
+        return greedy_generate(model, feats, masks, collect_attn=True, **kw)
+    return greedy_generate_fused(model, feats, masks, fw=fw, **kw)
+
+
+def served_thread_capture(model, fw, fn, tower, frames, dev) -> None:
+    """The server's case: the graphed tower captures a new frame count on one
+    thread (a request's handler) while this thread replays decode graphs (the
+    batcher); both give their eager bits."""
+    from vct_tpu_torch.decode_fast import greedy_generate_fused, make_fused_greedy_fn
+
+    feats, masks = eval_inputs(MAX_BATCH, dev, SEED + 231)
+    want, _ = greedy_generate_fused(model, feats, masks, max_len=30, start_id=101, end_id=-1,
+                                    fw=fw)
+    decode = make_fused_greedy_fn(model, 30, 101, -1)
+    decode(feats, masks)  # captured here, before the other thread starts
+    sets, out, errors = fn.sets, {}, []
+
+    def handler():
+        try:
+            with torch.no_grad():
+                out["graphed"] = fn(frames)
+            torch.cuda.synchronize()
+        except Exception as e:  # noqa: BLE001 - failed below, on this thread
+            errors.append(e)
+
+    thread = threading.Thread(target=handler)
+    thread.start()
+    replays = 0
+    while thread.is_alive() and replays < 1000:
+        same_bits("decode replays beside a tower capture", decode(feats, masks)[0], want)
+        replays += 1
+    thread.join(timeout=300)
+    if thread.is_alive() or errors or fn.sets != sets + 1:
+        fail(f"clip graphs: the tower's capture on another thread: {errors or 'hung'}")
+    same_bits(f"vision tower, {len(frames)} frames captured on another thread",
+              out["graphed"], tower(frames))
+    say(f"  ok vision tower: {len(frames)} frames captured on another thread while this one "
+        f"replayed a B={MAX_BATCH} decode {replays} times, both bit for bit")
+
+
+def run_clip_graphs(root: Path, model, fw, dev, card):
+    """Phase 23: the CLIP towers' compiled programs against their eager runs
+    in one run: (a) the text encoder's padded runner, (b) the graphed vision
+    tower, (c) the pixels-to-tokens program (greedy on the kernel route,
+    beam 4, attention maps) at N = 1 and 8 videos; bits, launches, readings."""
+    from vct_tpu_torch import graphs
+    from vct_tpu_torch.cli.predict import load_clip_tower
+    from vct_tpu_torch.clip.text import CLIPBPETokenizer, build_text_encoder
+    from vct_tpu_torch.ops import decode_kernels as dk
+    from vct_tpu_torch.pipeline import make_video_caption_fn
+
+    report, t0 = {}, time.perf_counter()
+
+    def took(part):
+        nonlocal t0
+        report[f"clip_graphs_{part}_seconds"] = time.perf_counter() - t0
+        say(f"  ({part} took {report[f'clip_graphs_{part}_seconds']:.1f} s)")
+        t0 = time.perf_counter()
+
+    with torch.no_grad(), no_plain_on_cuda("clip graphs", dk):
+        # (a) the text tower of phase 18, full width, 64 captions and 3 padded to 64
+        weights, vocab_json, merges_txt, n_text = write_text_assets(root)
+        enc = build_text_encoder("CLIP", device=dev, clip_weights=str(weights),
+                                 vocab_json=str(vocab_json), merges_txt=str(merges_txt))
+        captions = [f"w{i} w{2 * i + 1} w{3 * i + 2} w{i % 7}" for i in range(BATCH)]
+        bpe = CLIPBPETokenizer.from_hf_files(str(vocab_json), str(merges_txt))
+        toks = torch.from_numpy(bpe.tokenize(captions)).to(dev)
+        for n in (BATCH, 3, BATCH):
+            padded = torch.cat([toks[:n], toks[:1].expand(BATCH - n, -1)])
+            got, want = enc(captions[:n]), enc.tower(padded)[:n]
+            torch.cuda.synchronize()
+            same_bits(f"text encoder on {n} captions", got, want)
+        runner = enc.runner
+        if (runner.sets, runner.graphs, runner.replays) != (1, 1, 2):
+            fail(f"clip graphs: text encoder: {runner.sets} sets, {runner.graphs} graphs, "
+                 f"{runner.replays} replays over 64, 3 and 64 captions (expected 1, 1, 2)")
+        say(f"  ok text encoder ({n_text} parameters): 64 captions, then 3 padded to 64, then "
+            f"64: bit for bit the eager tower's, one graph for both")
+        report.update(graph_readings(
+            "text_tower_b64", f"text tower, {BATCH} x 77 tokens", lambda: enc.runner(toks),
+            lambda: enc.tower(toks).float(), set_readings(runner, {"tokens": toks}), card))
+        ms = host_time(lambda: enc(captions), reps=10)
+        report["text_encoder_b64_ms"] = ms
+        say(f"  text encoder on {BATCH} captions, BPE on the host included: {ms:.3f} ms "
+            f"(host clock, 10 calls) [{card}]")
+
+        took("a")
+        # (b) the vision tower of phase 17 at uni_12
+        clip_weights = root / "clip_vit_b32_seeded.pt"
+        if not clip_weights.exists():
+            write_clip_vision(clip_weights)
+        tower = load_clip_tower(str(clip_weights), dev)
+        pixels = video_pixels(root, max(CLIP_GRAPH_VIDEOS)).to(dev)
+        frames = pixels[0]
+        fn = graphs.StagedModule(tower, "pixels")
+        for _ in range(3):
+            same_bits(f"vision tower, {CLIP_FRAMES} frames", fn(frames), tower(frames))
+        torch.cuda.synchronize()
+        if (fn.sets, fn.graphs, fn.replays) != (1, 1, 2):
+            fail(f"clip graphs: vision tower: {fn.sets} sets, {fn.graphs} graphs, "
+                 f"{fn.replays} replays")
+        say(f"  ok vision tower: {CLIP_FRAMES} frames, first call and two replays bit for bit "
+            f"the eager tower's")
+        report.update(graph_readings(
+            "vision_tower_f12", f"vision tower, {CLIP_FRAMES} frames", lambda: fn(frames),
+            lambda: tower(frames), set_readings(fn, {"pixels": frames}), card))
+        served_thread_capture(model, fw, fn, tower, pixels[1, :8], dev)
+
+        took("b")
+        # (c) the pixels-to-tokens program against the eager composition
+        for mode in CLIP_GRAPH_MODES:
+            prog = make_video_caption_fn.__wrapped__(
+                model, tower, max_len=30, start_id=101, end_id=102,
+                beam_size=BEAM_K if mode == "beam4" else 0, collect_attn=mode == "attn")
+            for n in CLIP_GRAPH_VIDEOS:
+                px = pixels[:n]
+                for call in range(3):
+                    reset_launches()
+                    want = eager_video(model, tower, fw, px, mode)
+                    torch.cuda.synchronize()
+                    eager_counts = read_launches()
+                    reset_launches()
+                    got = prog(px)
+                    torch.cuda.synchronize()
+                    counts = read_launches()
+                    same_bits(f"{mode} N={n}, call {call + 1}", got, want)
+                    if counts != eager_counts:
+                        fail(f"clip graphs: {mode} N={n}, call {call + 1}: launches {counts}, "
+                             f"the eager composition's {eager_counts}")
+                tokens = want[0]
+                steps = max(greedy_steps(row) for row in tokens.cpu())
+                launched = {k: v for k, v in counts.items() if v}
+                expect = {"greedy": {"fused_whole_step": steps}, "attn": {},
+                          "beam4": {"fused_layers_step": counts["fused_layers_step"],
+                                    "fused_norm_generator_topk": counts["fused_layers_step"]}}
+                if launched != expect[mode] or (mode == "beam4" and launched[
+                        "fused_layers_step"] not in (8, 16, 24, 29)):
+                    fail(f"clip graphs: {mode} N={n}: launches {launched}, expected "
+                         f"{expect[mode]} (one a token, up to the stage where every row ends)")
+                say(f"  ok {mode} N={n}: first call and two replays bit for bit the tower + "
+                    f"eager loop's (tokens{', scores' if mode == 'beam4' else ''}"
+                    f"{', maps' if mode == 'attn' else ''}); launches a call {launched}")
+                report.update(graph_readings(
+                    f"video_{mode}_n{n}", f"pixels to tokens, {mode}, N={n} x {CLIP_FRAMES} "
+                    f"frames", lambda: prog(px), lambda: eager_video(model, tower, fw, px, mode),
+                    set_readings(prog.runner, {"pixels": px}), card, reps=3,
+                    profiled_calls=1))  # the eager loops' thousands of events a call
+            if (prog.runner.sets, prog.runner.graphs) != (2, 8):
+                fail(f"clip graphs: {mode}: {prog.runner.sets} sets, {prog.runner.graphs} "
+                     f"graphs for N = 1 and 8 (expected 2 and 8)")
+            took(f"c_{mode}")
     return report
 
 
@@ -5502,6 +5783,11 @@ def main() -> int:
             say(json.dumps(run_train_graphs(repo, work, long_work, vocab, cfg, model, dev,
                                             card)))
             say(f"  phase train-graphs took {time.perf_counter() - t0:.1f} s [{card}]")
+            return 0
+        if "--clip-graphs" in sys.argv[1:]:
+            t0 = time.perf_counter()
+            say(json.dumps(run_clip_graphs(work, model, fw, dev, card)))
+            say(f"  phase clip-graphs took {time.perf_counter() - t0:.1f} s [{card}]")
             return 0
         say(f"model: configs/msvd.json, {n_params} parameters and buffers, vocab "
             f"{model.config.vocab_size} (padded {fw['wg'].shape[1]}), {cfg.tpu.dtype}")
@@ -5617,6 +5903,13 @@ def main() -> int:
         report.update(run_train_graphs(repo, work, long_work, vocab, cfg, model, dev, card),
                       train_graphs_phase_seconds=time.perf_counter() - t0)
         say(f"  phase train-graphs took {report['train_graphs_phase_seconds']:.1f} s [{card}]")
+        say("phase clip-graphs: the CLIP towers' compiled programs (the padded text encoder, "
+            "the vision tower, the pixels-to-tokens program greedy / beam 4 / attention maps) "
+            "against their eager runs, readings")
+        t0 = time.perf_counter()
+        report.update(run_clip_graphs(work, model, fw, dev, card),
+                      clip_graphs_phase_seconds=time.perf_counter() - t0)
+        say(f"  phase clip-graphs took {report['clip_graphs_phase_seconds']:.1f} s [{card}]")
 
     say(json.dumps(report))
     sources = {**{k: SOURCE for k in REPLACES},

@@ -1736,3 +1736,139 @@ def test_graphed_eval_step_equals_eager(cuda):
             assert torch.equal(got[k], want[k]), k
     assert (runner.sets, runner.graphs, runner.replays) == (1, 1, 2)
     assert held[1]["ce_sum"].data_ptr() != held[2]["ce_sum"].data_ptr()
+
+
+# ---------------------------------------------------------------------------
+# the CLIP towers' compiled programs: the graphed towers (graphs.StagedModule)
+# and the pixels-to-tokens program (pipeline.make_video_caption_fn) against
+# their eager runs
+# ---------------------------------------------------------------------------
+
+
+def _towers(dev):
+    """Seeded small CLIP towers on the card: vision (width 128, 2 layers, 64
+    out, as ``_graph_model``'s features) and text (width 128, 2 layers,
+    vocab 1000)."""
+    from vct_tpu_torch.clip.text import CLIPTextTower
+    from vct_tpu_torch.clip.vision import CLIPVisionTower, init_clip_weights
+
+    vision = init_clip_weights(CLIPVisionTower(width=E, layers=2, heads=2, out_dim=64),
+                               torch.Generator().manual_seed(20))
+    text = init_clip_weights(CLIPTextTower(vocab_size=1000, width=E, layers=2, heads=2),
+                             torch.Generator().manual_seed(21))
+    with torch.no_grad():  # features of unit scale, so that the pixels move the tokens
+        vision.class_embedding.zero_()
+        vision.positional_embedding.zero_()
+        vision.proj.mul_(30.0)
+    return vision.to(dev).eval(), text.to(dev).eval()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["vision", "text"])
+def test_graphed_towers_equal_the_eager_towers(cuda, which):
+    """The towers' runners (``graphs.StagedModule`` keyed on ``pixels``, as
+    the server and the extract CLI build it, and on ``tokens``, the text
+    encoder's) on the card: a shape's first call and two
+    replays give the eager tower's features bit for bit, into results of
+    their own; one graph per shape."""
+    from vct_tpu_torch import graphs
+
+    vision, text = _towers(cuda)
+    g = torch.Generator().manual_seed(22)
+    if which == "vision":
+        fn, tower = graphs.StagedModule(vision, "pixels"), vision
+        inputs = [torch.randn((f, 224, 224, 3), generator=g).to(cuda) for f in (5, 5, 3)]
+    else:
+        fn, tower = graphs.StagedModule(text, "tokens"), text
+        inputs = []
+        for rows in (8, 8, 3):
+            toks = torch.randint(1, 998, (rows, 77), generator=g, dtype=torch.int32)
+            toks[torch.arange(rows), torch.randint(5, 77, (rows,), generator=g)] = 999  # EOT
+            inputs.append(toks.to(cuda))
+    with torch.no_grad():
+        wants = [tower(x) for x in inputs]
+    gots = [fn(x) for x in (*inputs, inputs[0])]
+    torch.cuda.synchronize()
+    for got, want in zip(gots, (*wants, wants[0])):
+        assert got.dtype == torch.float32 and torch.equal(got, want)
+    assert gots[0].data_ptr() != gots[3].data_ptr()
+    assert (fn.sets, fn.graphs, fn.replays) == (2, 2, 2)
+
+
+@pytest.mark.cuda
+def test_graphed_tower_gives_back_the_pools_it_drops(cuda):
+    """Eight frame counts through the graphed tower: it keeps the last
+    ``max_sets`` (4) sets, each replay bit for bit the eager tower's, and
+    holds less device memory after ``empty_cache`` than a runner that keeps
+    all eight: the dropped sets' pools went back to the card."""
+    from vct_tpu_torch import graphs
+
+    vision, _ = _towers(cuda)
+    px = torch.randn((40, 224, 224, 3), generator=torch.Generator().manual_seed(24)).to(cuda)
+    counts = range(33, 41)  # each pool holds its patches, 20-25 MB
+    grown = {}
+    for bound in (4, None):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_reserved(cuda)
+        fn = graphs.StagedModule(vision, "pixels")
+        fn.max_sets = bound
+        for f in (*counts, *counts[-2:]):
+            got = fn(px[:f])
+            with torch.no_grad():
+                assert torch.equal(got, vision(px[:f])), f
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        grown[bound] = torch.cuda.memory_reserved(cuda) - before
+        assert len(fn._sets) == len(counts[-(bound or 8):])
+        assert (fn.sets, fn.graphs, fn.replays) == (8, 8, 2)
+        del fn, got
+    assert 0 < grown[4] < grown[None], grown
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["greedy", "beam", "attn"])
+def test_graphed_pixel_program_equals_the_eager_composition(cuda, mode):
+    """``make_video_caption_fn`` on the card, bf16 captioner: one program from
+    pixels to tokens whose first call and replays give the eager composition's
+    bits (the tower, then ``greedy_generate_fused`` / ``beam_generate_fused``
+    / the module path with attention maps); the kernels the eager decode
+    launches, once a replay."""
+    from vct_tpu_torch.decode import greedy_generate
+    from vct_tpu_torch.decode_fast import beam_generate_fused, greedy_generate_fused
+    from vct_tpu_torch.pipeline import make_video_caption_fn
+
+    model = _graph_model(cuda, torch.bfloat16, seed=4)
+    vision, _ = _towers(cuda)
+    g = torch.Generator().manual_seed(23)
+    batches = [torch.randn((2, 4, 224, 224, 3), generator=g).to(cuda) for _ in range(2)]
+    kw = dict(max_len=30, start_id=101, end_id=-1)
+
+    def eager(px):
+        with torch.no_grad():
+            feats = [vision(px.reshape(-1, 224, 224, 3)).reshape(2, 4, -1).float()]
+        masks = [torch.zeros((2, 4), dtype=torch.bool, device=cuda)]
+        if mode == "beam":
+            return beam_generate_fused(model, feats, masks, beam_size=4, **kw)
+        if mode == "attn":
+            return greedy_generate(model, feats, masks, collect_attn=True, **kw)
+        return greedy_generate_fused(model, feats, masks, **kw)
+
+    fn = make_video_caption_fn.__wrapped__(model, vision, beam_size=4 if mode == "beam" else 0,
+                                           collect_attn=mode == "attn", **kw)
+    counted = {"greedy": {"fused_whole_step": 29}, "attn": {},  # 29 tokens: runs free
+               "beam": {"fused_layers_step": 29, "fused_norm_generator_topk": 29}}[mode]
+    for px in (*batches, batches[0]):
+        before = {k.__name__: k.launches for k in dk.WRAPPERS}
+        want = eager(px)
+        mid = {k.__name__: k.launches for k in dk.WRAPPERS}
+        got = fn(px)
+        torch.cuda.synchronize()
+        for gv, wv in zip(got, want):
+            assert (gv is None) == (wv is None)
+            assert gv is None or torch.equal(gv, wv)
+        for counts, since in ((mid, before), ({k.__name__: k.launches for k in dk.WRAPPERS},
+                                              mid)):
+            assert {k: v - since[k] for k, v in counts.items() if v != since[k]} == counted
+    assert not torch.equal(eager(batches[0])[0], eager(batches[1])[0])
+    assert (fn.runner.sets, fn.runner.graphs, fn.runner.replays) == (1, 4, 8)

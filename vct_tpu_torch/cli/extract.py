@@ -135,18 +135,19 @@ def main(argv=None) -> None:
 
 def _make_clip_encoder(args, device: torch.device):
     """Per-video CLIP features: ``--ext_type`` sampling, the ViT-B/32 tower on
-    ``--batch_frames`` frames a call, one (T, 512) array per video."""
+    ``--batch_frames`` frames a call (the tower's compiled program: a CUDA
+    graph per chunk shape, the last ``graphs.StagedModule.max_sets`` kept;
+    no frame batch is padded), one (T, 512) array per video."""
+    from vct_tpu_torch import graphs
     from vct_tpu_torch.cli.predict import load_clip_tower
     from vct_tpu_torch.clip import preprocess_frames, sample_frames
 
-    tower = load_clip_tower(args.clip_weights, device)
+    tower = graphs.StagedModule(load_clip_tower(args.clip_weights, device), "pixels")
 
-    @torch.no_grad()
     def video_feats(vp: pathlib.Path) -> np.ndarray:
         pixels = torch.from_numpy(preprocess_frames(sample_frames(str(vp), args.ext_type)))
-        return np.concatenate([
-            tower(chunk.to(device)).float().cpu().numpy()
-            for chunk in pixels.split(args.batch_frames)])
+        return np.concatenate([tower(chunk.to(device)).cpu().numpy()
+                               for chunk in pixels.split(args.batch_frames)])
 
     return video_feats
 

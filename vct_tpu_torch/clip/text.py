@@ -28,11 +28,13 @@ import numpy as np
 import torch
 from torch import nn
 
+from vct_tpu_torch import graphs
 from vct_tpu_torch.clip.convert import first_blocks, hf_to_openai_keys, load_clip_state_dict
 from vct_tpu_torch.clip.vision import CLIPTransformer
 from vct_tpu_torch.models.layers import layer_norm
 
 CONTEXT_LENGTH = 77  # clip.tokenize default
+BATCH_PAD = 64  # the text encoder's batch: a multiple of it (the reference's batch_pad)
 NEG_INF = -1e30
 
 
@@ -277,7 +279,13 @@ def build_text_encoder(text_enc_type: str, *, device: torch.device,
                        ) -> Callable[[List[str]], torch.Tensor]:
     """-> callable ``List[str] -> [B, dim]`` float32 on ``device`` (reference
     ``TextEncoder.__call__``). The frozen CLIP tower, its shape read from the
-    weights, runs in float32 on ``device`` under ``torch.no_grad``."""
+    weights, runs in float32 on ``device`` under ``torch.no_grad``, as the
+    reference's ``jax.jit`` of it: the BPE on the host, the token batch
+    padded to a multiple of ``BATCH_PAD`` with copies of its first row, so
+    that one shape serves every batch of up to ``BATCH_PAD`` captions, the
+    tower a ``graphs.StagedModule`` keyed on the padded shape (a CUDA graph
+    per shape on the card), the first B rows returned. ``encode.tower`` is
+    the tower, ``encode.runner`` its runner."""
     if "CLIP" in text_enc_type:
         if not (clip_weights and vocab_json and merges_txt):
             raise ValueError("CLIP text encoder needs clip_weights + vocab_json + merges_txt")
@@ -286,13 +294,17 @@ def build_text_encoder(text_enc_type: str, *, device: torch.device,
         tower = CLIPTextTower(**infer_text_tower_kwargs(sd), device=device)
         tower.load_state_dict(convert_clip_text(sd, layers=tower.layers))
         tower.eval().requires_grad_(False)
+        runner = graphs.StagedModule(tower, "tokens")
 
-        @torch.no_grad()
         def encode(captions: List[str]) -> torch.Tensor:
-            toks = torch.from_numpy(tokenizer.tokenize(captions)).to(device)
-            return tower(toks).float()
+            toks = tokenizer.tokenize(captions)
+            n = len(captions)
+            pad = (-n) % BATCH_PAD
+            if pad:
+                toks = np.concatenate([toks, np.tile(toks[:1], (pad, 1))])
+            return runner(torch.from_numpy(toks).to(device))[:n]
 
-        encode.tower = tower
+        encode.tower, encode.runner = tower, runner
         return encode
 
     if "bert" in text_enc_type:

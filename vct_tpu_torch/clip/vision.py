@@ -14,6 +14,10 @@ OpenAI or HF checkpoint loads with ``load_state_dict(strict=True)``. The tower
 takes NHWC pixels, as the reference's does, and runs in float32 unless asked
 otherwise. The towers attend over 50 (vision) and 77 (text) tokens with their
 own products; no attention kernel runs in them, as in the reference.
+
+The tower's compiled program (the JAX package's ``jax.jit`` of
+``tower.apply`` in ``serve.py`` and ``cli/extract.py``) is
+``graphs.StagedModule(tower, "pixels")``: CUDA graphs, one per frame count.
 """
 
 from __future__ import annotations

@@ -1,11 +1,15 @@
 """CUDA graphs of the port's compiled programs: the decode programs
 (``decode_fast.make_fused_*_fn``, ``decode.make_greedy_fn`` /
-``make_beam_fn``) and the train and validation steps (``train.step``).
+``make_beam_fn``), the pixels-to-tokens program
+(``pipeline.make_video_caption_fn``), the CLIP towers (``StagedModule``,
+behind ``serve.py``, ``cli/extract.py`` and ``clip.text.build_text_encoder``)
+and the train and validation steps (``train.step``).
 
 The JAX package compiles these programs with ``jax.jit``. Here a program is
 a ``Staged`` runner: stages over a state dict, captured as CUDA graphs once
 per input shape and replayed (``StagedDecode`` for a decode, whose stages
-are ``stage_bounds``' 8 tokens each). Its pieces:
+are ``stage_bounds``' 8 tokens each; ``StagedModule`` for a frozen tower,
+one stage). Its pieces:
 
 * ``shape_key`` / ``static_like`` / ``copy_into``: one shape's static input
   buffers, which every call's tensors are copied into (a tensor, ``None``,
@@ -28,7 +32,7 @@ from __future__ import annotations
 import contextlib
 import threading
 import time
-from typing import Any, Callable, Dict, Iterator, List, Sequence, Tuple
+from typing import Any, Callable, Dict, Hashable, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -127,6 +131,18 @@ def shape_key(tree) -> Tuple:
     return (type(tree).__name__, tuple(shape_key(v) for v in tree))
 
 
+def first_tensor(tree) -> Optional[torch.Tensor]:
+    """The first tensor of ``tree`` in ``shape_key``'s order (a runner's
+    ``feats``, ``pixels`` or ``tokens``), or None."""
+    if tree is None or isinstance(tree, torch.Tensor):
+        return tree
+    for v in (v for _, v in sorted(tree.items())) if isinstance(tree, dict) else tree:
+        t = first_tensor(v)
+        if t is not None:
+            return t
+    return None
+
+
 def static_like(tree):
     """Uninitialised buffers in the shape of ``tree``."""
     if tree is None or isinstance(tree, torch.Tensor):
@@ -172,9 +188,8 @@ def run_stages(st: dict, stages: List[Callable]) -> dict:
 
 
 def on_card(inputs: Dict[str, Any]) -> bool:
-    """Whether a runner's inputs (a dict with ``feats``, a list of tensors)
-    lie on a card."""
-    return inputs["feats"][0].is_cuda
+    """Whether a runner's inputs lie on a card (their first tensor does)."""
+    return first_tensor(inputs).is_cuda
 
 
 class _Set:
@@ -200,8 +215,8 @@ class Staged:
     false (a decode's early exit); a program of one stage reads nothing.
 
     Each input shape (``shape_key``) gets a ``_Set``: static buffers the
-    call's inputs (a dict with ``feats``) are copied into. On CPU tensors the
-    stages run on them directly. On CUDA tensors the first call of a shape
+    call's inputs (a dict of tensors, or of lists of them) are copied into.
+    On CPU tensors the stages run on them directly. On CUDA tensors the first call of a shape
     runs the stages on a side stream (which builds the kernel library, sets
     cuBLAS up and, for a train step, makes the optimizer's state) and answers
     from that run, then captures one CUDA graph per stage into one memory
@@ -212,10 +227,18 @@ class Staged:
     are the caller's own (clones or new), so a result held across calls is
     not overwritten. One call runs at a time (the buffers are shared).
 
+    ``max_sets`` (None: no bound) caps the shapes kept, in the order last
+    used: a new shape past it drops the least recently used one, whose pool
+    the allocator frees when it next runs short (or at
+    ``torch.cuda.empty_cache``); that shape, seen again, runs eagerly and is
+    captured again.
+
     ``sets``, ``graphs`` and ``replays`` count the shapes set up, the graphs
     captured and the replays, over the runner's life (``reset`` keeps them);
     ``pool_bytes`` and ``capture_seconds`` map each captured shape's key to
     its pool's memory and its capture time."""
+
+    max_sets = None
 
     def __init__(self, stages: List[Callable], finish: Callable,
                  generators: Sequence[torch.Generator] = ()):
@@ -239,7 +262,7 @@ class Staged:
         the next call of each shape runs eagerly and captures again."""
         self._sets.clear()
 
-    def own(self, objects: Tuple, version: int = 0) -> None:
+    def own(self, objects: Tuple, version: Hashable = 0) -> None:
         """Drop the graphs when they were captured for other ``objects``, or
         for another ``version`` of them: a graph reads and writes the
         addresses its capture saw."""
@@ -251,9 +274,11 @@ class Staged:
     def run(self, inputs: Dict[str, Any]):
         key = shape_key(inputs)
         with self._lock:
-            gs = self._sets.get(key)
+            gs = self._sets.pop(key, None)  # put back last: the most recently used
             new = gs is None
             if new:
+                while self.max_sets is not None and len(self._sets) >= self.max_sets:
+                    del self._sets[next(iter(self._sets))]
                 gs = _Set(inputs)
             copy_into(gs.inputs, inputs)
             if new and on_card(inputs):
@@ -261,13 +286,13 @@ class Staged:
             else:
                 out = self._finish(self._replay(gs) if gs.graphs
                                    else run_stages(gs.st, self._stages))
+            self._sets[key] = gs
             if new:
-                self._sets[key] = gs
                 self.sets += 1
             return out
 
     def _capture(self, gs: _Set):
-        dev = gs.inputs["feats"][0].device
+        dev = first_tensor(gs.inputs).device
         with side_stream(dev):
             state = run_stages(gs.st, self._stages)
         out = self._finish(state)  # on the caller's stream, like a replay's
@@ -306,6 +331,8 @@ class StagedDecode(Staged):
     exit that the reference's ``lax.while_loop`` condition gives."""
 
     def __init__(self, prologue: Callable, stages: List[Callable], finish: Callable):
+        self.parts = (prologue, stages, finish)
+
         def first(st):
             prologue(st)
             if stages:
@@ -318,7 +345,49 @@ class StagedDecode(Staged):
         return self.run({"feats": list(video_feats),
                          "masks": list(video_masks) if video_masks else None})
 
+    def fronted(self, front: Callable) -> "StagedDecode":
+        """A new runner of this decode (the same parts, so the same kernel
+        weights) whose prologue starts with ``front(st)``: a step that turns
+        the runner's own inputs into ``st["feats"]`` / ``st["masks"]`` (the
+        pixels-to-tokens program's tower), captured in the first graph, so
+        nothing goes back to the host between it and the decoder. It is
+        called through ``run`` with those inputs; its graphs and counts are
+        its own."""
+        prologue, stages, finish = self.parts
+
+        def fronted_prologue(st):
+            front(st)
+            prologue(st)
+
+        return StagedDecode(fronted_prologue, stages, finish)
+
     @property
     def runner(self) -> "StagedDecode":
         """Itself, as ``decode.make_auto_*_fn`` results name their runner."""
         return self
+
+
+class StagedModule(Staged):
+    """fn(x) -> ``module(x)`` in float32, as a one-stage ``Staged`` runner
+    under ``no_grad`` keyed on x's shape (``x`` is the input ``key``:
+    ``pixels`` for a vision tower, ``tokens`` for a text tower): on CUDA
+    tensors one CUDA graph per shape, captured after the shape's first
+    (eager) call and replayed; on CPU tensors the module itself. The result
+    is a clone. The graphs read the module's weights where their capture saw
+    them: a module whose weights moved (``.to()``, ``.half()``) drops them.
+    It keeps the ``max_sets`` shapes last used: a video's frame count, or
+    the extract CLI's last chunk of one, may take any value."""
+
+    max_sets = 4
+
+    def __init__(self, module: torch.nn.Module, key: str):
+        super().__init__([self._stage], lambda st: st["out"].clone())
+        self.module, self.key = module, key
+
+    @torch.no_grad()
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        self.own((self.module,), tuple(p.data_ptr() for p in self.module.parameters()))
+        return self.run({self.key: x})
+
+    def _stage(self, st: Dict[str, Any]) -> None:
+        st["out"] = self.module(st[self.key]).float()

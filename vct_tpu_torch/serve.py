@@ -19,7 +19,8 @@ Endpoints (stdlib ``http.server``; JSON out):
                            of one CLIP modality only, the one the tower
                            makes): frames are sampled on the host (uni_12),
                            the CLIP ViT-B/32 tower runs on the server's
-                           device, its features join the batcher's queue
+                           device (a CUDA graph per frame count), its
+                           features join the batcher's queue
 
 Run: ``python -m vct_tpu_torch.serve -c config.json -m ckpt.pth --port 8000
 [--clip_weights ViT-B-32.pt]``
@@ -94,10 +95,15 @@ class CaptionService:
 
         self.tower = None
         if clip_weights:
+            from vct_tpu_torch import graphs
             from vct_tpu_torch.cli.predict import load_clip_tower
 
-            self.tower = load_clip_tower(clip_weights, self.device)
-            # warm the tower at the default ext_type's frame count (uni_12)
+            # the tower's compiled program: a CUDA graph per frame count (the
+            # last graphs.StagedModule.max_sets used). The default ext_type's
+            # (uni_12) is captured now; another is captured at its first
+            # request, on that request's handler thread
+            self.tower = graphs.StagedModule(load_clip_tower(clip_weights, self.device),
+                                             "pixels")
             self.tower_features(torch.zeros((12, 224, 224, 3)))
 
         self.max_queue = max_queue if max_queue is not None else 8 * max_batch
@@ -152,11 +158,10 @@ class CaptionService:
             raise RuntimeError(req.error)
         return req.caption
 
-    @torch.no_grad()
     def tower_features(self, pixels: torch.Tensor) -> np.ndarray:
         """CLIP-normalized frames [T, 224, 224, 3] -> features [T, 512]
-        float32, by the tower on the server's device."""
-        return self.tower(pixels.to(self.device)).float().cpu().numpy()
+        float32, by the graphed tower on the server's device."""
+        return self.tower(pixels.to(self.device)).cpu().numpy()
 
     def caption_video(self, video_bytes: bytes, ext_type: str = "uni_12",
                       timeout: float = 120.0) -> str:
