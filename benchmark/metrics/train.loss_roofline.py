@@ -1,0 +1,30 @@
+"""The fused SCE loss's kernels against their bound (by operations): per
+train step one ``softmax_stats`` and one ``clipped_prob_stats`` (each the
+[N, E] x [E, V] product) and one ``sce_backward_tiles`` (its recomputation
+and dx), N the step's caption positions; their least time over the device
+time of their kernels in the traced window. Steps are counted by the
+backward's first kernel. Kernels: ``stats_wgmma_kernel``,
+``stats_merge_kernel``, ``bwd_dz_wgmma_kernel``, ``bwd_dx_wgmma_kernel``,
+``bwd_dx_merge_kernel`` (and the replaced ``stats_kernel``,
+``backward_kernel``). Moves ``train_samples_per_s``."""
+
+from benchlib import counts
+from benchlib.readings import launches, seconds
+
+KERNELS = ("stats_wgmma_kernel", "stats_merge_kernel", "bwd_dz_wgmma_kernel",
+           "bwd_dx_wgmma_kernel", "bwd_dx_merge_kernel", "stats_kernel", "backward_kernel")
+STEP_MARKS = ("bwd_dz_wgmma_kernel", "backward_kernel")
+
+
+def read(ctx, out):
+    trace = out.trace
+    if trace is None:
+        return None
+    steps = len(launches(trace, STEP_MARKS))
+    spent = seconds(launches(trace, KERNELS))
+    if steps == 0 or spent <= 0:
+        return None
+    d = ctx.dims
+    n_rows = out.records["batch"] * (d["max_caption_len"] - 1)
+    per_step = sum(counts.bound_s(0.0, f) for f in counts.loss_ops(d, n_rows).values())
+    return 100.0 * steps * per_step / spent
