@@ -28,6 +28,7 @@ from typing import Callable, Dict, Iterable, Iterator, List, Optional, Sequence,
 
 import torch
 
+from vct_tpu_torch import tracing
 from vct_tpu_torch.graphs import StagedDecode, run_stages, stage_bounds
 from vct_tpu_torch.ops.decode_kernels import NEG_INF, topk_first_win
 from vct_tpu_torch.parallel.mesh import (
@@ -479,10 +480,13 @@ def through_end(tokens: torch.Tensor, end_id: int, pad_id: int = 0) -> torch.Ten
 
 
 def detokenize_batch(tokenizer, tokens) -> List[str]:
-    """Token-id matrix -> caption strings (reference truncation semantics)."""
-    if isinstance(tokens, torch.Tensor):
-        tokens = tokens.cpu().numpy()
-    return [tokenizer.decode_caption(row) for row in tokens]
+    """Token-id matrix -> caption strings (reference truncation semantics);
+    a ``decode.detokenize`` span, the copy of device tokens to the host
+    included."""
+    with tracing.span("decode.detokenize"):
+        if isinstance(tokens, torch.Tensor):
+            tokens = tokens.cpu().numpy()
+        return [tokenizer.decode_caption(row) for row in tokens]
 
 
 def pipelined_map(launch: Callable, batches: Iterable, *, depth: int = 2) -> Iterator:

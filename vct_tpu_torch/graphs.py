@@ -36,6 +36,8 @@ from typing import Any, Callable, Dict, Hashable, Iterator, List, Optional, Sequ
 
 import torch
 
+from vct_tpu_torch import tracing
+
 Counter = Tuple[Callable, str]
 
 
@@ -177,14 +179,24 @@ def stage_bounds(max_len: int) -> List[Tuple[int, int, int]]:
     return bounds
 
 
-def run_stages(st: dict, stages: List[Callable]) -> dict:
+def run_stages(st: dict, stages: List[Callable], call: int = 0) -> dict:
     """``stages`` on the state ``st`` one after another, the host reading
-    ``st["all_done"]`` between two of them and stopping once it is set."""
+    ``st["all_done"]`` between two of them and stopping once it is set.
+    Each stage is a ``graph.stage`` span and each read a ``graph.sync``
+    span of the runner's ``call``."""
     for s, stage in enumerate(stages):
-        stage(st)
-        if s + 1 < len(stages) and bool(st["all_done"]):
+        with tracing.span("graph.stage", call=call, stage=s):
+            stage(st)
+        if s + 1 < len(stages) and _all_done(st, call, s):
             break
     return st
+
+
+def _all_done(st: dict, call: int, stage: int) -> bool:
+    """The host's read of ``st["all_done"]`` after ``stage``: it waits for
+    the device to finish the work enqueued so far."""
+    with tracing.span("graph.sync", call=call, stage=stage):
+        return bool(st["all_done"])
 
 
 def on_card(inputs: Dict[str, Any]) -> bool:
@@ -236,7 +248,12 @@ class Staged:
     ``sets``, ``graphs`` and ``replays`` count the shapes set up, the graphs
     captured and the replays, over the runner's life (``reset`` keeps them);
     ``pool_bytes`` and ``capture_seconds`` map each captured shape's key to
-    its pool's memory and its capture time."""
+    its pool's memory and its capture time.
+
+    Each call is a ``graph.run`` span (ids: ``call``, a new id; ``new``, 1
+    for a shape's first call; ``stages``, the runner's stage count), around
+    its ``graph.capture`` on a card's first call and each stage's
+    ``graph.stage`` and ``graph.sync`` spans (``run_stages``)."""
 
     max_sets = None
 
@@ -273,28 +290,31 @@ class Staged:
 
     def run(self, inputs: Dict[str, Any]):
         key = shape_key(inputs)
+        call = tracing.next_id()
         with self._lock:
             gs = self._sets.pop(key, None)  # put back last: the most recently used
             new = gs is None
-            if new:
-                while self.max_sets is not None and len(self._sets) >= self.max_sets:
-                    del self._sets[next(iter(self._sets))]
-                gs = _Set(inputs)
-            copy_into(gs.inputs, inputs)
-            if new and on_card(inputs):
-                out = self._capture(gs)
-            else:
-                out = self._finish(self._replay(gs) if gs.graphs
-                                   else run_stages(gs.st, self._stages))
+            with tracing.span("graph.run", call=call, new=int(new), stages=len(self._stages)):
+                if new:
+                    while self.max_sets is not None and len(self._sets) >= self.max_sets:
+                        del self._sets[next(iter(self._sets))]
+                    gs = _Set(inputs)
+                copy_into(gs.inputs, inputs)
+                if new and on_card(inputs):
+                    with tracing.span("graph.capture", call=call):
+                        out = self._capture(gs, call)
+                else:
+                    out = self._finish(self._replay(gs, call) if gs.graphs
+                                       else run_stages(gs.st, self._stages, call))
             self._sets[key] = gs
             if new:
                 self.sets += 1
             return out
 
-    def _capture(self, gs: _Set):
+    def _capture(self, gs: _Set, call: int):
         dev = first_tensor(gs.inputs).device
         with side_stream(dev):
-            state = run_stages(gs.st, self._stages)
+            state = run_stages(gs.st, self._stages, call)
         out = self._finish(state)  # on the caller's stream, like a replay's
         t0 = time.perf_counter()  # a capture is host work: it runs nothing
         pool = torch.cuda.graph_pool_handle()
@@ -311,13 +331,14 @@ class Staged:
         gs.pool_bytes = grown["bytes"]
         return out
 
-    def _replay(self, gs: _Set) -> Dict:
+    def _replay(self, gs: _Set, call: int) -> Dict:
         """The graphs replayed on the caller's stream -> the state the last
         replayed stage left."""
         for s, (graph, state) in enumerate(gs.graphs):
-            graph.replay()
+            with tracing.span("graph.stage", call=call, stage=s):
+                graph.replay()
             self.replays += 1
-            if s + 1 < len(gs.graphs) and bool(state["all_done"]):
+            if s + 1 < len(gs.graphs) and _all_done(state, call, s):
                 break
         return state
 

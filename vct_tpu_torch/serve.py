@@ -22,6 +22,19 @@ Endpoints (stdlib ``http.server``; JSON out):
                            device (a CUDA graph per frame count), its
                            features join the batcher's queue
 
+Spans (``vct_tpu_torch.tracing``): each request records ``serve.request``
+(the handler, from entry to the reply written), ``serve.parse`` (``np.load``
+and orienting the features), ``serve.queue`` (from its enqueue to its
+batch's close, recorded by the batcher) and ``serve.await`` (the handler's
+wait for its answer), all with its ``request`` id; each batch records
+``serve.batch`` (from its close until its decode is launched), within it
+``serve.collate`` (padding, stacking, the copies to the device) and the
+decode runner's ``graph.*`` spans, then ``serve.finish`` (the copy back,
+detokenizing, answering), with its ``batch`` id. ``tracing.spans()``
+returns them, ``tracing.enabled = False`` turns them off, and any
+``torch.profiler`` recording (``cli.train --profile`` included) shows the
+spans of the thread that started it on the device trace's clock.
+
 Run: ``python -m vct_tpu_torch.serve -c config.json -m ckpt.pth --port 8000
 [--clip_weights ViT-B-32.pt]``
 """
@@ -40,20 +53,24 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from vct_tpu_torch import tracing
+
 
 class ServerOverloadedError(RuntimeError):
     """The request queue is full — the caller should retry later (503)."""
 
 
 class _Request:
-    __slots__ = ("feats", "event", "caption", "error", "abandoned")
+    __slots__ = ("feats", "event", "caption", "error", "abandoned", "id", "batch", "queued_ns")
 
-    def __init__(self, feats: List[np.ndarray]):
+    def __init__(self, feats: List[np.ndarray], request: int):
         self.feats = feats  # per-modality (T, E_m) float32, already oriented
         self.event = threading.Event()
         self.caption: Optional[str] = None
         self.error: Optional[str] = None
         self.abandoned = False
+        self.id, self.batch = request, 0  # tracing ids
+        self.queued_ns = tracing.now()  # made just before its enqueue
 
 
 class CaptionService:
@@ -132,18 +149,22 @@ class CaptionService:
             raise ValueError(f"{what}: feature dim {feats.shape[1]} != model dim {e}")
         return feats
 
-    def caption_features(self, feats, timeout: float = 60.0) -> str:
-        """One video's features -> caption; blocks until served."""
+    def _prepare(self, feats) -> List[np.ndarray]:
+        """One video's features (an array, or one per modality) -> the
+        per-modality (T, E_m) float32 arrays the batcher takes."""
         shapes = self.cfg.model.modal_shape
         if not isinstance(feats, (list, tuple)):
             feats = [feats]
         if len(feats) != len(shapes):
             raise ValueError(f"model expects {len(shapes)} modalities, got {len(feats)}")
-        feats = [self._orient(f, e, f"modality {i}")
-                 for i, (f, e) in enumerate(zip(feats, shapes))]
+        return [self._orient(f, e, f"modality {i}")
+                for i, (f, e) in enumerate(zip(feats, shapes))]
+
+    def _submit(self, feats: List[np.ndarray], request: int, timeout: float = 60.0) -> str:
+        """Prepared features -> caption, through the batcher's queue."""
         if self._stop.is_set():
             raise RuntimeError("server shutting down")
-        req = _Request(feats)
+        req = _Request(feats, request)
         try:
             self._queue.put_nowait(req)
         except queue.Full:
@@ -151,12 +172,23 @@ class CaptionService:
                 self.stats["rejected"] += 1
             raise ServerOverloadedError(
                 f"request queue full ({self.max_queue} deep); retry later") from None
-        if not req.event.wait(timeout):
+        with tracing.span("serve.await", request=request):
+            answered = req.event.wait(timeout)
+        if not answered:
             req.abandoned = True
             raise TimeoutError("caption request timed out")
         if req.error:
             raise RuntimeError(req.error)
         return req.caption
+
+    def caption_features(self, feats, timeout: float = 60.0,
+                         request: Optional[int] = None) -> str:
+        """One video's features -> caption; blocks until served. ``request``
+        is its id in the spans (a new one if None)."""
+        request = tracing.next_id() if request is None else request
+        with tracing.span("serve.parse", request=request):
+            feats = self._prepare(feats)
+        return self._submit(feats, request, timeout)
 
     def tower_features(self, pixels: torch.Tensor) -> np.ndarray:
         """CLIP-normalized frames [T, 224, 224, 3] -> features [T, 512]
@@ -164,7 +196,7 @@ class CaptionService:
         return self.tower(pixels.to(self.device)).cpu().numpy()
 
     def caption_video(self, video_bytes: bytes, ext_type: str = "uni_12",
-                      timeout: float = 120.0) -> str:
+                      timeout: float = 120.0, request: Optional[int] = None) -> str:
         if self.tower is None:
             raise ValueError("server started without --clip_weights; "
                              "send features to /v1/caption instead")
@@ -178,7 +210,7 @@ class CaptionService:
             f.flush()
             frames = sample_frames(f.name, ext_type)
         feats = self.tower_features(torch.from_numpy(preprocess_frames(frames)))
-        return self.caption_features(feats, timeout=timeout)
+        return self.caption_features(feats, timeout=timeout, request=request)
 
     def close(self):
         self._stop.set()
@@ -198,18 +230,19 @@ class CaptionService:
         device errors surface here."""
         from vct_tpu_torch.decode import detokenize_batch
 
-        try:
-            captions = detokenize_batch(self.tokenizer, tokens)[:n]
-            for r, c in zip(batch, captions):
-                r.caption = c
-            self.stats["requests"] += n
-            self.stats["batches"] += 1
-        except Exception as e:  # noqa: BLE001 - reported per request
-            for r in batch:
-                r.error = f"{type(e).__name__}: {e}"
-        finally:
-            for r in batch:
-                r.event.set()
+        with tracing.span("serve.finish", batch=batch[0].batch):
+            try:
+                captions = detokenize_batch(self.tokenizer, tokens)[:n]
+                for r, c in zip(batch, captions):
+                    r.caption = c
+                self.stats["requests"] += n
+                self.stats["batches"] += 1
+            except Exception as e:  # noqa: BLE001 - reported per request
+                for r in batch:
+                    r.error = f"{type(e).__name__}: {e}"
+            finally:
+                for r in batch:
+                    r.event.set()
 
     def _launch(self, batch: List[_Request]):
         from vct_tpu_torch.data.collate import fit_time_axis
@@ -217,10 +250,11 @@ class CaptionService:
         max_t = self.cfg.tpu.max_frames
         pad = self.max_batch - len(batch)
         feats_l, masks_l = [], []
-        for m in range(len(self.cfg.model.modal_shape)):
-            fs, ms = zip(*(fit_time_axis(r.feats[m], max_t) for r in batch))
-            feats_l.append(torch.from_numpy(np.stack(fs + (fs[0],) * pad)).to(self.device))
-            masks_l.append(torch.from_numpy(np.stack(ms + (ms[0],) * pad)).to(self.device))
+        with tracing.span("serve.collate", batch=batch[0].batch):
+            for m in range(len(self.cfg.model.modal_shape)):
+                fs, ms = zip(*(fit_time_axis(r.feats[m], max_t) for r in batch))
+                feats_l.append(torch.from_numpy(np.stack(fs + (fs[0],) * pad)).to(self.device))
+                masks_l.append(torch.from_numpy(np.stack(ms + (ms[0],) * pad)).to(self.device))
         tokens, _ = self.decode_fn(feats_l, masks_l)
         return tokens
 
@@ -247,8 +281,14 @@ class CaptionService:
             batch = [r for r in batch if not r.abandoned]
             if not batch:
                 continue
+            bid = tracing.next_id()
             try:
-                tokens = self._launch(batch)
+                with tracing.span("serve.batch", batch=bid, rows=len(batch)) as closed:
+                    for r in batch:  # each request's wait ends at its batch's close
+                        r.batch = bid
+                        tracing.record("serve.queue", r.queued_ns, closed.start_ns,
+                                       request=r.id, batch=bid)
+                    tokens = self._launch(batch)
             except Exception as e:  # noqa: BLE001 - reported per request
                 for r in batch:
                     r.error = f"{type(e).__name__}: {e}"
@@ -262,6 +302,21 @@ class CaptionService:
             inflight = (batch, tokens, len(batch))
         if inflight is not None:
             self._finish(*inflight)
+
+
+def _load_features(body: bytes, modal: List[str]):
+    """A request body -> its features: an ``.npy`` array, or the ``.npz``'s
+    array of each modality (by its name, or ``modal_<i>``)."""
+    loaded = np.load(io.BytesIO(body), allow_pickle=False)
+    if not hasattr(loaded, "files"):
+        return loaded
+    feats = []
+    for i, name in enumerate(modal):
+        key = name if name in loaded.files else f"modal_{i}"
+        if key not in loaded.files:
+            raise ValueError(f"npz missing modality {name!r} (keys: {loaded.files})")
+        feats.append(loaded[key])
+    return feats
 
 
 def make_handler(service: CaptionService):
@@ -285,6 +340,11 @@ def make_handler(service: CaptionService):
                 self._reply(404, {"error": f"no route {self.path}"})
 
         def do_POST(self):
+            request = tracing.next_id()
+            with tracing.span("serve.request", request=request):
+                self._post(request)
+
+        def _post(self, request: int):
             try:
                 length = int(self.headers.get("Content-Length", 0))
             except (TypeError, ValueError):
@@ -302,20 +362,11 @@ def make_handler(service: CaptionService):
             body = self.rfile.read(length)
             try:
                 if self.path.startswith("/v1/caption_video"):
-                    caption = service.caption_video(body)
+                    caption = service.caption_video(body, request=request)
                 elif self.path.startswith("/v1/caption"):
-                    loaded = np.load(io.BytesIO(body), allow_pickle=False)
-                    if hasattr(loaded, "files"):  # .npz: one array per modality
-                        feats = []
-                        for i, name in enumerate(service.cfg.model.modal):
-                            key = name if name in loaded.files else f"modal_{i}"
-                            if key not in loaded.files:
-                                raise ValueError(f"npz missing modality {name!r} "
-                                                 f"(keys: {loaded.files})")
-                            feats.append(loaded[key])
-                    else:
-                        feats = loaded
-                    caption = service.caption_features(feats)
+                    with tracing.span("serve.parse", request=request):
+                        feats = service._prepare(_load_features(body, service.cfg.model.modal))
+                    caption = service._submit(feats, request)
                 else:
                     self._reply(404, {"error": f"no route {self.path}"})
                     return

@@ -40,6 +40,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
+from vct_tpu_torch import tracing
 from vct_tpu_torch.config import Config
 from vct_tpu_torch.convert import load_state_dict_into, load_torch_state_dict
 from vct_tpu_torch.data.collate import Batch, collate
@@ -214,8 +215,15 @@ class Trainer:
         # losses stay on the device until the epoch ends: fetching one per
         # step would stall the host on every step
         losses = []
-        for batch in self._progress(loader, f"train e{epoch}"):
-            self.state, metrics = self.train_step(self.state, self._arrays(batch))
+        batches = iter(self._progress(loader, f"train e{epoch}"))
+        while True:
+            with tracing.span("train.fetch"):
+                batch = next(batches, None)
+            if batch is None:
+                break
+            arrays = self._arrays(batch)
+            with tracing.span("train.step"):
+                self.state, metrics = self.train_step(self.state, arrays)
             losses.append(metrics["loss"])
         if not losses:
             self.step_losses = []

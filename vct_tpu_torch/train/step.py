@@ -37,7 +37,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from vct_tpu_torch import graphs
+from vct_tpu_torch import graphs, tracing
 from vct_tpu_torch.parallel.mesh import Mesh, all_reduce_max, all_reduce_sum, gather_rows
 from vct_tpu_torch.train.state import TrainState
 
@@ -325,23 +325,24 @@ def combine_eval_parts(task: str, agg: Dict[str, float], *, sce_alpha: float,
 def batch_to_arrays(batch, device: torch.device, text_encoder=None) -> Dict[str, Any]:
     """collate.Batch -> the dict of tensors on ``device`` the steps consume;
     with ``text_encoder`` (``List[str] -> [B, dim]``) also the captions' frozen
-    text features."""
+    text features. A ``data.to_device`` span."""
 
     def put(a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(device, non_blocking=True)
 
-    b = batch.feats[0].shape[0]
-    out: Dict[str, Any] = {
-        "feats": [put(f) for f in batch.feats],
-        "masks": [put(m) for m in batch.masks],
-        # leading-rows-real mask. None (not 0) means "all rows real": collate
-        # always sets n_valid >= 1, and `or b` would count filler rows if a
-        # constructor left the field at a falsy default.
-        "row_valid": put(np.arange(b) < (b if batch.n_valid is None else batch.n_valid)),
-    }
-    if batch.token_ids is not None:
-        out["token_ids"] = put(batch.token_ids)
-        out["token_mask"] = put(batch.token_mask)
-    if text_encoder is not None:
-        out["text_feat"] = text_encoder(list(batch.captions)).to(device)
-    return out
+    with tracing.span("data.to_device"):
+        b = batch.feats[0].shape[0]
+        out: Dict[str, Any] = {
+            "feats": [put(f) for f in batch.feats],
+            "masks": [put(m) for m in batch.masks],
+            # leading-rows-real mask. None (not 0) means "all rows real":
+            # collate always sets n_valid >= 1, and `or b` would count filler
+            # rows if a constructor left the field at a falsy default.
+            "row_valid": put(np.arange(b) < (b if batch.n_valid is None else batch.n_valid)),
+        }
+        if batch.token_ids is not None:
+            out["token_ids"] = put(batch.token_ids)
+            out["token_mask"] = put(batch.token_mask)
+        if text_encoder is not None:
+            out["text_feat"] = text_encoder(list(batch.captions)).to(device)
+        return out
