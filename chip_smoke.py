@@ -17,6 +17,7 @@ extraction paths once on one CUDA card.
     python3 chip_smoke.py --graphs         build, then phase 21 alone
     python3 chip_smoke.py --train-graphs   build, then phase 22 alone
     python3 chip_smoke.py --clip-graphs    build, then phase 23 alone
+    python3 chip_smoke.py --embedding      build, then phase 6b alone
     python3 chip_smoke.py --torchrun-rank OUT ARGS...
                                            phase 20's process under torchrun:
                                            cli.train's run on ARGS, its record
@@ -79,6 +80,18 @@ Phases, each of which must pass:
               plan (sce_stats_plan) against the C launcher's; the bfloat16
               backward's tensor-core route at N = 1984, 4096, 1000 and 300
               (E = 896) the same way, and its plan (sce_backward_plan)
+  6b. embedding  the token embedding's kernel pair (embed_gather,
+              embed_grad) at the train step's N = 1984 (64 captions of 31
+              positions) and the long recipe's N = 4096, V = 30522, E = 768,
+              float32 table, bfloat16: the gather bit for bit against the
+              plain expression, the gradient against the plain version (the
+              same sums by index_add_, rounded once) within one bf16 unit,
+              its pad row zero and the same bits twice; then, by graph
+              replay, the pair (forward + backward through autograd), each
+              kernel and ATen's path it replaced (weight.to(bf16)[ids] +
+              masked_fill, forward and backward), beside the pair's byte
+              bound; the plain versions by cuda_time (their boolean mask
+              reads a count on the host, so they cannot be captured)
   7. train    a synthetic MSVD-shaped dataset (features, annotations, the
               30522-entry vocab) and configs/msvd.json with only paths and
               the epoch count changed, through vct_tpu_torch.cli.train's
@@ -2722,6 +2735,83 @@ def time_loss_kernels(dev, card):
             say(f"  linear_sce_parts forward+backward N={rows} {label} route: "
                 f"{ms:.3f} ms [{card}]")
     return out, report
+
+
+# ---------------------------------------------------------------------------
+# phase 6b: the token embedding's kernel pair
+# ---------------------------------------------------------------------------
+
+
+def caption_ids(n: int, row: int, seed: int) -> torch.Tensor:
+    """[n] int32 in rows of ``row`` positions, as the train cell's batches:
+    [CLS], 4-20 words drawn from the 3,000 ids after 1000, [SEP], pads."""
+    rng = np.random.default_rng(seed)
+    ids = np.zeros(n, dtype=np.int32)
+    for r0 in range(0, n, row):
+        words = int(rng.integers(4, 21))
+        ids[r0] = 101
+        ids[r0 + 1:r0 + 1 + words] = rng.integers(1000, 4000, size=words)
+        ids[r0 + 1 + words] = 102
+    return torch.from_numpy(ids)
+
+
+def run_embedding(dev, card):
+    """Phase 6b: the pair's checks, then its rows by graph replay -> report."""
+    from vct_tpu_torch.ops import embedding_kernels as ek
+
+    dt, v, e = torch.bfloat16, 30522, 768
+    w = (torch.randn((v, e), generator=torch.Generator().manual_seed(SEED)) * 0.05).to(dev)
+    report = {}
+    for n, row in ((1984, 31), (4096, 128)):
+        ids = caption_ids(n, row, seed=n).to(dev)
+        g = torch.randn((n, e), generator=torch.Generator().manual_seed(n)).to(dev, dt)
+        g[ids == 0] = 0
+        gathered = ek.embed_gather(w, ids, 0, dt)
+        if not torch.equal(gathered, ek.embed_gather_reference(w, ids, 0, dt)):
+            fail(f"embed_gather at N={n}: not the plain expression's bits")
+        got, again = ek.embed_grad(g, ids, v, 0), ek.embed_grad(g, ids, v, 0)
+        plain = ek.embed_grad_reference(g, ids, v, 0)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again) or got[0].any():
+            fail(f"embed_grad at N={n}: two calls part, or the pad row is not zero")
+        unit = torch.exp2(torch.floor(torch.log2(plain.abs().clamp(min=1e-30))) - 7)
+        worst = float(((got - plain).abs() / unit).max())
+        if worst > 1.0:
+            fail(f"embed_grad at N={n}: {worst:.3g} bf16 units from the plain version")
+        keep = ids != 0
+        real, touched = int(keep.sum()), int(torch.unique(ids[keep]).numel())
+        # each byte the pair needs once: the gathered rows of the float32
+        # table and the bf16 rows out; the ids; the gradient rows of the
+        # non-pad positions in and the whole float32 table gradient out
+        moved = real * e * 4 + n * e * 2 + 2 * n * 4 + real * e * 2 + v * e * 4
+        bnd = bound_ms(moved, 0.0, dt)
+        wp = w.clone().requires_grad_(True)
+        tokens = ids.view(-1, row)
+        gv = g.view(-1, row, e)
+        fns = {
+            "pair": lambda: torch.autograd.grad(ek.embedding(wp, tokens, 0, dt), wp, gv),
+            "aten": lambda: torch.autograd.grad(ek.embedding_reference(wp, tokens, 0, dt), wp,
+                                                gv),
+            "gather": lambda: ek.embed_gather(w, ids, 0, dt),
+            "grad": lambda: ek.embed_grad(g, ids, v, 0)}
+        t = {k: [] for k in fns}
+        for order in (list(fns), list(fns)[::-1]):
+            for which in order:
+                t[which].append(device_time(fns[which], iters=10))
+        ms = {k: min(x) for k, x in t.items()}
+        # the plain gradient's boolean mask reads its count on the host: no capture
+        ms["plain"] = cuda_time(lambda: (ek.embed_gather_reference(w, ids, 0, dt),
+                                         ek.embed_grad_reference(g, ids, v, 0)), iters=10)
+        report[f"embedding_n{n}"] = {
+            "timer": "graph_replay", "ms": ms["pair"], "gather_ms": ms["gather"],
+            "grad_ms": ms["grad"], "plain_ms": ms["plain"], "library_ms": ms["aten"],
+            "bound_ms": bnd[0], "bound_by": bnd[1], "roofline": bnd[0] / ms["pair"],
+            "non_pad": real, "distinct_ids": touched, "max_bf16_units": worst}
+        say(f"  embedding pair N={n} ({real} non-pad, {touched} ids): {ms['pair']:.4f} ms "
+            f"(gather {ms['gather']:.4f}, grad {ms['grad']:.4f}), bound {bnd[0]:.4f} ms "
+            f"({bnd[1]}, {100 * bnd[0] / ms['pair']:.1f}%), plain {ms['plain']:.4f} (host loop), "
+            f"ATen path {ms['aten']:.4f} ms; gradient {worst:.2f} bf16 units from plain [{card}]")
+    return report
 
 
 # ---------------------------------------------------------------------------
@@ -5421,7 +5511,8 @@ def run_train_graphs(repo: Path, root: Path, long_root: Path, vocab: Path, cfg, 
         want_inside = {"fused_attention_trainable.launches": 7,
                        "fused_attention_trainable.backward_launches": 7,
                        "softmax_stats.launches": 1, "clipped_prob_stats.launches": 1,
-                       "sce_backward_tiles.launches": 1}
+                       "sce_backward_tiles.launches": 1, "embed_gather.launches": 1,
+                       "embed_grad.launches": 1}
         if inside != want_inside:
             fail(f"train graphs: the long step's graph holds {inside}, expected {want_inside}")
         after = attention_counts()
@@ -5784,6 +5875,9 @@ def main() -> int:
                                             card)))
             say(f"  phase train-graphs took {time.perf_counter() - t0:.1f} s [{card}]")
             return 0
+        if "--embedding" in sys.argv[1:]:
+            say(json.dumps(run_embedding(dev, card)))
+            return 0
         if "--clip-graphs" in sys.argv[1:]:
             t0 = time.perf_counter()
             say(json.dumps(run_clip_graphs(work, model, fw, dev, card)))
@@ -5803,6 +5897,9 @@ def main() -> int:
         say("phase loss-kernels: fused-loss kernels against their plain versions")
         loss_errs, bwd_errs = check_loss_kernels(dev)
         errs.update(loss_errs)
+        say("phase embedding: the token embedding's kernel pair against its plain versions "
+            "and ATen's path")
+        embedding_report = run_embedding(dev, card)
         say(f"phase train: vct_tpu_torch.cli.train on {TRAIN_STEPS} batches of {BATCH}, "
             f"then a resumed epoch")
         launches.update(run_training(repo, work, vocab))
@@ -5835,7 +5932,7 @@ def main() -> int:
                   **time_captions(model, fw, tm, card)}
         loss_times, loss_report = time_loss_kernels(dev, card)
         kernel_times.update(loss_times)
-        report.update(loss_report)
+        report.update(loss_report, **embedding_report)
         report.update(time_train_steps(repo, work, vocab, dev, card))
 
         say("phase attn-kernels: the attention kernels against their plain versions")

@@ -45,9 +45,11 @@ def counters() -> List[Counter]:
     """Every kernel wrapper's launch counter, as (wrapper, attribute)."""
     from vct_tpu_torch.ops import attention_kernels as ak
     from vct_tpu_torch.ops import decode_kernels as dk
+    from vct_tpu_torch.ops import embedding_kernels as ek
     from vct_tpu_torch.ops import loss_kernels as lk
 
-    fns = (*dk.WRAPPERS, *lk.WRAPPERS, ak.fused_attention, ak.fused_attention_trainable)
+    fns = (*dk.WRAPPERS, *lk.WRAPPERS, *ek.WRAPPERS, ak.fused_attention,
+           ak.fused_attention_trainable)
     return [*((fn, "launches") for fn in fns),
             (ak.fused_attention_trainable, "backward_launches")]
 

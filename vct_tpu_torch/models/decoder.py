@@ -18,6 +18,7 @@ from vct_tpu_torch.models.losses import (
     vocab_parallel_sce_parts,
 )
 from vct_tpu_torch.ops.attention import causal_bias, combine_bias, padding_bias
+from vct_tpu_torch.ops.embedding_kernels import embedding
 from vct_tpu_torch.ops.fused_loss import linear_sce_parts
 from vct_tpu_torch.parallel.mesh import copy_to_model
 
@@ -72,8 +73,7 @@ class CapDecoder(nn.Module):
 
     def embed(self, tokens: torch.Tensor) -> torch.Tensor:
         """[B, S] ids -> [B, S, E]; pad tokens embed to zero (padding_idx)."""
-        emb = self.tgt_to_emb.weight.to(self.dtype)[tokens.long()]
-        return emb.masked_fill((tokens == self.pad_id)[..., None], 0.0)
+        return embedding(self.tgt_to_emb.weight, tokens, self.pad_id, self.dtype)
 
     def memory_bias(self, memory_padding_mask: Optional[torch.Tensor]):
         if memory_padding_mask is None or self.quirk_no_memory_mask:

@@ -134,4 +134,10 @@ def load_library() -> ctypes.CDLL:
     lib.vct_attn_backward.restype = _I
     lib.vct_attn_backward_plan.argtypes = [_I] * 5 + [_IP]
     lib.vct_attn_backward_plan.restype = _I
+    lib.vct_embed_gather.argtypes = [_I, _I] + [_P] * 3 + [_I] * 4 + [_P]
+    lib.vct_embed_gather.restype = _I
+    lib.vct_embed_grad_plan.argtypes = [_I] * 3 + [_IP]
+    lib.vct_embed_grad_plan.restype = _I
+    lib.vct_embed_grad.argtypes = [_I] + [_P] * 4 + [_I] * 4 + [_P]
+    lib.vct_embed_grad.restype = _I
     return lib
