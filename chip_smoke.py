@@ -18,6 +18,17 @@ extraction paths once on one CUDA card.
     python3 chip_smoke.py --train-graphs   build, then phase 22 alone
     python3 chip_smoke.py --clip-graphs    build, then phase 23 alone
     python3 chip_smoke.py --embedding      build, then phase 6b alone
+    python3 chip_smoke.py --lfm2           build, then phase 6c alone: the
+                                           loss kernels at the LFM2 head
+                                           (E = 2048, V = 65536) and the
+                                           routed experts' kernels at the
+                                           LFM2-8B-A1B cell's shapes against
+                                           their plain versions, the
+                                           per-expert library loop and its
+                                           times, the Trainer's graphed LFM2
+                                           step and its launches
+    python3 chip_smoke.py --loss-widths    build, then the three loss kernels'
+                                           times at E = 768 and E = 2048
     python3 chip_smoke.py --torchrun-rank OUT ARGS...
                                            phase 20's process under torchrun:
                                            cli.train's run on ARGS, its record
@@ -92,6 +103,17 @@ Phases, each of which must pass:
               masked_fill, forward and backward), beside the pair's byte
               bound; the plain versions by cuda_time (their boolean mask
               reads a count on the host, so they cannot be captured)
+  6c. lfm2    the LFM2-8B-A1B cell's routed experts (2,816 tokens, 32
+              experts, top 4, hidden 2,048, expert width 1,792): moe_route
+              against its plain version (the same experts but at a 1e-5
+              tie, the plain sort of its choice exactly), each grouped
+              product against its plain version (one bf16 unit; dW 1e-5 of
+              the largest) and the per-expert torch.mm loop, their times by
+              graph replay; then the Trainer with the LFM2 caption LM at
+              small widths (LFM2_SMALL) for two epochs: the second's
+              replayed steps add 1 routing, 2 forward, 2 dX and 2 dW
+              launches per MoE layer and step, and the loss falls. Phase 6's
+              loss kernels include the LFM2 head (E = 2048, V = 65536)
   7. train    a synthetic MSVD-shaped dataset (features, annotations, the
               30522-entry vocab) and configs/msvd.json with only paths and
               the epoch count changed, through vct_tpu_torch.cli.train's
@@ -444,6 +466,7 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # the MSVD train step's loss shape: batch 64 x 31 positions, width 768
 LOSS_N, LOSS_E, LOSS_V = 1984, 768, 30522
+LFM2_HEAD = (2048, 65536)   # (E, V) of LFM2-8B-A1B's tied head
 TRAIN_STEPS, VAL_STEPS, BATCH = 20, 2, 64
 EVAL_VIDEOS = TRAIN_STEPS * BATCH // 8  # the eval phase decodes the train split's videos
 
@@ -2324,8 +2347,69 @@ def backward_err(name, got, want, dt):
     return max(dx_err[0], dbg_err[0], float(err.max())), max(dx_err[1], dbg_err[1]), off
 
 
-def check_loss_kernels(dev):
+def check_loss_shape(dev, dt, n, e, v, errs, bwd):
+    """The three loss kernels at one shape against their plain versions, and
+    the fused loss's kernel route against its chunked route; the largest
+    differences go into ``errs`` and ``bwd``."""
     from vct_tpu_torch.ops import fused_loss as fl
+    from vct_tpu_torch.ops import loss_kernels as lk
+
+    a = loss_inputs(dev, dt, n, seed=n, e=e, v=v)
+    x, w, b, lab = a["x_dt"], a["w"], a["b"], a["lab32"]
+    name = f"N={n} E={e} V={v} {str(dt).split('.')[1]}"
+    m, s, zt = lk.softmax_stats(x, w, b, lab)
+    m_r, s_r, zt_r = lk.softmax_stats_reference(x, w, b, lab)
+    lse = m_r + torch.log(s_r)
+    sa, cnt = lk.clipped_prob_stats(x, w, b, lse)
+    sa_r, cnt_r = lk.clipped_prob_stats_reference(x, w, b, lse)
+    u, cc, lt = fl._bwd_coefficients(
+        torch.tensor(0.5 / n, device=dev), torch.tensor(0.5 / n, device=dev),
+        a["keep"], a["rect"], lse, zt_r, sa_r, True)
+    bargs = (x, w, b, lse, u.contiguous(), cc.contiguous(), lt.contiguous(), lab)
+    got = lk.sce_backward_tiles(*bargs)
+    want = lk.sce_backward_tiles_reference(*bargs)
+    torch.cuda.synchronize()
+    errs["softmax_stats"] = max(
+        errs["softmax_stats"],
+        max_err(f"softmax_stats {name} lse", m + torch.log(s), lse, STAT_ATOL[dt]),
+        max_err(f"softmax_stats {name} zt", zt, zt_r, ZT_ATOL[dt]))
+    if float((zt - zt_r).abs().mean()) > STAT_ATOL[dt]:
+        fail(f"softmax_stats {name}: mean zt difference above {STAT_ATOL[dt]}")
+    errs["clipped_prob_stats"] = max(
+        errs["clipped_prob_stats"],
+        max_err(f"clipped_prob_stats {name} sa", sa, sa_r, STAT_ATOL[dt]))
+    max_err(f"clipped_prob_stats {name} cnt", cnt, cnt_r, 8.0)
+    err, rel, off = backward_err(f"sce_backward_tiles {name}", got, want, dt)
+    errs["sce_backward_tiles"] = max(errs["sce_backward_tiles"], err)
+    bwd["max_rel_err"] = max(bwd["max_rel_err"], rel)
+    bwd["dz_beyond_one_unit"] = max(bwd["dz_beyond_one_unit"], off)
+    say(f"  ok kernels {name}: dz beyond one unit in {off:.2e} of the elements")
+    # the autograd function: kernel route against the chunked route
+    for with_rce in (True, False):
+        outs = []
+        for use_kernels in (True, False):
+            leaves = [a[k].clone().requires_grad_() for k in ("x", "wg", "bg")]
+            before = [fn.launches for fn in lk.WRAPPERS]
+            parts4 = fl.linear_sce_parts(*leaves, a["labels"], a["keep"], a["rect"], dt,
+                                         2048, with_rce, use_kernels)
+            loss = 0.5 * parts4[0] / parts4[1] + 0.5 * parts4[2] / parts4[3].clamp(min=1)
+            loss.backward()
+            torch.cuda.synchronize()
+            got = [fn.launches - c for fn, c in zip(lk.WRAPPERS, before)]
+            want = [1, int(with_rce), 1] if use_kernels else [0, 0, 0]
+            if got != want:
+                fail(f"linear_sce_parts {name}: launches {got}, expected {want}")
+            outs.append(([t.detach() for t in parts4], [t.grad for t in leaves]))
+        for i, label in enumerate(("ce_sum", "ce_n", "rce_sum", "rce_n")):
+            rel_err(f"linear_sce_parts {name} {label}", outs[0][0][i], outs[1][0][i],
+                    2e-3 if dt == torch.bfloat16 else 1e-5)
+        for i, label in enumerate(("dx", "dwg", "dbg")):
+            rel_err(f"linear_sce_parts {name} rce={with_rce} {label}", outs[0][1][i],
+                    outs[1][1][i], GRAD_REL[dt])
+    say(f"  ok linear_sce_parts {name}: SCE and CE-only, both routes")
+
+
+def check_loss_kernels(dev):
     from vct_tpu_torch.ops import loss_kernels as lk
     from vct_tpu_torch.ops._build import load_library
 
@@ -2337,64 +2421,14 @@ def check_loss_kernels(dev):
     # the share of dz elements more than one unit of the compute dtype apart
     bwd = {"max_rel_err": 0.0, "dz_beyond_one_unit": 0.0}
     # N=1984 is the train step's shape; 1000 and 300 end in a ragged row tile;
-    # the widths above 768 make dx in column slabs (768 + 128)
+    # the widths above 768 make dx in column slabs (768 + 128); E=2048,
+    # V=65536 is the LFM2 caption LM's head
     for dt, n, e, v in ((torch.bfloat16, LOSS_N, LOSS_E, LOSS_V),
                         (torch.bfloat16, 1000, LOSS_E, LOSS_V),
                         (torch.float32, 300, LOSS_E, LOSS_V),
-                        (torch.bfloat16, 300, 896, 3000), (torch.float32, 300, 896, 3000)):
-        a = loss_inputs(dev, dt, n, seed=n, e=e, v=v)
-        x, w, b, lab = a["x_dt"], a["w"], a["b"], a["lab32"]
-        name = f"N={n} E={e} V={v} {str(dt).split('.')[1]}"
-        m, s, zt = lk.softmax_stats(x, w, b, lab)
-        m_r, s_r, zt_r = lk.softmax_stats_reference(x, w, b, lab)
-        lse = m_r + torch.log(s_r)
-        sa, cnt = lk.clipped_prob_stats(x, w, b, lse)
-        sa_r, cnt_r = lk.clipped_prob_stats_reference(x, w, b, lse)
-        u, cc, lt = fl._bwd_coefficients(
-            torch.tensor(0.5 / n, device=dev), torch.tensor(0.5 / n, device=dev),
-            a["keep"], a["rect"], lse, zt_r, sa_r, True)
-        bargs = (x, w, b, lse, u.contiguous(), cc.contiguous(), lt.contiguous(), lab)
-        got = lk.sce_backward_tiles(*bargs)
-        want = lk.sce_backward_tiles_reference(*bargs)
-        torch.cuda.synchronize()
-        errs["softmax_stats"] = max(
-            errs["softmax_stats"],
-            max_err(f"softmax_stats {name} lse", m + torch.log(s), lse, STAT_ATOL[dt]),
-            max_err(f"softmax_stats {name} zt", zt, zt_r, ZT_ATOL[dt]))
-        if float((zt - zt_r).abs().mean()) > STAT_ATOL[dt]:
-            fail(f"softmax_stats {name}: mean zt difference above {STAT_ATOL[dt]}")
-        errs["clipped_prob_stats"] = max(
-            errs["clipped_prob_stats"],
-            max_err(f"clipped_prob_stats {name} sa", sa, sa_r, STAT_ATOL[dt]))
-        max_err(f"clipped_prob_stats {name} cnt", cnt, cnt_r, 8.0)
-        err, rel, off = backward_err(f"sce_backward_tiles {name}", got, want, dt)
-        errs["sce_backward_tiles"] = max(errs["sce_backward_tiles"], err)
-        bwd["max_rel_err"] = max(bwd["max_rel_err"], rel)
-        bwd["dz_beyond_one_unit"] = max(bwd["dz_beyond_one_unit"], off)
-        say(f"  ok kernels {name}: dz beyond one unit in {off:.2e} of the elements")
-        # the autograd function: kernel route against the chunked route
-        for with_rce in (True, False):
-            outs = []
-            for use_kernels in (True, False):
-                leaves = [a[k].clone().requires_grad_() for k in ("x", "wg", "bg")]
-                before = [fn.launches for fn in lk.WRAPPERS]
-                parts4 = fl.linear_sce_parts(*leaves, a["labels"], a["keep"], a["rect"], dt,
-                                             2048, with_rce, use_kernels)
-                loss = 0.5 * parts4[0] / parts4[1] + 0.5 * parts4[2] / parts4[3].clamp(min=1)
-                loss.backward()
-                torch.cuda.synchronize()
-                got = [fn.launches - c for fn, c in zip(lk.WRAPPERS, before)]
-                want = [1, int(with_rce), 1] if use_kernels else [0, 0, 0]
-                if got != want:
-                    fail(f"linear_sce_parts {name}: launches {got}, expected {want}")
-                outs.append(([t.detach() for t in parts4], [t.grad for t in leaves]))
-            for i, label in enumerate(("ce_sum", "ce_n", "rce_sum", "rce_n")):
-                rel_err(f"linear_sce_parts {name} {label}", outs[0][0][i], outs[1][0][i],
-                        2e-3 if dt == torch.bfloat16 else 1e-5)
-            for i, label in enumerate(("dx", "dwg", "dbg")):
-                rel_err(f"linear_sce_parts {name} rce={with_rce} {label}", outs[0][1][i],
-                        outs[1][1][i], GRAD_REL[dt])
-        say(f"  ok linear_sce_parts {name}: SCE and CE-only, both routes")
+                        (torch.bfloat16, 300, 896, 3000), (torch.float32, 300, 896, 3000),
+                        (torch.bfloat16, LOSS_N, *LFM2_HEAD)):
+        check_loss_shape(dev, dt, n, e, v, errs, bwd)
     for name, err in check_stats_kernels(dev).items():
         errs[name] = max(errs[name], err)
     err, rel, off = check_backward_routes(dev)
@@ -2812,6 +2846,281 @@ def run_embedding(dev, card):
             f"({bnd[1]}, {100 * bnd[0] / ms['pair']:.1f}%), plain {ms['plain']:.4f} (host loop), "
             f"ATen path {ms['aten']:.4f} ms; gradient {worst:.2f} bf16 units from plain [{card}]")
     return report
+
+
+def loss_kernel_times(dev, card):
+    """``--loss-widths``: the three loss kernels by graph replay at N = 1984
+    (the train cells' caption rows) at the MSVD head (E = 768, V = 30522)
+    and the LFM2 head (E = 2048, V = 65536), each in turns with the other
+    two -> {width: {kernel: ms}}. A width the wrappers refuse is reported as
+    refused (a tree from before they took E = 2048)."""
+    from vct_tpu_torch.ops import fused_loss as fl
+    from vct_tpu_torch.ops import loss_kernels as lk
+
+    dt, out = torch.bfloat16, {}
+    for e, v in ((LOSS_E, LOSS_V), LFM2_HEAD):
+        a = loss_inputs(dev, dt, LOSS_N, seed=9, e=e, v=v)
+        x, w, b, lab = a["x_dt"], a["w"], a["b"], a["lab32"]
+        try:
+            m, s, zt = lk.softmax_stats(x, w, b, lab)
+        except ValueError as err:
+            out[f"E{e}"] = {"refused": str(err)}
+            say(f"  loss kernels at E={e}: refused ({err}) [{card}]")
+            continue
+        lse = (m + torch.log(s)).contiguous()
+        sa, _ = lk.clipped_prob_stats(x, w, b, lse)
+        g = torch.tensor(0.5 / LOSS_N, device=dev)
+        u, cc, lt = (t.contiguous() for t in fl._bwd_coefficients(
+            g, g, a["keep"], a["rect"], lse, zt, sa, True))
+        fns = {"softmax_stats": lambda: lk.softmax_stats(x, w, b, lab),
+               "clipped_prob_stats": lambda: lk.clipped_prob_stats(x, w, b, lse),
+               "sce_backward_tiles": lambda: lk.sce_backward_tiles(x, w, b, lse, u, cc, lt, lab)}
+        t = {k: [] for k in fns}
+        for order in (list(fns), list(fns)[::-1], list(fns)):
+            for k in order:
+                t[k].append(device_time(fns[k], iters=10))
+        ms = {k: min(x_) for k, x_ in t.items()}
+        one = 2.0 * LOSS_N * e * v
+        bound = {"softmax_stats": one, "clipped_prob_stats": one, "sce_backward_tiles": 2 * one}
+        out[f"E{e}"] = {k: {"ms": ms[k], "bound_ms": bound_ms(0.0, bound[k], dt)[0]} for k in ms}
+        say(f"  loss kernels at N={LOSS_N}, E={e}, V={v}: " + ", ".join(
+            f"{k} {ms[k]:.4f} ms ({100 * bound_ms(0.0, bound[k], dt)[0] / ms[k]:.1f}% of the "
+            f"bound)" for k in ms) + f" [{card}]")
+    return out
+
+
+def bf16_units(got, want) -> float:
+    """Largest distance in units of bfloat16's last place at ``want``'s
+    magnitude (floored at 2**-8 of the largest, where small values cancel)."""
+    floor = want.float().abs().max() * 2.0 ** -8
+    unit = torch.exp2(torch.floor(torch.log2(torch.maximum(want.float().abs(), floor))) - 7)
+    return float(((got.float() - want.float()).abs() / unit).max())
+
+
+def check_route(mk, route, logits, bias, k):
+    """``moe_route``'s result against ``moe_route_reference``: each token's
+    experts the same but where the k-th and (k+1)-th scores lie within 1e-5
+    (the kernel's sigmoid and PyTorch's may part in the last place), and the
+    sort of the kernel's own choice exactly the plain sort's."""
+    want = mk.moe_route_reference(logits, bias, k)
+    top = (torch.sigmoid(logits.float()) + bias).topk(k + 1, dim=1).values
+    tie = (top[:, k - 1] - top[:, k]) < 1e-5
+    if not bool(((route.idx == want.idx).all(dim=1) | tie).all()):
+        fail("moe_route: a token's experts differ from the plain version's away from a tie")
+    sorted_want = mk.route_of(route.idx, logits.shape[1])
+    for name in ("dest", "src", "offsets", "counts"):
+        if not torch.equal(getattr(route, name), getattr(sorted_want, name)):
+            fail(f"moe_route: {name} differs from the plain sort of the kernel's choice")
+
+
+def run_lfm2(dev, card):
+    """The routed experts' kernels at the LFM2-8B-A1B cell's shapes (2,816
+    tokens, 32 experts, top 4, hidden 2,048, expert width 1,792): the
+    routing and each product against its plain version and each product
+    against the library loop, then by graph replay
+    against the per-expert library loop (one ``torch.mm`` per expert over
+    offsets read once on the host, the gather by ``index_select``), both on
+    one clock; the plain versions (they read the offsets on the host) by
+    CUDA events; bounds from each needed byte once and the routed operations;
+    the whole expert block forward and backward through autograd -> report."""
+    from vct_tpu_torch.ops import moe_kernels as mk
+
+    t_, e_, k_, h_, i_ = 2816, 32, 4, 2048, 1792
+    r_ = t_ * k_
+    g = torch.Generator().manual_seed(SEED)
+    logits = (torch.randn((t_, e_), generator=g) * 1.4).to(dev)
+    bias = (torch.randn(e_, generator=g) * 0.05).to(dev)
+    bf = torch.bfloat16
+    x = torch.randn((t_, h_), generator=g).to(dev, bf)
+    w13 = (torch.randn((e_, 2 * i_, h_), generator=g) * 0.02).to(dev, bf)
+    w2 = (torch.randn((e_, h_, i_), generator=g) * 0.02).to(dev, bf)
+    gy = torch.randn((r_, h_), generator=g).to(dev, bf)
+    route = mk.moe_route(logits, bias, k_)
+    check_route(mk, route, logits, bias, k_)
+    off, src = route.offsets, route.src
+    act = mk.swiglu(mk.grouped_forward(x, w13, off, src))
+    dh = mk.swiglu_backward(mk.grouped_forward(x, w13, off, src), mk.grouped_dx(gy, w2, off))
+    bounds = {"up": (2.0 * r_ * 2 * i_ * h_, e_ * 2 * i_ * h_ * 2 + r_ * (h_ + 2 * i_) * 2),
+              "down": (2.0 * r_ * h_ * i_, e_ * h_ * i_ * 2 + r_ * (i_ + h_) * 2),
+              "d_act": (2.0 * r_ * h_ * i_, e_ * h_ * i_ * 2 + r_ * (h_ + i_) * 2),
+              "d_x": (2.0 * r_ * 2 * i_ * h_, e_ * 2 * i_ * h_ * 2 + r_ * (2 * i_ + h_) * 2),
+              "dw2": (2.0 * r_ * h_ * i_, r_ * (h_ + i_) * 2 + e_ * h_ * i_ * 4),
+              "dw13": (2.0 * r_ * 2 * i_ * h_, r_ * (2 * i_ + h_) * 2 + e_ * 2 * i_ * h_ * 4)}
+    kern = {"route": lambda: mk.moe_route(logits, bias, k_),
+            "up": lambda: mk.grouped_forward(x, w13, off, src),
+            "down": lambda: mk.grouped_forward(act, w2, off),
+            "d_act": lambda: mk.grouped_dx(gy, w2, off),
+            "d_x": lambda: mk.grouped_dx(dh, w13, off),
+            "dw2": lambda: mk.grouped_dw(gy, act, off),
+            "dw13": lambda: mk.grouped_dw(dh, x, off, src)}
+    plain = {"up": lambda: mk.grouped_forward_reference(x, w13, off, src),
+             "down": lambda: mk.grouped_forward_reference(act, w2, off),
+             "d_act": lambda: mk.grouped_dx_reference(gy, w2, off),
+             "d_x": lambda: mk.grouped_dx_reference(dh, w13, off),
+             "dw2": lambda: mk.grouped_dw_reference(gy, act, off),
+             "dw13": lambda: mk.grouped_dw_reference(dh, x, off, src),
+             "route": lambda: mk.moe_route_reference(logits, bias, k_)}
+    edges = [int(v) for v in off.tolist()]
+    src_l = src.long()
+    spans = [(e, lo, hi) for e, (lo, hi) in enumerate(zip(edges[:-1], edges[1:])) if hi > lo]
+
+    def loop(fill):
+        def run():
+            out = fill(None, None, None)
+            for e, lo, hi in spans:
+                fill(out, e, (lo, hi))
+            return out
+        return run
+
+    def mm_rows(a_of, w_of, n_out, dtype=bf):
+        def fill(out, e, rows):
+            if out is None:
+                return torch.empty((r_, n_out), dtype=dtype, device=dev)
+            lo, hi = rows
+            out[lo:hi] = torch.mm(a_of(lo, hi), w_of(e))
+        return loop(fill)
+
+    def mm_dw(a, b_of, m, n):
+        def fill(out, e, rows):
+            if out is None:
+                return torch.zeros((e_, m, n), dtype=torch.float32, device=dev)
+            lo, hi = rows
+            out[e] = torch.mm(a[lo:hi].t(), b_of(lo, hi), out_dtype=torch.float32)
+        return loop(fill)
+
+    xs = lambda lo, hi: x.index_select(0, src_l[lo:hi])   # noqa: E731
+    library = {"up": mm_rows(xs, lambda e: w13[e].t(), 2 * i_),
+               "down": mm_rows(lambda lo, hi: act[lo:hi], lambda e: w2[e].t(), h_),
+               "d_act": mm_rows(lambda lo, hi: gy[lo:hi], lambda e: w2[e], i_),
+               "d_x": mm_rows(lambda lo, hi: dh[lo:hi], lambda e: w13[e], h_),
+               "dw2": mm_dw(gy, lambda lo, hi: act[lo:hi], h_, i_),
+               "dw13": mm_dw(dh, xs, 2 * i_, h_)}
+    plain_err = {}
+    for name in library:
+        got, want = kern[name](), library[name]()
+        scale = float(want.float().abs().max())
+        err = float((got.float() - want.float()).abs().max()) / scale
+        if err > 2.0 ** -7:
+            fail(f"grouped kernel {name}: {err:.3g} of the largest from the library loop")
+        # against the plain version, which rounds at the same points: a
+        # bfloat16 product within one unit of its last place, a float32
+        # weight gradient within 1e-5 of its largest value
+        want = plain[name]()
+        if name.startswith("dw"):
+            plain_err[name] = float((got - want).abs().max()) / float(want.abs().max())
+            ok = plain_err[name] <= 1e-5
+        else:
+            plain_err[name] = bf16_units(got, want)
+            ok = plain_err[name] <= 1.0
+        if not ok:
+            fail(f"grouped kernel {name}: {plain_err[name]:.3g} from the plain version "
+                 f"({'of the largest' if name.startswith('dw') else 'bfloat16 units'})")
+    say(f"  ok moe_route and the six grouped products against their plain versions: "
+        f"{', '.join(f'{k} {v:.3g}' for k, v in plain_err.items())} (bf16 units; dw: of the "
+        f"largest) [{card}]")
+    t = {k: [] for k in kern}
+    lib = {k: [] for k in library}
+    for order in (list(kern), list(kern)[::-1]):
+        for k in order:
+            t[k].append(device_time(kern[k], iters=5))
+            if k in library:
+                lib[k].append(device_time(library[k], iters=5))
+    report = {}
+    for k in kern:
+        ms = min(t[k])
+        plain_ms = cuda_time(plain[k], iters=3)
+        row = {"timer": "graph_replay", "ms": ms, "plain_ms": plain_ms}
+        if k in plain_err:
+            row["plain_err"] = plain_err[k]
+        if k in bounds:
+            bnd = bound_ms(bounds[k][1], bounds[k][0], bf)
+            row.update(bound_ms=bnd[0], bound_by=bnd[1], roofline=bnd[0] / ms,
+                       library_ms=min(lib[k]), tflops=bounds[k][0] / ms / 1e9)
+        report[k] = row
+        say(f"  {k}: {ms:.4f} ms" + (f" ({row['tflops']:.0f} TFLOP/s, {100 * row['roofline']:.1f}"
+                                      f"% of the {row['bound_ms']:.4f} ms bound by "
+                                      f"{row['bound_by']}), library loop "
+                                      f"{row['library_ms']:.4f} ms" if k in bounds else "")
+            + f", plain {plain_ms:.4f} ms (host loop) [{card}]")
+    # the whole block forward and backward through autograd, as a train step runs it
+    w13f = w13.float().requires_grad_(True)
+    w2f = w2.float().requires_grad_(True)
+    xr = x.clone().requires_grad_(True)
+
+    def block():
+        y = mk.experts(xr, w13f, w2f, route, bf)
+        return torch.autograd.grad(y, (xr, w13f, w2f), gy)
+
+    report["block"] = {"timer": "graph_replay", "ms": device_time(block, iters=3),
+                       "bound_ms": sum(bound_ms(b[1], b[0], bf)[0] for b in bounds.values())}
+    counts = route.counts.cpu().tolist()
+    report["rows_per_expert"] = {"min": min(counts), "max": max(counts),
+                                 "tiles": sum(-(-c // 128) for c in counts)}
+    say(f"  expert block forward + backward (autograd, weights cast from float32): "
+        f"{report['block']['ms']:.4f} ms against {report['block']['bound_ms']:.4f} ms of the six "
+        f"products' bounds; rows per expert {min(counts)}-{max(counts)} [{card}]")
+    return report
+
+
+LFM2_SMALL = {   # LFM2-8B-A1B's layer pattern, routing and expert count at small widths
+    "model_type": "lfm2_moe", "hidden_size": 256, "intermediate_size": 384,
+    "moe_intermediate_size": 256, "num_hidden_layers": 6,
+    "layer_types": ["conv", "conv", "full_attention", "conv", "conv", "conv"],
+    "num_attention_heads": 4, "num_key_value_heads": 2, "num_dense_layers": 2,
+    "num_experts": 32, "num_experts_per_tok": 4, "conv_L_cache": 3, "conv_bias": False,
+    "norm_eps": 1e-5, "rope_theta": 1e6, "norm_topk_prob": True,
+    "routed_scaling_factor": 1.0, "use_expert_bias": True, "vocab_size": 30522,
+    "max_position_embeddings": 4096}
+
+
+def run_lfm2_training(repo: Path, root: Path, vocab: Path, dev) -> dict:
+    """The Trainer's epochs with the LFM2 caption LM (``LFM2_SMALL`` on the
+    MSVD recipe, bf16, Adam at 1e-3): epoch 0 takes the graphed step's first
+    call and capture; the counters are zeroed and epoch 1 replays every
+    step, which adds, per step and MoE layer, one routing, two grouped
+    forward, two dX and two dW launches. The loss is finite and falls."""
+    from vct_tpu_torch.cli.common import load_config
+    from vct_tpu_torch.ops import moe_kernels as mk
+    from vct_tpu_torch.train.loop import Trainer
+
+    cfg = json.loads(train_config(repo, root, vocab, 1).read_text())
+    cfg.update(LFM2_SMALL)
+    cfg["model"]["caption_lm"] = {}
+    cfg["train"]["optimizer"]["learning_rate"] = 1e-3
+    path = root / "lfm2_small.json"
+    path.write_text(json.dumps(cfg))
+    trainer = Trainer(load_config(str(path)), device=dev, log=lambda *_: None)
+    trainer.train_epoch(0)
+    first = list(trainer.step_losses)
+    for fn in mk.WRAPPERS:
+        fn.launches = 0
+    trainer.train_epoch(1)
+    torch.cuda.synchronize()
+    second = list(trainer.step_losses)
+    got = {fn.__name__: fn.launches for fn in mk.WRAPPERS}
+    moe = len(trainer.model.cap_decoder.moe_layers())
+    per_step = {"moe_route": moe, "grouped_forward": 2 * moe, "grouped_dx": 2 * moe,
+                "grouped_dw": 2 * moe}
+    want = {k: v * len(second) for k, v in per_step.items()}
+    runner = trainer.train_step
+    if len(first) != TRAIN_STEPS or len(second) != TRAIN_STEPS:
+        fail(f"lfm2 train: {len(first)} + {len(second)} steps, expected {TRAIN_STEPS} each")
+    if got != want:
+        fail(f"lfm2 train: MoE launches {got} over {len(second)} replayed steps, expected "
+             f"{want}")
+    if runner.graphs != 1 or runner.replays != 2 * TRAIN_STEPS - 1:
+        fail(f"lfm2 train: {runner.graphs} graphs, {runner.replays} replays; expected 1 graph "
+             f"and {2 * TRAIN_STEPS - 1} replays")
+    if not all(math.isfinite(v) for v in first + second):
+        fail("lfm2 train: a loss is not finite")
+    head, tail = sum(first[:5]) / 5, sum(second) / len(second)
+    if not tail < head:
+        fail(f"lfm2 train: the loss did not fall: first five {head}, epoch 1 {tail}")
+    say(f"  lfm2 train: {TRAIN_STEPS} + {TRAIN_STEPS} steps ({moe} MoE layers), loss "
+        f"{head:.4f} (first five) -> {tail:.4f} (epoch 1); MoE launches in epoch 1 {got}; "
+        f"{runner.graphs} graph, {runner.replays} replays")
+    return {"launches": got, "replays": runner.replays, "loss_first_five": head,
+            "loss_epoch1": tail}
 
 
 # ---------------------------------------------------------------------------
@@ -5878,6 +6187,16 @@ def main() -> int:
         if "--embedding" in sys.argv[1:]:
             say(json.dumps(run_embedding(dev, card)))
             return 0
+        if "--loss-widths" in sys.argv[1:]:
+            say(json.dumps(loss_kernel_times(dev, card)))
+            return 0
+        if "--lfm2" in sys.argv[1:]:
+            errs = {k: 0.0 for k in LOSS_REPLACES}
+            check_loss_shape(dev, torch.bfloat16, LOSS_N, *LFM2_HEAD, errs,
+                             {"max_rel_err": 0.0, "dz_beyond_one_unit": 0.0})
+            say(json.dumps({**run_lfm2(dev, card),
+                            "train": run_lfm2_training(repo, work, vocab, dev)}))
+            return 0
         if "--clip-graphs" in sys.argv[1:]:
             t0 = time.perf_counter()
             say(json.dumps(run_clip_graphs(work, model, fw, dev, card)))
@@ -5900,6 +6219,9 @@ def main() -> int:
         say("phase embedding: the token embedding's kernel pair against its plain versions "
             "and ATen's path")
         embedding_report = run_embedding(dev, card)
+        say("phase lfm2 (6c): the routed experts' kernels at the LFM2-8B-A1B cell's shapes against "
+            "their plain versions and the library loop; the Trainer's graphed LFM2 step")
+        lfm2_report = {**run_lfm2(dev, card), "train": run_lfm2_training(repo, work, vocab, dev)}
         say(f"phase train: vct_tpu_torch.cli.train on {TRAIN_STEPS} batches of {BATCH}, "
             f"then a resumed epoch")
         launches.update(run_training(repo, work, vocab))
@@ -5932,7 +6254,7 @@ def main() -> int:
                   **time_captions(model, fw, tm, card)}
         loss_times, loss_report = time_loss_kernels(dev, card)
         kernel_times.update(loss_times)
-        report.update(loss_report, **embedding_report)
+        report.update(loss_report, **embedding_report, lfm2=lfm2_report)
         report.update(time_train_steps(repo, work, vocab, dev, card))
 
         say("phase attn-kernels: the attention kernels against their plain versions")

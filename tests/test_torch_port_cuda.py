@@ -556,7 +556,7 @@ def test_loss_wrappers_reject_bad_layouts(cuda):
         lk._launch_softmax_stats(x.float(), w.float(), b.float(), labels, _route=1)
     with pytest.raises(ValueError, match="is on cpu"):
         lk.clipped_prob_stats(x, w, b.cpu(), torch.zeros(LN, device=cuda))
-    wide = torch.zeros((LN, lk.MAX_E + 128), dtype=torch.bfloat16, device=cuda)
+    wide = torch.zeros((LN, lk.MAX_E_BF16 + 128), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="at most"):
         lk.softmax_stats(wide, torch.zeros((512, wide.shape[1]), dtype=torch.bfloat16,
                                            device=cuda), b[:512].contiguous(), labels)

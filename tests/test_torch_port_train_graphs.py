@@ -409,3 +409,36 @@ def test_fixed_temperature_is_made_once_per_device(monkeypatch):
     monkeypatch.undo()
     want = tm.pl.clip_symmetric_loss(video, text, torch.tensor([0.2]))
     torch.testing.assert_close(first, want, rtol=0, atol=0)
+
+
+def test_capture_keeps_the_garbage_collector_off_while_it_captures(monkeypatch):
+    """``graphs.capture`` keeps the garbage collector off from the capture's
+    start to its end, so a collection cannot destroy an older graph inside a
+    capture (which the card refuses); the collector is on again after, also
+    when the captured function raises."""
+    import gc
+
+    seen = []
+
+    class FakeGraph:
+        def register_generator_state(self, gen):
+            pass
+
+        def capture_begin(self, **kw):
+            seen.append(("begin", gc.isenabled()))
+
+        def capture_end(self):
+            seen.append(("end", gc.isenabled()))
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", FakeGraph)
+    assert gc.isenabled()
+    _, out = graphs.capture(lambda: seen.append(("fn", gc.isenabled())) or 7, pool=None)
+    assert out == 7 and seen == [("begin", False), ("fn", False), ("end", False)]
+    assert gc.isenabled()
+
+    def boom():
+        raise ValueError("inside the capture")
+
+    with pytest.raises(ValueError):
+        graphs.capture(boom, pool=None)
+    assert gc.isenabled()

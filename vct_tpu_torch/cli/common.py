@@ -16,6 +16,7 @@ from vct_tpu_torch import config as _config
 from vct_tpu_torch.config import Config
 from vct_tpu_torch.text.tokenizer import make_tokenizer
 from vct_tpu_torch.convert import load_state_dict_into, load_torch_state_dict
+from vct_tpu_torch.models.lfm2 import caption_lm_config
 from vct_tpu_torch.models.mmt4caption import DTYPES, MMT4Caption
 
 
@@ -73,7 +74,8 @@ def make_trainer_pieces(cfg: Config, device: torch.device, *, seed=None):
             or model_cfg.pad_id != tokenizer.pad_id):
         model_cfg = dataclasses.replace(model_cfg, vocab_size=tokenizer.vocab_size,
                                         pad_id=tokenizer.pad_id)
-    model = MMT4Caption(model_cfg, cfg.tpu, dtype=DTYPES[cfg.tpu.dtype], device=device)
+    model = MMT4Caption(model_cfg, cfg.tpu, dtype=DTYPES[cfg.tpu.dtype], device=device,
+                        caption_lm=caption_lm_config(cfg.raw))
     gen = torch.Generator().manual_seed(cfg.tpu.seed if seed is None else seed)
     model.init_weights(gen).eval()
     return model, tokenizer

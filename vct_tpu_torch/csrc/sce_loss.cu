@@ -1216,8 +1216,8 @@ bwd_dx_merge_kernel(const float* parts, float* dx, int count4, int groups, size_
 // row tile walks the whole vocab: 1 slab of TILE_V columns at a time).
 // Route -1, what the package's wrappers pass, takes route 1 for bfloat16 and
 // route 0 for float32. Every width the wrappers admit (multiples of 128 up to
-// 1664) fits route 1, which streams x as it streams the weight, so no shape
-// of bfloat16 goes to route 0 by the rule.
+// 1664 in float32, 2048 in bfloat16) fits route 1, which streams x as it
+// streams the weight, so no shape of bfloat16 goes to route 0 by the rule.
 
 struct StatsPlan {
   int route, bm, bn, bk, stages, smem, row_tiles, slabs, grid;

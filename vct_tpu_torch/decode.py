@@ -18,6 +18,11 @@ is split by vocab (tensor parallelism) decodes on the module path: greedy
 merges the shards' (max, argmax) with ties to the lowest vocab index, beam
 search the shards' top-k with the same rule, and the log-softmax takes its
 normaliser from every shard.
+
+A model with the LFM2 caption LM (``model.caption_lm``, ``models/lfm2.py``)
+decodes greedily on its own eager loop (``lm_greedy_generate``: one prefill
+of the video prefix and the start token, then a token at a time through its
+cache); beam search and the fused routes refuse it (``refuse_caption_lm``).
 """
 
 from __future__ import annotations
@@ -105,6 +110,53 @@ def _sharded_topk(model, cand: torch.Tensor, k: int):
                       gather_shards(whole.double(), 1, tp).long(), k)
 
 
+def has_caption_lm(model) -> bool:
+    return getattr(model, "caption_lm", None) is not None
+
+
+def refuse_caption_lm(model, what: str) -> None:
+    """Raise if ``model`` carries the LFM2 caption LM, which ``what`` does
+    not run."""
+    if has_caption_lm(model):
+        raise ValueError(f"{what} does not run the LFM2 caption LM (model.caption_lm): it "
+                         f"decodes greedily, eagerly (decode.make_auto_greedy_fn)")
+
+
+@torch.no_grad()
+def lm_greedy_generate(model, video_feats: Sequence[torch.Tensor],
+                       video_masks: Optional[Sequence[torch.Tensor]], *, max_len: int = 30,
+                       start_id: int = 101, end_id: int = 102, pad_id: Optional[int] = None,
+                       collect_attn: bool = False):
+    """Greedy decode of the LFM2 caption LM -> (tokens [B, max_len] int32,
+    None), eagerly: the encoder, one prefill (``lm.prefill``), then one
+    token at a time through the LM's cache (``lm.decode``), with the module
+    path's rule for finished rows and its early exit checked once per 8
+    tokens."""
+    if collect_attn:
+        raise ValueError("the LFM2 caption LM (model.caption_lm) keeps no attention maps")
+    pad_id = model.config.pad_id if pad_id is None else pad_id
+    memory, mem_mask, _ = model.encode(list(video_feats),
+                                       list(video_masks) if video_masks else None)
+    lm = model.cap_decoder
+    b = memory.shape[0]
+    tokens = torch.full((b, max_len), pad_id, dtype=torch.int32, device=memory.device)
+    tokens[:, 0] = start_id
+    done = torch.zeros((b,), dtype=torch.bool, device=memory.device)
+    all_done = torch.zeros((), dtype=torch.bool, device=memory.device)
+    with tracing.span("lm.prefill"):
+        logits, cache = lm.prefill(memory, mem_mask, tokens[:, 0], max_len)
+    with tracing.span("lm.decode"):
+        for i in range(max_len - 1):
+            nxt = torch.where(all_done, pad_id, logits.argmax(dim=-1).to(torch.int32))
+            tokens[:, i + 1] = nxt
+            done |= nxt == end_id
+            all_done = done.all()
+            if i + 2 == max_len or (i % 8 == 7 and bool(all_done)):
+                break
+            logits, cache = lm.decode_step(tokens[:, i + 1], cache)
+    return tokens, None
+
+
 def _greedy_start(model, st: dict, *, max_len: int, start_id: int, pad_id: int,
                   collect_attn: bool) -> None:
     """The module path's greedy state in ``st``, beside its inputs
@@ -169,6 +221,10 @@ def greedy_generate(model, video_feats: Sequence[torch.Tensor],
     """The module path -> (tokens [B, max_len] int32, attn or None); attn is
     [max_len-1, num_layers, B, T_mem] cross-attention per generated token.
     Eager: the stages that ``make_greedy_fn`` captures, run in turn."""
+    if has_caption_lm(model):
+        return lm_greedy_generate(model, video_feats, video_masks, max_len=max_len,
+                                  start_id=start_id, end_id=end_id, pad_id=pad_id,
+                                  collect_attn=collect_attn)
     prologue, stages = _greedy_parts(model, max_len, start_id, end_id,
                                      model.config.pad_id if pad_id is None else pad_id,
                                      collect_attn)
@@ -187,8 +243,9 @@ def make_greedy_fn(model, max_len: int, start_id: int, end_id: int,
     captured once per input shape and replayed, with ``greedy_generate``'s
     tokens and attention bit for bit; ``attn`` lives in a static buffer and
     is cloned at the finish. A model whose weights tensor parallelism split
-    decodes eagerly (its collectives are not captured)."""
-    if _is_split(model):
+    decodes eagerly (its collectives are not captured), and so does the
+    LFM2 caption LM (``lm_greedy_generate``)."""
+    if _is_split(model) or has_caption_lm(model):
         return functools.partial(greedy_generate, model, max_len=max_len, start_id=start_id,
                                  end_id=end_id, collect_attn=collect_attn)
 
@@ -235,8 +292,11 @@ def make_auto_greedy_fn(model, max_len: int, start_id: int, end_id: int,
     has no runner. The kernel weights are extracted once, at the first call:
     load the checkpoint before decoding. With a ``mesh`` each data rank
     decodes its rows (the batch must divide; each rank captures its rows'
-    shape) and every rank gets the whole batch's tokens."""
-    if collect_attn or not model.tpu.use_pallas_attention or _is_split(model):
+    shape) and every rank gets the whole batch's tokens. The LFM2 caption LM
+    decodes eagerly on its own loop (``lm_greedy_generate``), with no
+    runner."""
+    if (collect_attn or not model.tpu.use_pallas_attention or _is_split(model)
+            or has_caption_lm(model)):
         return _graphed(make_greedy_fn(model, max_len, start_id, end_id,
                                        collect_attn=collect_attn), mesh, 2)
 
@@ -395,6 +455,7 @@ def beam_generate(model, video_feats: Sequence[torch.Tensor],
     [PAD] at zero cost: scores, lengths and the tokens up to there do not
     change, and the positions past them hold [PAD] either way. Eager: the
     stages that ``make_beam_fn`` captures, run in turn."""
+    refuse_caption_lm(model, "beam search")
     prologue, stages, finish = _beam_parts(model, max_len, start_id, end_id, beam_size,
                                            length_penalty, pad_id)
     st = _inputs(video_feats, video_masks)
@@ -410,6 +471,7 @@ def make_beam_fn(model, max_len: int, start_id: int, end_id: int, beam_size: int
     CUDA tensors CUDA graphs captured once per input shape and replayed, with
     ``beam_generate``'s tokens and scores bit for bit. A model whose weights
     tensor parallelism split searches eagerly."""
+    refuse_caption_lm(model, "beam search")
     if _is_split(model):
         return functools.partial(beam_generate, model, beam_size=beam_size, max_len=max_len,
                                  start_id=start_id, end_id=end_id,

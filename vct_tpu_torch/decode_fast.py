@@ -32,6 +32,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from vct_tpu_torch import graphs
+from vct_tpu_torch.decode import refuse_caption_lm
 from vct_tpu_torch.ops.decode_kernels import (
     NEG_INF,
     SEQUENCE_MAX_B,
@@ -476,6 +477,7 @@ def make_fused_beam_fn(model, max_len: int, start_id: int, end_id: int, beam_siz
     shape and replayed, with ``beam_generate_fused``'s tokens and scores bit
     for bit. The kernel weights are extracted at the first call. On a card a
     beam wider than the top-k kernel carries raises ``ValueError``."""
+    refuse_caption_lm(model, "the fused beam decode")
     pad_id = model.config.pad_id
     weights = {"fw": None}
     kw = dict(beam_size=beam_size, end_id=end_id, pad_id=pad_id)
@@ -517,6 +519,7 @@ def make_fused_greedy_fn(model, max_len: int, start_id: int, end_id: int) -> Cal
     bit. The route follows the rows as there: the whole-step kernel at B <=
     64, the stack + argmax kernels above. The kernel weights are extracted at
     the first call."""
+    refuse_caption_lm(model, "the fused greedy decode")
     pad_id = model.config.pad_id
     weights = {"fw": None}
     kw = dict(end_id=end_id, pad_id=pad_id)

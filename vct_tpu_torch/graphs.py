@@ -30,6 +30,7 @@ capture raises, and nothing falls back to an eager run.
 from __future__ import annotations
 
 import contextlib
+import gc
 import threading
 import time
 from typing import Any, Callable, Dict, Hashable, Iterator, List, Optional, Sequence, Tuple
@@ -47,8 +48,9 @@ def counters() -> List[Counter]:
     from vct_tpu_torch.ops import decode_kernels as dk
     from vct_tpu_torch.ops import embedding_kernels as ek
     from vct_tpu_torch.ops import loss_kernels as lk
+    from vct_tpu_torch.ops import moe_kernels as mk
 
-    fns = (*dk.WRAPPERS, *lk.WRAPPERS, *ek.WRAPPERS, ak.fused_attention,
+    fns = (*dk.WRAPPERS, *lk.WRAPPERS, *ek.WRAPPERS, *mk.WRAPPERS, ak.fused_attention,
            ak.fused_attention_trainable)
     return [*((fn, "launches") for fn in fns),
             (ak.fused_attention_trainable, "backward_launches")]
@@ -77,23 +79,31 @@ def capture(fn: Callable[[], Any], *, pool, generators: Sequence[torch.Generator
     legacy default one) into the memory ``pool`` -> (the graph, what ``fn``
     returned: tensors the replays overwrite). ``generators`` are the CUDA
     generators ``fn`` draws from besides the default one. A failed capture
-    raises its own error."""
+    raises its own error. The garbage collector is off while it captures:
+    a collection there may destroy an unreachable older graph, which the
+    card refuses during a capture, and the capture is then invalid (it
+    collects after, when it next runs)."""
     before = read_counts()
     graph = torch.cuda.CUDAGraph()
     for gen in generators:
         graph.register_generator_state(gen)
-    # thread-local: the server's handler threads go on using the card while
-    # one of them captures
-    graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+    collecting = gc.isenabled()
+    gc.disable()
     try:
-        out = fn()
-    except BaseException:
-        with contextlib.suppress(Exception):  # the capture is invalid: fn's error counts
+        # thread-local: the server's handler threads go on using the card while
+        # one of them captures
+        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+        try:
+            out = fn()
+        except BaseException:
+            with contextlib.suppress(Exception):  # the capture is invalid: fn's error counts
+                graph.capture_end()
+            raise
+        else:
             graph.capture_end()
-        raise
-    else:
-        graph.capture_end()
     finally:
+        if collecting:
+            gc.enable()
         after = read_counts()
         for (owner, attr), n in before.items():
             setattr(owner, attr, n)

@@ -1,5 +1,6 @@
 """MMT4Caption (port of ``vct_tpu/models/mmt4caption.py``): a video encoder
-(MME, HMME or SimpleSep by ``video_encoder.type``), the caption decoder and,
+(MME, HMME or SimpleSep by ``video_encoder.type``), the caption decoder (or,
+given ``caption_lm``, the LFM2 caption LM of ``models/lfm2.py`` in its place) and,
 when ``model.matching`` is configured, the matching head, built eagerly as
 the reference builds it (its checkpoints carry ``matching.*`` whatever the
 task). Task forwards: ``caption_loss`` / ``caption_loss_parts`` /
@@ -23,6 +24,7 @@ from vct_tpu_torch.config import ModelConfig, TPUConfig
 from vct_tpu_torch.models.decoder import CapDecoder
 from vct_tpu_torch.models.encoder import HMMEncoder, MultiModalEncoder, SimpleSepEncoder
 from vct_tpu_torch.models.layers import DropoutRng
+from vct_tpu_torch.models.lfm2 import LMConfig, Lfm2CaptionLM
 from vct_tpu_torch.models.matching import Matching
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -40,7 +42,8 @@ def text_encoder_dim(text_enc_type: str) -> int:
 
 class MMT4Caption(nn.Module):
     def __init__(self, config: ModelConfig, tpu: TPUConfig = TPUConfig(), *,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, device=None,
+                 caption_lm: Optional[LMConfig] = None):
         super().__init__()
         self.config, self.tpu, self.dtype = config, tpu, dtype
         ve, cd = config.video_encoder, config.caption_decoder
@@ -64,15 +67,22 @@ class MMT4Caption(nn.Module):
             else:
                 self.video_encoder = MultiModalEncoder(
                     *args, num_encoder_layers=int(ve.layer), **front, **common)
-        self.cap_decoder = CapDecoder(
-            cd.layer, config.embed_dim, cd.nhead, cd.feedforward,
-            config.vocab_size, pad_id=config.pad_id,
-            activation=config.activation,
-            quirk_no_memory_mask=tpu.quirk_no_memory_mask_in_decoder,
-            dropout_rate=config.dropout, rng=self.dropout_rng,
-            sce_loss_alpha=cd.sce_loss_alpha, use_fused_loss=tpu.use_fused_loss,
-            fused_loss_kernels=tpu.fused_loss_pallas,
-            use_kernels=tpu.use_pallas_attention, dtype=dtype, device=device)
+        if caption_lm is not None:
+            self.cap_decoder = Lfm2CaptionLM(
+                caption_lm, config.embed_dim, config.vocab_size, pad_id=config.pad_id,
+                sce_loss_alpha=cd.sce_loss_alpha, use_fused_loss=tpu.use_fused_loss,
+                fused_loss_kernels=tpu.fused_loss_pallas, dtype=dtype, device=device)
+        else:
+            self.cap_decoder = CapDecoder(
+                cd.layer, config.embed_dim, cd.nhead, cd.feedforward,
+                config.vocab_size, pad_id=config.pad_id,
+                activation=config.activation,
+                quirk_no_memory_mask=tpu.quirk_no_memory_mask_in_decoder,
+                dropout_rate=config.dropout, rng=self.dropout_rng,
+                sce_loss_alpha=cd.sce_loss_alpha, use_fused_loss=tpu.use_fused_loss,
+                fused_loss_kernels=tpu.fused_loss_pallas,
+                use_kernels=tpu.use_pallas_attention, dtype=dtype, device=device)
+        self.caption_lm = caption_lm
         self.matching = None
         if config.matching is not None:
             m = config.matching
@@ -91,8 +101,12 @@ class MMT4Caption(nn.Module):
         drawn on the host and copied, so a seed gives the same weights on
         every device). Xavier-uniform matrices, LeCun-normal vocab
         projection, N(0, 1) embeddings, zero biases, unit LayerNorms and
-        matching temperature."""
+        matching temperature; an LFM2 caption LM draws its own
+        (``Lfm2CaptionLM.init_weights``) after the rest."""
+        lm = self.caption_lm is not None
         for name, p in self.named_parameters():
+            if lm and name.startswith("cap_decoder."):
+                continue
             leaf = name.rsplit(".", 1)[-1]
             parent = self.get_submodule(name.rsplit(".", 1)[0])
             if isinstance(parent, nn.LayerNorm):
@@ -110,6 +124,8 @@ class MMT4Caption(nn.Module):
                 a = math.sqrt(6.0 / (fan_in + fan_out))
                 val = (torch.rand(p.shape, generator=generator) * 2 - 1) * a
             p.copy_(val.to(p.dtype))
+        if lm:
+            self.cap_decoder.init_weights(generator)
         return self
 
     @torch.no_grad()
@@ -122,8 +138,10 @@ class MMT4Caption(nn.Module):
                 continue
             for name, p in mod.named_parameters(recurse=False):
                 p.data = p.data.to(self.dtype)
+            keep = getattr(mod, "KEEP_FLOAT32", ())
             for name, b in mod.named_buffers(recurse=False):
-                setattr(mod, name, b.to(self.dtype))
+                if name not in keep:
+                    setattr(mod, name, b.to(self.dtype))
         return self
 
     # ---- task forwards -------------------------------------------------------

@@ -140,4 +140,10 @@ def load_library() -> ctypes.CDLL:
     lib.vct_embed_grad_plan.restype = _I
     lib.vct_embed_grad.argtypes = [_I] + [_P] * 4 + [_I] * 4 + [_P]
     lib.vct_embed_grad.restype = _I
+    lib.vct_moe_route_smem.argtypes = [_I] * 3
+    lib.vct_moe_route_smem.restype = _I
+    lib.vct_moe_route.argtypes = [_P, _P] + [_I] * 3 + [_P] * 6
+    lib.vct_moe_route.restype = _I
+    lib.vct_grouped_gemm.argtypes = [_I] + [_P] * 6 + [_I] * 5 + [_P]
+    lib.vct_grouped_gemm.restype = _I
     return lib

@@ -55,8 +55,17 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 def embedding_reference(weight: torch.Tensor, tokens: torch.Tensor, pad_id: int,
                         dtype: torch.dtype) -> torch.Tensor:
-    """[...] ids -> [..., E] in ``dtype``; pad tokens embed to zero."""
-    emb = weight.to(dtype)[tokens.long()]
+    """[...] ids -> [..., E] in ``dtype``; pad tokens embed to zero. A
+    float32 table's rows are taken by ``index_select``: the same values,
+    and a gradient that adds each position's row in ascending order
+    (``index_add_``), where indexing's (``index_put_`` with accumulate) adds
+    float32 rows with atomics in no fixed order on the host from 32,768
+    elements and more than one thread; in other dtypes it adds in order."""
+    w = weight.to(dtype)
+    if w.dtype == torch.float32:
+        emb = w.index_select(0, tokens.reshape(-1).long()).view(*tokens.shape, w.shape[1])
+    else:
+        emb = w[tokens.long()]
     return emb.masked_fill((tokens == pad_id)[..., None], 0.0)
 
 

@@ -57,6 +57,11 @@ EPS = 1e-7
 BLOCK_V = 512   # vocab tile of the plain versions and the backward: fixes the order of its sums
 SLAB_V = 256    # vocab columns of a slab of the tensor-core statistics kernel (ST_BN)
 MAX_E = 1664    # widest row tile of x that fits a block's shared memory (backward, float32)
+# bfloat16: the tensor-core kernels stream x through their ring, so the row
+# tile sets no limit there; the widest measured on the card (the LFM2 caption
+# LM). The replaced row-tile kernels (``_route=0``, and the backward past
+# ``BWD_MAX_N`` rows) refuse what does not fit their shared memory.
+MAX_E_BF16 = 2048
 ROW_TILE = {torch.bfloat16: 32, torch.float32: 16}  # Cfg<T>::BM in csrc/sce_loss.cu
 H100_SMS = 132
 BWD_MAX_N = 16384  # rows of the tensor-core backward's plan (BWD_MAX_N in csrc/sce_loss.cu)
@@ -347,9 +352,10 @@ def _check_common(x, w, b, rows):
         raise TypeError(f"x has dtype {x.dtype}; kernels take float32 or bfloat16")
     n, e = x.shape
     v = w.shape[0]
-    if e % 128 or e > MAX_E:
-        raise ValueError(f"width {e} must be a multiple of 128 and at most {MAX_E} (the "
-                         f"kernels keep a row tile of x in shared memory)")
+    cap = MAX_E_BF16 if x.dtype == torch.bfloat16 else MAX_E
+    if e % 128 or e > cap:
+        raise ValueError(f"width {e} must be a multiple of 128 and at most {cap} in {x.dtype} "
+                         f"(float32's kernels keep a row tile of x in shared memory)")
     if n < 1 or v < 1:
         raise ValueError(f"no rows (N={n}, vocab {v})")
     dev = x.device

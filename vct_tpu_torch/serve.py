@@ -84,10 +84,15 @@ class CaptionService:
                  max_body_bytes: int = 64 * 1024 * 1024, log=print):
         from vct_tpu_torch.cli.common import load_checkpoint_into, make_trainer_pieces
         from vct_tpu_torch.decode import make_auto_beam_fn, make_auto_greedy_fn
+        from vct_tpu_torch.models.lfm2 import caption_lm_config
 
         self.cfg, self.log, self.device = cfg, log, torch.device(device)
         self.max_batch = max_batch
         self.batch_timeout = batch_timeout_ms / 1000.0
+        if caption_lm_config(cfg.raw) is not None:
+            raise ValueError("the caption server does not run the LFM2 caption LM "
+                             "(model.caption_lm): it decodes greedily, eagerly "
+                             "(decode.make_auto_greedy_fn, cli.eval)")
         self.model, self.tokenizer = make_trainer_pieces(cfg, self.device)
         load_checkpoint_into(self.model, ckpt_path, log=log)
         self.model.to_compute_dtype()

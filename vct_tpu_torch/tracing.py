@@ -24,7 +24,9 @@ The spans, where they are recorded: ``serve.request`` / ``serve.parse`` /
 ``graph.stage`` / ``graph.sync`` (``graphs.Staged``), ``data.to_device``
 (``train.step.batch_to_arrays``), ``decode.detokenize``
 (``decode.detokenize_batch``), ``train.fetch`` / ``train.step``
-(``Trainer.train_epoch``).
+(``Trainer.train_epoch``), ``moe.layer`` (an LFM2 MoE layer's call outside a
+graph capture, ``models/lfm2.py``), ``lm.prefill`` / ``lm.decode``
+(``decode.lm_greedy_generate``).
 """
 
 from __future__ import annotations

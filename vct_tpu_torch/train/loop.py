@@ -52,6 +52,7 @@ from vct_tpu_torch.decode import (
     pipelined_map,
 )
 from vct_tpu_torch.evalcap.scorer import COCOScorer, make_coco_sample
+from vct_tpu_torch.models.lfm2 import caption_lm_config
 from vct_tpu_torch.models.mmt4caption import DTYPES, MMT4Caption
 from vct_tpu_torch.parallel.mesh import (
     Mesh,
@@ -138,7 +139,12 @@ class Trainer:
             self.log("model-axis > 1: the fused LM-head loss is off; the loss is taken "
                      "from vocab-sharded logits")
             tpu_cfg = dataclasses.replace(tpu_cfg, use_fused_loss=False)
-        self.model = MMT4Caption(model_cfg, tpu_cfg, dtype=DTYPES[cfg.tpu.dtype])
+        caption_lm = caption_lm_config(cfg.raw)
+        if caption_lm is not None and (self.mesh.model > 1 or cfg.model.caption_decoder.univl):
+            raise ValueError("model.caption_lm: the LFM2 caption LM takes neither tensor "
+                             "parallelism (tpu.mesh_model) nor a UniVL decoder")
+        self.model = MMT4Caption(model_cfg, tpu_cfg, dtype=DTYPES[cfg.tpu.dtype],
+                                 caption_lm=caption_lm)
         self.model.init_weights(torch.Generator().manual_seed(cfg.tpu.seed))
         self.model.to(device)
         if cfg.model.caption_decoder.univl:
