@@ -27,6 +27,15 @@ extraction paths once on one CUDA card.
                                            per-expert library loop and its
                                            times, the Trainer's graphed LFM2
                                            step and its launches
+    python3 chip_smoke.py --adam           build, then phase 6d alone: the
+                                           one-pass Adam update at the MSVD
+                                           recipe's and the LFM2-8B-A1B cell's
+                                           parameter lists against the
+                                           capturable multi-tensor update it
+                                           replaced, its plain version and
+                                           torch's fused Adam, by graph replay;
+                                           the graphed MSVD step's peak memory
+                                           with either update
     python3 chip_smoke.py --loss-widths    build, then the three loss kernels'
                                            times at E = 768 and E = 2048
     python3 chip_smoke.py --torchrun-rank OUT ARGS...
@@ -112,8 +121,20 @@ Phases, each of which must pass:
               graph replay; then the Trainer with the LFM2 caption LM at
               small widths (LFM2_SMALL) for two epochs: the second's
               replayed steps add 1 routing, 2 forward, 2 dX and 2 dW
-              launches per MoE layer and step, and the loss falls. Phase 6's
+              launches per MoE layer and step and one adam_update over
+              every trainable element a step, and the loss falls. Phase 6's
               loss kernels include the LFM2 head (E = 2048, V = 65536)
+  6d. adam    the one-pass Adam update (adam_update) over the trainable
+              parameters of the MSVD recipe (75 tensors, 76.5 M elements)
+              and of the LFM2-8B-A1B cell (71 tensors, 1.73 B), float32:
+              one step against torch's capturable multi-tensor Adam within
+              4 ulp at the step's scale, then by graph replay, on one clock,
+              the kernel, the multi-tensor update it replaced (and the
+              names of that update's broadcasting elementwise kernels in a
+              profile), its plain version and torch's fused Adam, beside
+              the 28-bytes-a-parameter bound; the graphed MSVD train step's
+              peak memory with the replaced update and with the kernel, whose
+              three steps count 3 launches over every trainable element
   7. train    a synthetic MSVD-shaped dataset (features, annotations, the
               30522-entry vocab) and configs/msvd.json with only paths and
               the epoch count changed, through vct_tpu_torch.cli.train's
@@ -3073,14 +3094,205 @@ LFM2_SMALL = {   # LFM2-8B-A1B's layer pattern, routing and expert count at smal
     "max_position_embeddings": 4096}
 
 
+LFM2_CELL = {**LFM2_SMALL,   # the LFM2-8B-A1B cell's published widths, 6 layers
+             "hidden_size": 2048, "intermediate_size": 7168, "moe_intermediate_size": 1792,
+             "num_attention_heads": 32, "num_key_value_heads": 8, "vocab_size": 65536}
+ADAM_BYTES = 28   # p, g, m, v read and p, m, v written, float32
+
+
+def trainable_shapes(repo: Path, root: Path, vocab: Path, lm: dict | None = None,
+                     vocab_size: int = 30522) -> list:
+    """The caption task's trainable parameter shapes of configs/msvd.json
+    (with the caption LM ``lm`` when given), from the model on the meta
+    device."""
+    from vct_tpu_torch.cli.common import load_config
+    from vct_tpu_torch.models.lfm2 import caption_lm_config
+    from vct_tpu_torch.models.mmt4caption import MMT4Caption
+    from vct_tpu_torch.train.optimizers import freeze_labels
+
+    cfg = json.loads(train_config(repo, root, vocab, 1).read_text())
+    if lm is not None:
+        cfg.update(lm)
+        cfg["model"]["caption_lm"] = {}
+    path = root / "adam_shapes.json"
+    path.write_text(json.dumps(cfg))
+    c = load_config(str(path))
+    model = MMT4Caption(dataclasses.replace(c.model, vocab_size=vocab_size), c.tpu,
+                        dtype=torch.bfloat16, device=torch.device("meta"),
+                        caption_lm=caption_lm_config(c.raw))
+    labels = freeze_labels(model, c.train.task)
+    return [tuple(p.shape) for k, p in model.named_parameters() if labels[k] == "train"]
+
+
+def adam_step_ulps(ours, theirs, ps, qs, before) -> float:
+    """After one step of each from the same state: the largest difference of
+    p, m and v in float32 ulp at the larger of |value| and |change|."""
+    worst = 0.0
+    for p, q, b in zip(ps, qs, before):
+        got, want = ours.state[p], theirs.state[q]
+        for a, w, w0 in ((p, q, b), (got["exp_avg"], want["exp_avg"], 0.0),
+                         (got["exp_avg_sq"], want["exp_avg_sq"], 0.0)):
+            x = torch.maximum(w.abs(), (w - w0).abs())
+            unit = (torch.nextafter(x, torch.full_like(x, float("inf"))) - x).double()
+            worst = max(worst, float(((a.double() - w.double()).abs() / unit).max()))
+    return worst
+
+
+def adam_list_times(name, shapes, dev, card) -> dict:
+    """Phase 6d at one parameter list: one step against torch's capturable
+    update, then each update's ms by graph replay (``device_time``)."""
+    from vct_tpu_torch.ops import optim_kernels as ok
+    from vct_tpu_torch.train.optimizers import Adam
+
+    n = sum(math.prod(s) for s in shapes)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    ps = [torch.randn(s, generator=gen, device=dev) * 0.05 for s in shapes]
+    for p in ps:
+        p.grad = torch.randn(p.shape, generator=gen, device=dev)
+    betas = (0.9, 0.999)
+
+    def lr():
+        return torch.tensor(1e-4, device=dev)
+
+    # one step each from the same state (zero moments, step 0)
+    qs = [p.detach().clone() for p in ps]
+    before = [p.detach().clone() for p in ps]
+    for p, q in zip(ps, qs):
+        q.grad = p.grad
+    ours = Adam(ps, lr=lr(), betas=betas, capturable=True)
+    theirs = torch.optim.Adam(qs, lr=lr(), betas=betas, capturable=True, foreach=True)
+    theirs._warned_capturable_if_run_uncaptured = True
+    ours.step()
+    theirs.step()
+    worst = adam_step_ulps(ours, theirs, ps, qs, before)
+    del theirs, qs, before
+    if worst > 4.0:
+        fail(f"adam_update at the {name} list: {worst:.3g} ulp from torch's capturable Adam")
+    ms = {"kernel": device_time(ours.step, iters=3)}
+    del ours
+    torch.cuda.empty_cache()
+    torch_opt = torch.optim.Adam(ps, lr=lr(), betas=betas, capturable=True, foreach=True)
+    torch_opt._warned_capturable_if_run_uncaptured = True
+    ms["replaced"] = device_time(torch_opt.step, iters=3)
+    rows, _ = device_rows(torch_opt.step, 1)
+    divides = sorted((r for r in rows if "elementwise_kernel<128, 2" in r[0]
+                      or "elementwise_kernel_128__2" in r[0]), key=lambda r: -r[1])
+    replaced_rows = sorted(rows, key=lambda r: -r[1])[:4]
+    del torch_opt
+    torch.cuda.empty_cache()
+    fused = torch.optim.Adam(ps, lr=lr(), betas=betas, fused=True, capturable=True)
+    ms["library"] = device_time(fused.step, iters=3)
+    del fused
+    torch.cuda.empty_cache()
+    moments = [[torch.zeros_like(p) for p in ps] for _ in range(2)]
+    steps = [torch.zeros((), device=dev) for _ in ps]
+    plain_lr = lr()
+    ms["plain"] = device_time(lambda: ok.adam_update_reference(
+        ps, [p.grad for p in ps], *moments, steps, lr=plain_lr, betas=betas, eps=1e-8),
+        iters=3)
+    del moments, steps
+    bnd = bound_ms(ADAM_BYTES * n, 0.0, torch.float32)
+    fast = {k: v for k, v in ms.items() if v < bnd[0]}
+    if fast:
+        fail(f"adam at the {name} list: {fast} ms under the {bnd[0]:.4f} ms bound (an empty graph?)")
+    for p in ps:
+        p.grad = None
+    del ps
+    torch.cuda.empty_cache()
+    report = {"timer": "graph_replay", "tensors": len(shapes), "elements": n, "ms": ms["kernel"],
+              "bound_ms": bnd[0], "bound_by": bnd[1], "roofline": bnd[0] / ms["kernel"],
+              "replaced_ms": ms["replaced"], "plain_ms": ms["plain"],
+              "library_ms": ms["library"],
+              "max_ulp_vs_replaced": worst,
+              "replaced_top_kernels": [[r[0][:90], r[1], r[2]] for r in replaced_rows],
+              "replaced_elementwise_128_2": [[r[0][:160], r[1], r[2]] for r in divides]}
+    say(f"  adam_update at the {name} list ({len(shapes)} tensors, {n} elements): "
+        f"{ms['kernel']:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}, "
+        f"{100 * bnd[0] / ms['kernel']:.1f}%); replaced multi-tensor {ms['replaced']:.4f} ms, "
+        f"plain {ms['plain']:.4f} ms, library (fused) {ms['library']:.4f} ms; "
+        f"{worst:.2f} ulp from the replaced update after one step [{card}]")
+    for r in divides:
+        say(f"    replaced update's broadcasting kernel: {r[0][:160]} {r[1]:.4f} ms, "
+            f"{r[2]:.0f} a step")
+    return report
+
+
+def adam_step_memory(repo, root, vocab, dev, card) -> dict:
+    """The graphed MSVD train step (batch 64): the peak allocated bytes over
+    its first call (eager step and capture) and two replays, above what was
+    allocated before them (the model and the batch), and its graph pool, with
+    torch's capturable Adam and with the one-pass update."""
+    import gc
+
+    from vct_tpu_torch.ops import optim_kernels as ok
+    from vct_tpu_torch.train.optimizers import build_optimizer, settle_optimizer
+    from vct_tpu_torch.train.state import make_train_state
+    from vct_tpu_torch.train.step import make_train_step
+
+    report = {}
+    for label in ("replaced", "kernel"):
+        tr = make_trainer(repo, root, vocab, dev)
+        batch = first_batch(tr)
+        if label == "kernel":
+            opt = build_optimizer(tr.cfg.train, tr.model)
+        else:
+            params = [p for g in tr.state.optimizer.param_groups for p in g["params"]]
+            opt = settle_optimizer(torch.optim.Adam(params, lr=tr.cfg.train.optimizer.learning_rate,
+                                                    betas=tuple(tr.cfg.train.optimizer.beta)))
+            opt._warned_capturable_if_run_uncaptured = True
+        state = make_train_state(tr.model, opt, device=dev, seed=SEED)
+        runner = make_train_step("caption")
+        del tr
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        counted = (ok.adam_update.launches, ok.adam_update.elements)
+        for _ in range(3):
+            runner(state, batch)
+        torch.cuda.synchronize()
+        report[f"msvd_step_peak_gb_{label}"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+        if label == "kernel":  # the first call's eager step, then two replays
+            trainable = sum(p.numel() for g in opt.param_groups for p in g["params"])
+            got = (ok.adam_update.launches - counted[0], ok.adam_update.elements - counted[1])
+            if got != (3, 3 * trainable) or runner.replays != 2:
+                fail(f"graphed MSVD step: adam_update counted {got} over 3 steps "
+                     f"({runner.replays} replays), expected (3, {3 * trainable})")
+            report["msvd_trainable"] = trainable
+        report[f"msvd_step_pool_mb_{label}"] = set_readings(runner)[0] / 2 ** 20
+        del runner, state, opt, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    say(f"  graphed MSVD train step: peak {report['msvd_step_peak_gb_replaced']:.3f} GB above the "
+        f"model and batch, graph "
+        f"pool {report['msvd_step_pool_mb_replaced']:.1f} MiB with the replaced update; "
+        f"{report['msvd_step_peak_gb_kernel']:.3f} GB, "
+        f"{report['msvd_step_pool_mb_kernel']:.1f} MiB with adam_update [{card}]")
+    return report
+
+
+def run_adam(repo: Path, root: Path, vocab: Path, dev, card) -> dict:
+    """Phase 6d -> report."""
+    t0 = time.perf_counter()
+    report = {"msvd": adam_list_times("MSVD", trainable_shapes(repo, root, vocab), dev, card),
+              "lfm2": adam_list_times("LFM2-8B-A1B cell", trainable_shapes(
+                  repo, root, vocab, LFM2_CELL, 65536), dev, card)}
+    report.update(adam_step_memory(repo, root, vocab, dev, card))
+    report["seconds"] = time.perf_counter() - t0
+    say(f"  phase adam took {report['seconds']:.1f} s [{card}]")
+    return report
+
+
 def run_lfm2_training(repo: Path, root: Path, vocab: Path, dev) -> dict:
     """The Trainer's epochs with the LFM2 caption LM (``LFM2_SMALL`` on the
     MSVD recipe, bf16, Adam at 1e-3): epoch 0 takes the graphed step's first
     call and capture; the counters are zeroed and epoch 1 replays every
     step, which adds, per step and MoE layer, one routing, two grouped
-    forward, two dX and two dW launches. The loss is finite and falls."""
+    forward, two dX and two dW launches, and per step one ``adam_update``
+    over every trainable element. The loss is finite and falls."""
     from vct_tpu_torch.cli.common import load_config
     from vct_tpu_torch.ops import moe_kernels as mk
+    from vct_tpu_torch.ops import optim_kernels as ok
     from vct_tpu_torch.train.loop import Trainer
 
     cfg = json.loads(train_config(repo, root, vocab, 1).read_text())
@@ -3092,15 +3304,20 @@ def run_lfm2_training(repo: Path, root: Path, vocab: Path, dev) -> dict:
     trainer = Trainer(load_config(str(path)), device=dev, log=lambda *_: None)
     trainer.train_epoch(0)
     first = list(trainer.step_losses)
-    for fn in mk.WRAPPERS:
+    for fn in (*mk.WRAPPERS, ok.adam_update):
         fn.launches = 0
+    ok.adam_update.elements = 0
     trainer.train_epoch(1)
     torch.cuda.synchronize()
     second = list(trainer.step_losses)
-    got = {fn.__name__: fn.launches for fn in mk.WRAPPERS}
+    got = {fn.__name__: fn.launches for fn in (*mk.WRAPPERS, ok.adam_update)}
+    trainable = sum(p.numel() for g in trainer.optimizer.param_groups for p in g["params"])
+    if ok.adam_update.elements != trainable * len(second):
+        fail(f"lfm2 train: adam_update covered {ok.adam_update.elements} elements over "
+             f"{len(second)} replayed steps, expected {trainable} a step")
     moe = len(trainer.model.cap_decoder.moe_layers())
     per_step = {"moe_route": moe, "grouped_forward": 2 * moe, "grouped_dx": 2 * moe,
-                "grouped_dw": 2 * moe}
+                "grouped_dw": 2 * moe, "adam_update": 1}
     want = {k: v * len(second) for k, v in per_step.items()}
     runner = trainer.train_step
     if len(first) != TRAIN_STEPS or len(second) != TRAIN_STEPS:
@@ -5817,11 +6034,13 @@ def run_train_graphs(repo: Path, root: Path, long_root: Path, vocab: Path, cfg, 
                                    LONG_GRAPH_STEPS)
         ((graph, _),) = next(iter(long_steps[0]._sets.values())).graphs
         inside = {f"{fn.__name__}.{attr}": n for (fn, attr), n in graph.launched.items()}
+        trainable = sum(p.numel() for g in long_tr.optimizer.param_groups for p in g["params"])
         want_inside = {"fused_attention_trainable.launches": 7,
                        "fused_attention_trainable.backward_launches": 7,
                        "softmax_stats.launches": 1, "clipped_prob_stats.launches": 1,
                        "sce_backward_tiles.launches": 1, "embed_gather.launches": 1,
-                       "embed_grad.launches": 1}
+                       "embed_grad.launches": 1, "adam_update.launches": 1,
+                       "adam_update.elements": trainable}
         if inside != want_inside:
             fail(f"train graphs: the long step's graph holds {inside}, expected {want_inside}")
         after = attention_counts()
@@ -6187,6 +6406,9 @@ def main() -> int:
         if "--embedding" in sys.argv[1:]:
             say(json.dumps(run_embedding(dev, card)))
             return 0
+        if "--adam" in sys.argv[1:]:
+            say(json.dumps(run_adam(repo, work, vocab, dev, card)))
+            return 0
         if "--loss-widths" in sys.argv[1:]:
             say(json.dumps(loss_kernel_times(dev, card)))
             return 0
@@ -6222,6 +6444,9 @@ def main() -> int:
         say("phase lfm2 (6c): the routed experts' kernels at the LFM2-8B-A1B cell's shapes against "
             "their plain versions and the library loop; the Trainer's graphed LFM2 step")
         lfm2_report = {**run_lfm2(dev, card), "train": run_lfm2_training(repo, work, vocab, dev)}
+        say("phase adam (6d): the one-pass Adam update at the MSVD and LFM2-8B-A1B parameter "
+            "lists against the update it replaced, its plain version and torch's fused Adam")
+        adam_report = run_adam(repo, work, vocab, dev, card)
         say(f"phase train: vct_tpu_torch.cli.train on {TRAIN_STEPS} batches of {BATCH}, "
             f"then a resumed epoch")
         launches.update(run_training(repo, work, vocab))
@@ -6254,7 +6479,7 @@ def main() -> int:
                   **time_captions(model, fw, tm, card)}
         loss_times, loss_report = time_loss_kernels(dev, card)
         kernel_times.update(loss_times)
-        report.update(loss_report, **embedding_report, lfm2=lfm2_report)
+        report.update(loss_report, **embedding_report, lfm2=lfm2_report, adam=adam_report)
         report.update(time_train_steps(repo, work, vocab, dev, card))
 
         say("phase attn-kernels: the attention kernels against their plain versions")

@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import sys
 import threading
 import time
 from typing import Any, Callable, Dict, Hashable, Iterator, List, Optional, Sequence, Tuple
@@ -43,7 +44,7 @@ Counter = Tuple[Callable, str]
 
 
 def counters() -> List[Counter]:
-    """Every kernel wrapper's launch counter, as (wrapper, attribute)."""
+    """Every kernel wrapper's counter, as (wrapper, attribute)."""
     from vct_tpu_torch.ops import attention_kernels as ak
     from vct_tpu_torch.ops import decode_kernels as dk
     from vct_tpu_torch.ops import embedding_kernels as ek
@@ -52,8 +53,14 @@ def counters() -> List[Counter]:
 
     fns = (*dk.WRAPPERS, *lk.WRAPPERS, *ek.WRAPPERS, *mk.WRAPPERS, ak.fused_attention,
            ak.fused_attention_trainable)
-    return [*((fn, "launches") for fn in fns),
-            (ak.fused_attention_trainable, "backward_launches")]
+    out = [*((fn, "launches") for fn in fns),
+           (ak.fused_attention_trainable, "backward_launches")]
+    # the optimizer's update, once an optimizer has imported it (serving and
+    # eval import nothing for it)
+    optim = sys.modules.get("vct_tpu_torch.ops.optim_kernels")
+    if optim is not None:
+        out += [(optim.adam_update, "launches"), (optim.adam_update, "elements")]
+    return out
 
 
 def read_counts() -> Dict[Counter, int]:

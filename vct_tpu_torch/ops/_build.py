@@ -28,6 +28,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _IP = ctypes.POINTER(ctypes.c_int)
+_LL = ctypes.c_longlong
 
 
 def _nvcc() -> str:
@@ -146,4 +147,11 @@ def load_library() -> ctypes.CDLL:
     lib.vct_moe_route.restype = _I
     lib.vct_grouped_gemm.argtypes = [_I] + [_P] * 6 + [_I] * 5 + [_P]
     lib.vct_grouped_gemm.restype = _I
+    lib.vct_adam_capacity.argtypes = []
+    lib.vct_adam_capacity.restype = _I
+    lib.vct_adam_plan.argtypes = [_LL, _I, _IP]
+    lib.vct_adam_plan.restype = _I
+    lib.vct_adam_update.argtypes = [_I, ctypes.POINTER(ctypes.c_ulonglong),
+                                    ctypes.POINTER(_LL), _P] + [_F] * 6 + [_P]
+    lib.vct_adam_update.restype = _I
     return lib

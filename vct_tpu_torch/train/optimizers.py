@@ -1,12 +1,14 @@
 """Optimizers, LR schedules and task freezing (port of
 ``vct_tpu/train/optimizers.py``).
 
-Adam / AdamW / SGD selected by ``train.optimizer.name`` on ``torch.optim``;
-CosineAnnealingLR or ReduceLROnPlateau stepped per epoch as host-side objects
-with torch's own semantics, whose LR is pushed into the optimizer's param
-groups (on a card into a device tensor, in place: ``settle_optimizer``). Freezing follows the reference's ``mode`` switch: a frozen module's
-parameters are simply not handed to the optimizer (the loss still flows
-through them).
+Adam / AdamW / SGD selected by ``train.optimizer.name`` on ``torch.optim``
+(Adam and AdamW as subclasses whose update is one pass of
+``ops.optim_kernels.adam_update``); CosineAnnealingLR or ReduceLROnPlateau
+stepped per epoch as host-side objects with torch's own semantics, whose LR
+is pushed into the optimizer's param groups (on a card into a device tensor,
+in place: ``settle_optimizer``). Freezing follows the reference's ``mode``
+switch: a frozen module's parameters are simply not handed to the optimizer
+(the loss still flows through them).
 """
 
 from __future__ import annotations
@@ -142,6 +144,74 @@ def freeze_labels(model: nn.Module, task: str) -> Dict[str, str]:
             for name, _ in model.named_parameters()}
 
 
+class _OnePassAdam:
+    """``step()`` of torch's Adam and AdamW as one ``adam_update`` a param
+    group: the kernel on the card (launched eagerly, or captured by a CUDA
+    graph of the train step), its plain version on the host. Everything
+    else is torch's: the param groups (``lr``, ``betas``, ``eps``,
+    ``weight_decay``, ``capturable``), ``state[p]`` with ``step`` (a 0-dim
+    float32 tensor on the parameter's device), ``exp_avg`` and
+    ``exp_avg_sq``, ``state_dict`` and ``load_state_dict``: a checkpoint of
+    torch's Adam loads here and the other way round. AMSGrad, ``maximize``
+    and Adam's L2 decay (``weight_decay`` without ``decoupled_weight_decay``,
+    which ``build_optimizer`` never builds) are refused."""
+
+    def __init__(self, params, **kw):
+        # imported with the first optimizer, before any capture of its step,
+        # so that graphs.counters() holds the update's counters from then on
+        from vct_tpu_torch.ops import optim_kernels  # noqa: F401
+
+        super().__init__(params, **kw)
+        for group in self.param_groups:
+            _refuse(group)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        from vct_tpu_torch.ops.optim_kernels import adam_update
+
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            _refuse(group)
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            states = [self._state_of(p) for p in params]
+            decay = group["weight_decay"] if group.get("decoupled_weight_decay") else 0.0
+            adam_update(params, [p.grad for p in params], [s["exp_avg"] for s in states],
+                        [s["exp_avg_sq"] for s in states], [s["step"] for s in states],
+                        lr=group["lr"], betas=group["betas"], eps=group["eps"],
+                        weight_decay=decay)
+        return loss
+
+    def _state_of(self, p: torch.Tensor) -> Dict[str, torch.Tensor]:
+        state = self.state[p]
+        if not state:  # torch's lazy state, its step on the parameter's device
+            state["step"] = torch.zeros((), dtype=torch.float32, device=p.device)
+            state["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+            state["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+        return state
+
+
+def _refuse(group: Dict[str, Any]) -> None:
+    for key in ("amsgrad", "maximize"):
+        if group.get(key):
+            raise ValueError(f"{key}: the one-pass Adam update does not run it")
+    if group["weight_decay"] and not group.get("decoupled_weight_decay"):
+        raise ValueError("Adam's L2 weight decay: the one-pass update decays decoupled "
+                         "(AdamW) only")
+
+
+class Adam(_OnePassAdam, torch.optim.Adam):
+    pass
+
+
+class AdamW(_OnePassAdam, torch.optim.AdamW):
+    pass
+
+
 def build_optimizer(cfg: TrainConfig, model: nn.Module) -> torch.optim.Optimizer:
     """The optimizer over the task's trainable parameters, set up for their
     device by ``settle_optimizer``."""
@@ -153,13 +223,12 @@ def build_optimizer(cfg: TrainConfig, model: nn.Module) -> torch.optim.Optimizer
         if o.weight_decay:
             # the reference dispatch: 'adam' with weight_decay != 0 builds AdamW
             # (decoupled decay)
-            opt = torch.optim.AdamW(params, lr=o.learning_rate, betas=betas,
-                                    weight_decay=o.weight_decay)
+            opt = AdamW(params, lr=o.learning_rate, betas=betas,
+                        weight_decay=o.weight_decay)
         else:
-            opt = torch.optim.Adam(params, lr=o.learning_rate, betas=betas)
+            opt = Adam(params, lr=o.learning_rate, betas=betas)
     elif o.name == "adamw":
-        opt = torch.optim.AdamW(params, lr=o.learning_rate, betas=betas,
-                                weight_decay=o.weight_decay)
+        opt = AdamW(params, lr=o.learning_rate, betas=betas, weight_decay=o.weight_decay)
     elif o.name == "sgd":
         opt = torch.optim.SGD(params, lr=o.learning_rate, momentum=o.momentum or 0.0)
     else:
@@ -173,12 +242,13 @@ def settle_optimizer(optimizer: torch.optim.Optimizer) -> torch.optim.Optimizer:
     On a card the update must be one that a CUDA graph can capture and
     replay (``train.step.GraphedTrainStep``): the learning rate is a float32
     device tensor, which ``set_learning_rate`` fills in place so that a
-    replay reads the new value; Adam and AdamW run ``capturable`` (step
-    count and bias corrections on the device); SGD runs ``fused``, whose
-    update takes a tensor learning rate on the device (the default
-    multi-tensor SGD reads a tensor learning rate on the host, which a
-    capture refuses). On the host: float learning rates, neither flag. Call
-    it again after ``load_state_dict``, whose param groups are the
+    replay reads the new value; Adam and AdamW keep their step counts on the
+    device, where the one-pass update reads them (``capturable``, which also
+    keeps them there through torch's ``load_state_dict``); SGD runs
+    ``fused``, whose update takes a tensor learning rate on the device (the
+    default multi-tensor SGD reads a tensor learning rate on the host, which
+    a capture refuses). On the host: float learning rates, neither flag.
+    Call it again after ``load_state_dict``, whose param groups are the
     checkpoint's."""
     for group in optimizer.param_groups:
         if not group["params"]:
@@ -201,10 +271,6 @@ def settle_optimizer(optimizer: torch.optim.Optimizer) -> torch.optim.Optimizer:
                                                          torch.float32)
         elif isinstance(optimizer, torch.optim.SGD):
             group["fused"] = True if card else None
-    # every shape's first train step on the card runs eagerly by design: the
-    # once-per-optimizer warning that a capturable optimizer stepped outside
-    # a capture says nothing here
-    optimizer._warned_capturable_if_run_uncaptured = True
     return optimizer
 
 
